@@ -1,9 +1,15 @@
-"""Command-line interface of the PyTorch port: prove / verify / test.
+"""Command-line interface of the PyTorch port: prove / verify / test / batch-verify.
 
 Usage:
   python -m bulletproofspp_tpu_torch.cli prove  [spec] [witness] [commits] [proof] [--device cuda|cpu]
   python -m bulletproofspp_tpu_torch.cli verify [spec] [commits] [proof] [--device cuda|cpu]
   python -m bulletproofspp_tpu_torch.cli test   [spec] [witness] [commits] [proof] [--device cuda|cpu]
+  python -m bulletproofspp_tpu_torch.cli batch-verify spec coms1 proof1 [coms2 proof2 ...] [--device cuda|cpu]
+
+``batch-verify`` decodes N same-schema proofs (one batched device
+decompress) and checks them as one merged zero-check MSM
+(``bulletproofspp_tpu.core.batch.batch_verify_encoded``); it prints
+``Batch of N: True|False`` and exits 0 or 1.
 
 Installs ``TorchEngine(device)`` as the process's engine and hands the
 command to ``bulletproofspp_tpu.cli.main`` (the shared, JAX-free protocol
@@ -24,7 +30,7 @@ from bulletproofspp_tpu.core.engine import set_default_engine
 
 from .ops.engine import TorchEngine
 
-COMMANDS = ("prove", "verify", "test")
+COMMANDS = ("prove", "verify", "test", "batch-verify")
 
 
 def main(argv=None):

@@ -2,7 +2,7 @@
 //
 // Inside a kernel an element is 8 little-endian 32-bit words; every function
 // returns a value < 2^256 (not necessarily < p), which is the "strict" form
-// of the port's limb planes.  Products use 32x32->64 multiplies with 64-bit
+// of the port's limb planes; fe_canon gives the value < p.  Products use 32x32->64 multiplies with 64-bit
 // carry chains, and the reduction folds the high half through
 // 2^256 = 2^32 + 977 (mod p).  Integers only.
 //
@@ -186,6 +186,44 @@ __device__ __forceinline__ Fe fe_mul_small(const Fe& a, u32 k) {
   }
   fe_fold(r, acc);
   return r;
+}
+
+// Strict -> canonical (< p): a >= p iff a + C carries out of 2^256, and then
+// the low 256 bits of a + C are a - p (a < 2^256 < 2p, so once is enough).
+__device__ __forceinline__ Fe fe_canon(const Fe& a) {
+  Fe r;
+  u64 acc = (u64)a.w[0] + 977u;
+  r.w[0] = (u32)acc;
+  acc >>= 32;
+  acc += (u64)a.w[1] + 1u;
+  r.w[1] = (u32)acc;
+  acc >>= 32;
+#pragma unroll
+  for (int k = 2; k < 8; k++) {
+    acc += a.w[k];
+    r.w[k] = (u32)acc;
+    acc >>= 32;
+  }
+  return acc ? r : a;
+}
+
+// a > b as 256-bit integers (the highest differing word decides).
+__device__ __forceinline__ bool fe_gt(const Fe& a, const Fe& b) {
+  bool gt = false, decided = false;
+#pragma unroll
+  for (int k = 7; k >= 0; k--) {
+    gt = decided ? gt : a.w[k] > b.w[k];
+    decided = decided || a.w[k] != b.w[k];
+  }
+  return gt;
+}
+
+__device__ __forceinline__ bool fe_eq(const Fe& a, const Fe& b) {
+  Fe x = fe_canon(a), y = fe_canon(b);
+  u32 d = 0;
+#pragma unroll
+  for (int k = 0; k < 8; k++) d |= x.w[k] ^ y.w[k];
+  return d == 0;
 }
 
 }  // namespace bppp

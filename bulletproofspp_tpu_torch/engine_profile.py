@@ -1,6 +1,7 @@
-"""Where the time of a prove and a verify goes on the card, by engine call.
+"""Where the time of a prove, a verify and a batch verify goes on the card, by engine call.
 
     python -m bulletproofspp_tpu_torch.engine_profile [--repeat 2] [--plain fold]
+    python -m bulletproofspp_tpu_torch.engine_profile --batch 1024 [--repeat 2]
 
 For examples/64bit and examples/128by64: one warm-up prove and verify,
 then ``--repeat`` timed runs of each.  Every ``TorchEngine`` call is
@@ -10,6 +11,14 @@ those of ``range_proof.prove``; verify seconds those of ``decode_proof``
 and ``verify``.  Then one 64bit prove runs under ``torch.profiler``: the
 device time of each kernel, their sum, and the device's idle share
 against the wall time of the same prove without the profiler.
+
+``--batch N`` instead proves N distinct proofs of examples/64bit (amount
+10^9 + i, seed ``bench<i>``, as the JAX package's ``bench.py`` batch) through the
+engine, then times ``core.batch.batch_verify_encoded`` over all of them
+(one warm-up, then ``--repeat`` runs): seconds by engine call
+(``decompress``, ``msm``), the rest as host seconds (parsing, transcript
+replay, merging), the number of decompressed points and the merged MSM's
+points and lane bucket.
 
 ``--plain NAME`` swaps kernel NAME's wrapper (``ops.kernels``) for its
 plain PyTorch version for the whole run, to see what the kernel saves end
@@ -31,10 +40,11 @@ import torch
 
 from bulletproofspp_tpu import cli as base_cli
 from bulletproofspp_tpu.core import range_proof as rpm
+from bulletproofspp_tpu.core.batch import batch_verify_encoded
 from bulletproofspp_tpu.io_ import schema as schema_mod
 
 from .ops import kernels
-from .ops.engine import TorchEngine
+from .ops.engine import TorchEngine, _bucket
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 CALLS = ("basevec", "bv_pad", "bv_split", "msm", "msm_many", "fold_bv", "complete_square",
@@ -42,19 +52,25 @@ CALLS = ("basevec", "bv_pad", "bv_split", "msm", "msm_many", "fold_bv", "complet
 
 
 class TimedEngine(TorchEngine):
-    """TorchEngine whose outermost calls are synchronized and timed by kind
-    (a call made from inside another, such as msm -> msm_many, counts only
-    in the outer one)."""
+    """TorchEngine whose outermost calls are synchronized (on a CUDA device)
+    and timed by kind (a call made from inside another, such as msm ->
+    msm_many, counts only in the outer one)."""
 
     def __init__(self, device):
         super().__init__(device)
         self.seconds = collections.defaultdict(float)
         self.calls = collections.Counter()
+        self.sizes = {}  # kind -> length of the last outer call's first argument
         self._depth = 0
 
     def reset(self):
         self.seconds.clear()
         self.calls.clear()
+        self.sizes.clear()
+
+    def sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
 
 
 def _timed(name):
@@ -63,14 +79,16 @@ def _timed(name):
     def call(self, *a, **k):
         if self._depth:
             return inner(self, *a, **k)
-        torch.cuda.synchronize()
+        if a and isinstance(a[0], (list, tuple)):
+            self.sizes[name] = len(a[0])
+        self.sync()
         t0 = time.perf_counter()
         self._depth += 1
         try:
             return inner(self, *a, **k)
         finally:
             self._depth -= 1
-            torch.cuda.synchronize()
+            self.sync()
             self.seconds[name] += time.perf_counter() - t0
             self.calls[name] += 1
 
@@ -130,6 +148,35 @@ def run_case(name, eng, repeat):
                "prove_by_call": prove_calls, "verify_by_call": _by_call(eng)}
 
 
+def batch_proofs(indices, eng):
+    """Proof i of examples/64bit (amount 10^9 + i, seed bench<i>) for each i
+    of ``indices``, proved through ``eng``: (setup, [(coms bytes, proof
+    bytes)])."""
+    spec, setup, _ = _load("64bit")
+    blobs = []
+    for i in indices:
+        values = base_cli._resolve_values(spec, schema_mod.parse_witness([{"amount": 10**9 + i}]))
+        blobs.append(rpm.encode_proof(setup, rpm.prove(setup, values, f"bench{i}".encode(), eng)))
+    return setup, blobs
+
+
+def run_batch(setup, blobs, eng, repeat):
+    """``repeat`` timed ``batch_verify_encoded`` runs over all the proofs."""
+    entries = [(setup, c, p) for c, p in blobs]
+    for _ in range(repeat):
+        eng.reset()
+        t0 = time.perf_counter()
+        ok = batch_verify_encoded(entries, eng)
+        eng.sync()
+        verify_s = time.perf_counter() - t0
+        if not ok:
+            raise AssertionError("a batch of valid proofs was rejected")
+        yield {"batch": len(entries), "verify_s": verify_s, "by_call": _by_call(eng),
+               "host_s": verify_s - sum(eng.seconds.values()),
+               "decompressed_points": eng.sizes["decompress"],
+               "msm_points": eng.sizes["msm"], "msm_lanes": _bucket(2 * eng.sizes["msm"])}
+
+
 def profile_prove(name, eng):
     """Device time per kernel over one prove, and the idle share against
     the wall time of one prove without the profiler."""
@@ -142,6 +189,14 @@ def profile_prove(name, eng):
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _prove(case, eng)
+    device_s, top = device_time(prof)
+    return {"profile": name, "prove_wall_s": wall, "device_s": device_s,
+            "device_idle_share": 1 - device_s / wall, "top_kernels_ms_launches": top}
+
+
+def device_time(prof):
+    """A finished ``torch.profiler`` run -> (device seconds in kernels and
+    copies, {kernel: [ms, launches]} of the 8 largest)."""
     per = collections.Counter()
     launches = collections.Counter()
     for ev in prof.key_averages():
@@ -152,16 +207,15 @@ def profile_prove(name, eng):
             key = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
             per[key] += dev_us
             launches[key] += ev.count
-    device_s = sum(per.values()) / 1e6
     top = {k: [round(v / 1e3, 4), launches[k]] for k, v in per.most_common(8)}
-    return {"profile": name, "prove_wall_s": wall, "device_s": device_s,
-            "device_idle_share": 1 - device_s / wall, "top_kernels_ms_launches": top}
+    return sum(per.values()) / 1e6, top
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="engine_profile")
     ap.add_argument("--repeat", type=int, default=2)
     ap.add_argument("--plain", action="append", default=[], choices=sorted(kernels.KERNELS))
+    ap.add_argument("--batch", type=int, default=0, help="time a batch verify of N proofs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("engine_profile needs a CUDA card")
@@ -171,6 +225,14 @@ def main(argv=None) -> int:
         setattr(kernels, name, getattr(kernels, f"{name}_plain"))
     eng = TimedEngine("cuda")
     tag = "plain " + ",".join(args.plain) if args.plain else "kernels"
+    if args.batch:
+        t0 = time.perf_counter()
+        setup, blobs = batch_proofs(range(args.batch), eng)
+        print(json.dumps({"run": tag, "proved": args.batch, "prove_s": time.perf_counter() - t0}),
+              flush=True)
+        for row in run_batch(setup, blobs, eng, 1 + args.repeat):  # the first is a warm-up
+            print(json.dumps({"run": tag, **row}), flush=True)
+        return 0
     for case in ("64bit", "128by64"):
         for row in run_case(case, eng, args.repeat):
             print(json.dumps({"run": tag, **row}), flush=True)

@@ -119,9 +119,7 @@ def glv_recode_batch(scalars):
             halves.extend(glv.split(s))
         return glv.recode_batch(halves)
     n = len(scalars)
-    buf = np.empty((n, 4), dtype="<u8")
-    for i, s in enumerate(scalars):
-        buf[i] = np.frombuffer(int(s).to_bytes(32, "little"), dtype="<u8")
+    buf = np.frombuffer(b"".join(int(s).to_bytes(32, "little") for s in scalars), dtype="<u8").copy()
     absd = np.empty((glv.ROWS, 2 * n), dtype=np.uint32)
     sgn = np.empty((glv.ROWS, 2 * n), dtype=np.uint32)
     rc = lib.glv_recode_batch(

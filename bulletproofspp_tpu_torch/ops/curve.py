@@ -6,9 +6,9 @@ homogeneous projective (X:Y:Z) with identity (0:1:0).  One branchless
 stream handles P+Q, P+P, P+(-P), P+O and O+Q.  Points are tuples of
 (16, *batch) int64 limb planes (``ops.limb``).
 
-``padd`` is the public complete addition: on a CUDA tensor it launches
-the hand-written kernel (``ops.kernels.padd``), on a CPU tensor it runs
-the plain version below.  The ``*_loose`` forms keep lazy limbs between
+``padd`` and ``decompress`` are public entries: on a CUDA tensor they
+launch the hand-written kernel (``ops.kernels.padd`` / ``.decompress``),
+on a CPU tensor they run its plain version.  The ``*_loose`` forms keep lazy limbs between
 point operations (``ops.limb`` forms); loops that chain many point ops
 (Horner, basis folding) use them and tighten once at the end.
 """
@@ -157,12 +157,9 @@ def to_affine_host(p):
 def decompress(x, sign):
     """Batched point decompression: x (16, L) canonical coordinates, sign
     (L,) int64 in {0, 1} ("y is the larger root").  Returns (y, ok): y
-    canonical with the sign-selected root, ok = x^3 + 7 was a residue
-    (bulletproofspp_tpu/ops/curve.py:225 decompress_kernel)."""
-    v = limb.add(limb.mul(limb.mul(x, x), x), limb.const(7, x).expand_as(x))
-    r = limb.sqrt_candidate(v)
-    ok = limb.eq(limb.mul(r, r), v)
-    rn = limb.normalize(r)
-    nn = limb.normalize(limb.neg(r))
-    big = limb.gt(rn, nn)  # yInt > negYInt
-    return limb.select(big == (sign > 0), rn, nn), ok
+    canonical with the sign-selected root, ok = x^3 + 7 was a residue.
+    The CUDA kernel on a CUDA tensor (``ops.kernels.decompress``), the
+    plain version (``ops.kernels.decompress_plain``) on a CPU tensor."""
+    from . import kernels
+
+    return kernels.decompress(x, sign)

@@ -183,7 +183,7 @@ class TorchEngine:
         absd_all, sgn_all = native.glv_recode_batch(all_scalars)
         K = len(entries)
         L = _bucket(2 * max(c for _, c in entries))
-        digits = np.zeros((2, K, glv.ROWS, L), np.int64)
+        digits = np.zeros((2, K, glv.ROWS, L), np.uint8)  # 1/8 of int64's upload
         lanes = []
         off = 0
         for k, (comps, count) in enumerate(entries):
@@ -196,7 +196,7 @@ class TorchEngine:
         px, py, pz = _interleave_endo(
             *(torch.stack([dp.coords()[c] for dp in lanes], 1) for c in range(3))
         )
-        dig = limb.planes_from_numpy(digits, self.device)
+        dig = torch.from_numpy(digits).to(self.device).to(torch.int64)
         acc = msm.msm(px, py, pz, dig[0], dig[1])
         pts = curve.affine_from_normalized(limb.planes_to_numpy(curve.normalize3(*acc)))
         if not empty:

@@ -1,27 +1,30 @@
 """The port's hand-written CUDA kernels, their plain versions and launch counts.
 
-Seven kernels carry the prove/verify main path.  Six replace Pallas TPU
-kernels of ``bulletproofspp_tpu/ops/pallas_field.py`` (padd, horner,
-reduce_block, tail_horner, table_flat, select_reduce); the seventh,
-fold, replaces the XLA-only ``fold_mul_kernel`` of
-``bulletproofspp_tpu/ops/msm.py``, which as plain PyTorch took most of
-the prove time on the card.  Each keeps the contract at the boundary:
+Nine kernels.  Seven replace Pallas TPU kernels of
+``bulletproofspp_tpu/ops/pallas_field.py`` (padd, horner, reduce_block,
+tail_horner, table_flat, select_reduce, and select_reduce_fused for MSMs
+of 2^21 lanes and more); two replace XLA-only functions that as plain
+PyTorch dominated the card's time: fold (``fold_mul_kernel`` of
+``bulletproofspp_tpu/ops/msm.py``, basis folding in prove) and
+decompress (``decompress_kernel`` of ``bulletproofspp_tpu/ops/curve.py``,
+proof decoding in verify).  Each keeps the contract at the boundary:
 (16, N) int64 planes of 16-bit limbs, strict in and out (``ops.limb``);
 multiple tables are flat, entry e and limb i of lane j at row 16 e + i
-of a (16 E, N) plane.  Sources: ``csrc/kernels.cu`` (entries),
-``csrc/curve.cuh`` and ``csrc/field.cuh`` (device functions).
+of a (16 E, N) plane.  Sources: one library per entry file of
+``SOURCES`` (``csrc/*.cu``), all including ``csrc/curve.cuh`` and
+``csrc/field.cuh`` (device functions).
 
 Every wrapper takes the plain version, written below in PyTorch, only for
 tensors that lie on the CPU; on a CUDA tensor it launches its kernel or
 raises.  It adds one to ``KERNELS[name].launches`` where it launches, and
 nowhere else.  The library is built from the sources in the repository
 at first use with the nvcc of PyTorch's CUDA home
-(``-gencode arch=compute_90a,code=sm_90a``) into the git-ignored
-``_build`` directory, keyed by a hash of the sources, and loaded with
-ctypes.
+(``-gencode arch=compute_90a,code=sm_90a``), one nvcc process per source
+file, all started together, into the git-ignored ``_build`` directory,
+keyed by a hash of the file and the headers, and loaded with ctypes.
 
-What bounds the kernels on the H100 and what their design does about it
-is in the header of ``csrc/kernels.cu``.
+What bounds each kernel on the H100 and what its design does about it
+is in the header of its source file.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import dataclasses
 import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -41,7 +45,8 @@ from . import curve, limb
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("kernels.cu", "curve.cuh", "field.cuh")
+SOURCES = ("kernels.cu", "select_reduce_fused.cu", "decompress.cu")  # one library each
+HEADERS = ("curve.cuh", "field.cuh")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -52,10 +57,12 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 @dataclasses.dataclass
 class Kernel:
-    """One CUDA kernel: its C entry and argument types, the TPU kernel it
-    replaces, and the count of launches made through its wrapper."""
+    """One CUDA kernel: its source file, C entry and argument types, the
+    TPU kernel it replaces, and the count of launches made through its
+    wrapper."""
 
     name: str
+    source: str
     entry: str
     argtypes: list
     replaces: str
@@ -65,20 +72,24 @@ class Kernel:
 KERNELS = {
     k.name: k
     for k in (
-        Kernel("padd", "bppp_padd", [_P] * 9 + [_I64, _P],
+        Kernel("padd", "kernels.cu", "bppp_padd", [_P] * 9 + [_I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:759"),
-        Kernel("horner", "bppp_horner", [_P] * 6 + [_I64, _I64, _P],
+        Kernel("horner", "kernels.cu", "bppp_horner", [_P] * 6 + [_I64, _I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:446"),
-        Kernel("reduce_block", "bppp_reduce_block", [_P] * 6 + [_I64, _I32, _P],
+        Kernel("reduce_block", "kernels.cu", "bppp_reduce_block", [_P] * 6 + [_I64, _I32, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:490"),
-        Kernel("tail_horner", "bppp_tail_horner", [_P] * 6 + [_I64, _I64, _P],
+        Kernel("tail_horner", "kernels.cu", "bppp_tail_horner", [_P] * 6 + [_I64, _I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:742"),
-        Kernel("table_flat", "bppp_table_flat", [_P] * 6 + [_I64, _P],
+        Kernel("table_flat", "kernels.cu", "bppp_table_flat", [_P] * 6 + [_I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:538"),
-        Kernel("select_reduce", "bppp_select_reduce", [_P] * 8 + [_I64, _I64, _I64, _P],
+        Kernel("select_reduce", "kernels.cu", "bppp_select_reduce", [_P] * 8 + [_I64, _I64, _I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:679"),
-        Kernel("fold", "bppp_fold", [_P] * 10 + [_I64, _I64, _P],
+        Kernel("fold", "kernels.cu", "bppp_fold", [_P] * 10 + [_I64, _I64, _P],
                "bulletproofspp_tpu/ops/msm.py:247"),
+        Kernel("select_reduce_fused", "select_reduce_fused.cu", "bppp_select_reduce_fused",
+               [_P] * 8 + [_I64, _I64, _I64, _P], "bulletproofspp_tpu/ops/pallas_field.py:615"),
+        Kernel("decompress", "decompress.cu", "bppp_decompress", [_P] * 4 + [_I64, _P],
+               "bulletproofspp_tpu/ops/curve.py:224"),
     )
 }
 
@@ -97,7 +108,7 @@ def counts() -> dict:
 # ---------------------------------------------------------------------------
 
 _lock = threading.Lock()
-_state: dict = {"lib": None, "build_seconds": None}
+_state: dict = {"libs": None, "build_seconds": None}
 
 
 def _nvcc() -> str:
@@ -111,40 +122,61 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> str:
-    """Compile the kernel library from ``csrc`` (once per source hash);
-    returns the path of the shared object."""
+def _library_path(source: str) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in (source, *HEADERS):
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"bppp_kernels-{h.hexdigest()[:16]}.so")
-    if os.path.exists(so):
-        return so
+    return os.path.join(BUILD_DIR, f"bppp_{source.split('.')[0]}-{h.hexdigest()[:16]}.so")
+
+
+def build() -> dict:
+    """Compile each source of ``SOURCES`` that has no library for its hash
+    yet, all nvcc processes at once; returns {source: shared object}."""
+    sos = {src: _library_path(src) for src in SOURCES}
+    todo = [src for src, so in sos.items() if not os.path.exists(so)]
+    if not todo:
+        return sos
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = so + f".tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, "kernels.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, so)
-    return so
+    nvcc = _nvcc()
+    procs, failed = {}, []
+    try:
+        for src in todo:
+            tmp = sos[src] + f".tmp.{os.getpid()}"
+            log = tempfile.TemporaryFile("w+")  # a file, not a pipe: no nvcc waits on a full pipe
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+            procs[src] = (tmp, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+        for src, (tmp, log, proc) in procs.items():
+            if proc.wait(timeout=900) != 0:
+                log.seek(0)
+                failed.append(f"{src}: nvcc failed ({proc.returncode}):\n{log.read()}")
+            else:
+                os.replace(tmp, sos[src])
+    finally:
+        for _, log, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return sos
 
 
-def lib():
-    """The loaded kernel library (built on first use)."""
+def lib() -> dict:
+    """The loaded kernel libraries by source (built on first use)."""
     with _lock:
-        if _state["lib"] is None:
+        if _state["libs"] is None:
             t0 = time.perf_counter()
-            handle = ctypes.CDLL(build())
+            libs = {src: ctypes.CDLL(so) for src, so in build().items()}
             _state["build_seconds"] = time.perf_counter() - t0
             for k in KERNELS.values():
-                fn = getattr(handle, k.entry)
+                fn = getattr(libs[k.source], k.entry)
                 fn.argtypes = k.argtypes
                 fn.restype = ctypes.c_int
-            _state["lib"] = handle
-        return _state["lib"]
+            _state["libs"] = libs
+        return _state["libs"]
 
 
 def build_seconds():
@@ -165,7 +197,7 @@ def _check(*planes):
 
 def _launch(name: str, *args):
     k = KERNELS[name]
-    rc = getattr(lib(), k.entry)(*args, torch.cuda.current_stream().cuda_stream)
+    rc = getattr(lib()[k.source], k.entry)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
     k.launches += 1
@@ -410,3 +442,68 @@ def fold(te, to, digits):
     out = _empty((limb.NLIMB, n), tabs[0])
     _launch("fold", *_ptrs(*tabs, dig, *out), n, rows)
     return out
+
+
+# ---------------------------------------------------------------------------
+# 8. select_reduce_fused: table build, select and first 8:1 narrowing in one
+# ---------------------------------------------------------------------------
+
+
+def select_reduce_fused_plain(p, absd, sgn):
+    """The two-kernel route's plain versions: table_flat, then select_reduce."""
+    return select_reduce_plain(table_flat_plain(p), absd, sgn)
+
+
+def select_reduce_fused(p, absd, sgn):
+    """(16, B * L) strict lanes and digits (B, ROWS, L) -> (16, B * ROWS *
+    L / 8) row-major partials, equal to ``select_reduce(table_flat(p),
+    absd, sgn)``; the lanes' tables stay in the kernel's shared memory."""
+    batch, rows, L = absd.shape
+    if L % 1024 or p[0].shape[-1] != batch * L:
+        raise ValueError(f"select_reduce_fused: {batch} MSMs of L = {L} lanes (a multiple of "
+                         f"1024) need {batch * L} point lanes, got {p[0].shape[-1]}")
+    if p[0].device.type == "cpu":
+        return select_reduce_fused_plain(p, absd, sgn)
+    p = tuple(t.contiguous() for t in p)
+    _check(*p)
+    absd, sgn = absd.contiguous(), sgn.contiguous()
+    if any(d.dtype != torch.int64 or d.device != p[0].device for d in (absd, sgn)):
+        raise ValueError("select_reduce_fused digits must be int64 on the points' device")
+    out = _empty((limb.NLIMB, batch * rows * L // 8), p[0])
+    _launch("select_reduce_fused", *_ptrs(*p, absd, sgn, *out), batch, rows, L)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 9. decompress: y from x and the sign bit, one Fermat square root per lane
+# ---------------------------------------------------------------------------
+
+
+def decompress_plain(x, sign):
+    """v = x^3 + 7, r = v^((p+1)/4) (a Fermat chain of ~500 field
+    products), ok = r^2 == v, and the root r or -r picked by the sign bit
+    (bulletproofspp_tpu/ops/curve.py:225 decompress_kernel); y is defined
+    on non-residue lanes too."""
+    v = limb.add(limb.mul(limb.mul(x, x), x), limb.const(7, x).expand_as(x))
+    r = limb.sqrt_candidate(v)
+    ok = limb.eq(limb.mul(r, r), v)
+    rn = limb.normalize(r)
+    nn = limb.normalize(limb.neg(r))
+    big = limb.gt(rn, nn)  # yInt > negYInt
+    return limb.select(big == (sign > 0), rn, nn), ok
+
+
+def decompress(x, sign):
+    """x (16, L) canonical, sign (L,) int64 -> (y (16, L) canonical, ok (L,)
+    bool)."""
+    if x.device.type == "cpu":
+        return decompress_plain(x, sign)
+    x, sign = x.contiguous(), sign.contiguous()
+    _check(x)
+    n = x.shape[1]
+    if x.dim() != 2 or sign.shape != (n,) or sign.dtype != torch.int64 or sign.device != x.device:
+        raise ValueError("decompress takes x (16, L) and sign (L,) int64 on one device")
+    y = torch.empty_like(x)
+    ok = torch.empty(n, dtype=torch.bool, device=x.device)
+    _launch("decompress", *_ptrs(x, sign, y, ok), n)
+    return y, ok

@@ -57,20 +57,18 @@ LOOSE_MAX = MASK + 2 * C_LOW
 
 def pack_ints(vals) -> np.ndarray:
     """list[int] (< 2^256) -> (16, n) uint32 limb array (the JAX package's
-    host layout)."""
-    n = len(vals)
-    out = np.zeros((NLIMB, n), np.uint32)
-    for j, v in enumerate(vals):
-        out[:, j] = np.frombuffer(int(v).to_bytes(32, "little"), dtype="<u2")
-    return out
+    host layout): one bytes join and one numpy view, no per-value array
+    writes (the MSM packs 2^20 points at a time)."""
+    buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
+    return np.frombuffer(buf, dtype="<u2").reshape(-1, NLIMB).T.astype(np.uint32)
 
 
 def unpack_ints(arr) -> list:
     """(16, n) limb array (numpy or a strict torch plane) -> list[int]."""
     if isinstance(arr, torch.Tensor):
         arr = planes_to_numpy(arr)
-    a = np.asarray(arr, np.uint32).astype("<u2")
-    return [int.from_bytes(a[:, j].tobytes(), "little") for j in range(a.shape[1])]
+    buf = np.ascontiguousarray(np.asarray(arr, np.uint32).astype("<u2").T).tobytes()
+    return [int.from_bytes(buf[32 * j : 32 * j + 32], "little") for j in range(len(buf) // 32)]
 
 
 def pack_int(v: int) -> np.ndarray:

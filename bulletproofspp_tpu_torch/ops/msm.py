@@ -14,7 +14,11 @@ package (``msm.py:105-196``):
   * 128 to 512 lanes: the reduce_block chain (8:1 per launch) down to 128
     lanes per row, then tail_horner;
   * from 1,024 lanes: the select_reduce kernel (select and the first 8:1
-    narrowing in one launch), then the same chain and tail_horner.
+    narrowing in one launch), then the same chain and tail_horner;
+  * from SCRATCH_TABLE_MIN_L = 2^21 lanes: the select_reduce_fused
+    kernel instead of table_flat + select_reduce, so the flat tables
+    (4,608 B a lane as int64 planes, 9.7 GB at 2^21 lanes) are never
+    materialised, as ``msm.py:123-129`` does on the TPU.
 
 Everything is batched over a leading MSM axis B (``msm_many``'s K stacked
 MSMs; the JAX package vmaps instead).  Planes: (16, B, L) points and
@@ -26,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 
 from . import curve, kernels, limb
+
+SCRATCH_TABLE_MIN_L = 1 << 21  # bulletproofspp_tpu/ops/msm.py:52
 
 
 def _flat(p):
@@ -41,11 +47,13 @@ def msm(px, py, pz, absd, sgn):
     if L & (L - 1):
         raise ValueError(f"lane count {L} must be a power of two")
     rows = absd.shape[1]
-    tables = kernels.table_flat(_flat((px, py, pz)))
-    if L >= 1024:
-        flat, width = kernels.select_reduce(tables, absd, sgn), L // 8
+    p = _flat((px, py, pz))
+    if L >= SCRATCH_TABLE_MIN_L:
+        flat, width = kernels.select_reduce_fused(p, absd, sgn), L // 8
+    elif L >= 1024:
+        flat, width = kernels.select_reduce(kernels.table_flat(p), absd, sgn), L // 8
     else:
-        sel = kernels.select_plain(tables, absd, sgn)
+        sel = kernels.select_plain(kernels.table_flat(p), absd, sgn)
         if L < 128:
             width = L
             while width > 1:

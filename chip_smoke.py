@@ -1,27 +1,44 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. print the card (``nvidia-smi`` name and power limit) and build the
-     CUDA kernels from ``bulletproofspp_tpu_torch/csrc`` with nvcc;
+     CUDA kernels from ``bulletproofspp_tpu_torch/csrc`` with nvcc (one
+     process per source file, all at once);
   2. hold each kernel (padd, horner, reduce_block, tail_horner,
-     table_flat, select_reduce, fold) against its plain PyTorch version
-     on the card, at
-     the shapes the main path gives it, on numpy-seeded points (identity
-     lanes, P + P and P + (-P) included): the normalized projective
-     outputs must be equal limb for limb; time both;
+     table_flat, select_reduce, fold, select_reduce_fused, decompress)
+     against its plain PyTorch version on the card, at the shapes the main
+     paths give it, on numpy-seeded inputs (identity lanes, P + P, P + (-P)
+     and non-residue x's included): the normalized outputs must be equal
+     limb for limb; time both.  At 2^21 lanes, where the plain route
+     cannot run (its gather alone is 3 x 8.9 GB), select_reduce_fused is
+     held against the two kernels table_flat + select_reduce instead, and
+     both routes are timed;
   3. reset the launch counts and run the port's CLI ``test`` command
      (prove, verify, encode, decode, verify) on examples/64bit and
      examples/128by64: rc 0 and proof/commitment bytes equal to the
      golden digests of tests/test_golden.py;
-  4. require that every kernel was launched during phase 3 and that no
-     JAX module was imported;
+  4. require that every kernel of that path was launched during phase 3
+     and that no JAX module was imported;
   5. time ``prove`` and ``verify`` per example through the same CLI and
-     check that a proof with one flipped byte is rejected (rc 1).
+     check that a proof with one flipped byte is rejected (rc 1);
+  6. the 2^21-lane MSM: ``TorchEngine.msm`` over 2^20 (scalar, point)
+     pairs (64 host multiples k_b G, repeated; numpy-seeded scalars), equal
+     to (sum_i s_i k_b(i) mod R) G from exact host integers; counted from
+     0, select_reduce_fused must launch and select_reduce and table_flat
+     must not; then once more under ``torch.profiler`` for its device time;
+  7. the 1,024-proof batch: prove 1,024 distinct examples/64bit proofs
+     (amount 10^9 + i, seed bench<i>) through ``TorchEngine`` on the card,
+     two of them equal byte for byte to ``HostEngine``'s; counted from 0,
+     the port's CLI ``batch-verify`` accepts them all (rc 0); with one byte
+     of proof 517 flipped it rejects the batch (rc 1), and
+     ``verify_many_encoded`` flags proof 517 alone; then one timed
+     ``batch_verify_encoded`` by engine call (engine_profile's batch mode).
 
 The line before the last is one JSON object with each kernel's launch
-count (phase 3), largest normalized difference and times; the last line is
+count (summed over the main-path runs of phases 3, 6 and 7, each counted
+from 0), largest normalized difference and times; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 CUDA is not available.
 """
@@ -43,6 +60,9 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 ROWS = 33
+WIDE_LANES = 1 << 21  # msm.SCRATCH_TABLE_MIN_L: the fused kernel's route
+BATCH_N, BATCH_BAD = 1024, 517
+DECOMPRESS_L = 16384  # the 1,024-proof batch's decompress bucket
 
 GOLDEN = {  # tests/test_golden.py:45-46 and :57-58 (proof, commitments)
     "64bit": ("fe39faef84b016b82b017a4ef07ba3f31c5237b0f79c0653376c86f5dbba8c5d",
@@ -111,6 +131,34 @@ def rescale_and_negate(p, rng, negate_mask):
         for c, v in zip(out, (xs[i], y, zs[i])):
             c.append(v * ks[i] % Q)
     return tuple(limb.from_ints(v, p[0].device) for v in out)
+
+
+def wide_points(n: int, rng, dev):
+    """n projective lanes on ``dev``: 4,096 lanes of ``random_points``
+    repeated, each lane scaled by its own random Z on the device, so no two
+    lanes carry the same coordinates."""
+    from bulletproofspp_tpu_torch.ops import limb
+
+    k = min(n, 4096)
+    p, _ = random_points(k, rng, dev)
+    z = torch.as_tensor(rng.integers(0, 1 << 16, size=(limb.NLIMB, n)), device=dev)
+    return tuple(limb.mul(c.repeat(1, n // k), z) for c in p)
+
+
+def residue_mix(n: int, rng):
+    """n x's < p, for about 1/8 of which x^3 + 7 is not a square."""
+    from bulletproofspp_tpu.core.fields import Q
+
+    xs = []
+    while len(xs) < n:
+        want_square = rng.integers(0, 8) != 0
+        while True:
+            x = int.from_bytes(rng.bytes(32), "little") % Q
+            v = (x * x * x + 7) % Q
+            if (v == 0 or pow(v, (Q - 1) // 2, Q) == 1) == want_square:
+                break
+        xs.append(x)
+    return xs
 
 
 def compare(name, kernel_out, plain_out):
@@ -200,10 +248,56 @@ def check_kernels(dev):
     err = compare("fold L=512", kernels.fold(e, o, digits), kernels.fold_plain(e, o, digits))
     rows.append(("fold", err, time_ms(lambda: kernels.fold(e, o, digits), 5),
                  time_ms(lambda: kernels.fold_plain(e, o, digits), 1), "L=512 rows=33"))
+    # select_reduce_fused: a 4,096-lane MSM, 33 rows, against its plain version
+    L = 4096
+    p, _ = random_points(L, rng, dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(1, ROWS, L)), device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(1, ROWS, L)), device=dev)
+    err = compare(f"select_reduce_fused L={L}", kernels.select_reduce_fused(p, absd, sgn),
+                  kernels.select_reduce_fused_plain(p, absd, sgn))
+    rows.append(("select_reduce_fused", err,
+                 time_ms(lambda: kernels.select_reduce_fused(p, absd, sgn), 10),
+                 time_ms(lambda: kernels.select_reduce_fused_plain(p, absd, sgn), 2),
+                 f"L={L} rows={ROWS}"))
+
+    # decompress: the 1,024-proof batch's bucket, about 1/8 non-residue x's
+    from bulletproofspp_tpu_torch.ops import limb
+
+    L = DECOMPRESS_L
+    x = limb.from_ints(residue_mix(L, rng), dev)
+    sign = torch.as_tensor(rng.integers(0, 2, size=L), device=dev)
+    (y, ok), (py, pok) = kernels.decompress(x, sign), kernels.decompress_plain(x, sign)
+    err = max(int((y - py).abs().max().item()), int((ok != pok).sum().item()))
+    if err != 0:
+        raise AssertionError(f"kernel decompress disagrees with its plain version: {err}")
+    log(f"decompress L={L}: {L - int(ok.sum().item())} non-residue lanes")
+    rows.append(("decompress", err, time_ms(lambda: kernels.decompress(x, sign), 10),
+                 time_ms(lambda: kernels.decompress_plain(x, sign), 1), f"L={L}"))
     torch.cuda.synchronize()
     for name, err, ms, plain_ms, shape in rows:
-        log(f"kernel {name:13s} {shape:18s} max_abs_err {err}  cuda {ms:.4f} ms  plain {plain_ms:.4f} ms")
+        log(f"kernel {name:19s} {shape:18s} max_abs_err {err}  cuda {ms:.4f} ms  plain {plain_ms:.4f} ms")
+    check_fused_wide(dev, rng)
     return {name: (err, ms, plain_ms) for name, err, ms, plain_ms, _ in rows}
+
+
+def check_fused_wide(dev, rng):
+    """select_reduce_fused at 2^21 lanes and 33 rows against table_flat +
+    select_reduce on the same inputs (exact), both routes timed."""
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    L = WIDE_LANES
+    p = wide_points(L, rng, dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(1, ROWS, L)), device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(1, ROWS, L)), device=dev)
+    err = compare(f"select_reduce_fused L={L}", kernels.select_reduce_fused(p, absd, sgn),
+                  kernels.select_reduce(kernels.table_flat(p), absd, sgn))
+    fused = time_ms(lambda: kernels.select_reduce_fused(p, absd, sgn), 3)
+    torch.cuda.reset_peak_memory_stats()
+    two = time_ms(lambda: kernels.select_reduce(kernels.table_flat(p), absd, sgn), 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"select_reduce_fused L={L} rows={ROWS}: max_abs_err {err} against table_flat + "
+        f"select_reduce; fused {fused:.4f} ms, table_flat + select_reduce {two:.4f} ms "
+        f"(peak device memory of the two-kernel route {peak:.2f} GiB)")
 
 
 def sha(path) -> str:
@@ -265,6 +359,129 @@ def prove_verify_times(work):
     os.chdir(work)
 
 
+def require_launched(path, launches, names):
+    idle = sorted(k for k in names if launches[k] == 0)
+    if idle:
+        raise AssertionError(f"kernels never launched on {path}: {idle}")
+
+
+def msm_wide(dev):
+    """Phase 6: one MSM of 2^20 pairs, a bucket of exactly 2^21 GLV lanes."""
+    from bulletproofspp_tpu.core import ec
+    from bulletproofspp_tpu.core.fields import R
+    from bulletproofspp_tpu_torch.ops import kernels
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    n = WIDE_LANES // 2
+    rng = np.random.default_rng(SEED + 6)
+    ks = [int(k) for k in rng.integers(1, 2**62, size=64)]
+    base = [ec.scalar_mul(k, ec.G) for k in ks]
+    buf = rng.bytes(32 * n)
+    scalars = [int.from_bytes(buf[32 * i : 32 * i + 32], "little") % R for i in range(n)]
+    sums = [0] * len(ks)
+    for i, s in enumerate(scalars):
+        sums[i % len(ks)] += s
+    want = ec.scalar_mul(sum(k * s for k, s in zip(ks, sums)) % R, ec.G)
+    pairs = [(s, base[i % len(ks)]) for i, s in enumerate(scalars)]
+    eng = TorchEngine(dev)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    got = eng.msm(pairs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kernels.counts()
+    if got != want:
+        raise AssertionError("the 2^21-lane MSM differs from the host-integer answer")
+    require_launched("the 2^21-lane MSM", launches, {"select_reduce_fused"})
+    if launches["select_reduce"] or launches["table_flat"]:
+        raise AssertionError(f"the 2^21-lane MSM built flat tables: {launches}")
+    log(f"msm of {n} pairs ({2 * n} lanes): equal to the host-integer answer, {secs:.3f} s, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches {launches}")
+    from torch.profiler import ProfilerActivity, profile
+
+    from bulletproofspp_tpu_torch import engine_profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.msm(pairs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    device_s, top = engine_profile.device_time(prof)
+    log(f"msm of {n} pairs under torch.profiler: {secs:.3f} s wall, {device_s:.4f} s of device "
+        f"time, by kernel (ms, launches) {json.dumps(top)}")
+    return launches
+
+
+def batch_1024(dev, work):
+    """Phase 7: prove 1,024 proofs on the card, batch-verify them through the
+    port's CLI, reject a flipped byte, and find the bad proof."""
+    from bulletproofspp_tpu.core.batch import verify_many_encoded
+    from bulletproofspp_tpu.core.engine import HostEngine
+    from bulletproofspp_tpu_torch import engine_profile
+    from bulletproofspp_tpu_torch.ops import kernels
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    n, bad = BATCH_N, BATCH_BAD
+    secs = {}
+    t0 = time.perf_counter()
+    setup, blobs = engine_profile.batch_proofs(range(n), TorchEngine(dev))
+    secs[f"prove {n} (TorchEngine)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if engine_profile.batch_proofs([0, n - 1], HostEngine())[1] != [blobs[0], blobs[n - 1]]:
+        raise AssertionError(f"proofs 0 and {n - 1} differ from HostEngine's bytes")
+    secs[f"prove 0 and {n - 1} (HostEngine)"] = time.perf_counter() - t0
+
+    d = os.path.join(work, "batch")
+    os.makedirs(d)
+    files = []
+    for i, (coms_b, proof_b) in enumerate(blobs):
+        for kind, data in (("coms", coms_b), ("proof", proof_b)):
+            files.append(os.path.join(d, f"{kind}{i}.bin"))
+            with open(files[-1], "wb") as f:
+                f.write(data)
+    flipped = bytearray(blobs[bad][1])
+    flipped[31] ^= 1
+    with open(os.path.join(d, "proof_bad.bin"), "wb") as f:
+        f.write(bytes(flipped))
+    schema = os.path.join(HERE, "examples", "64bit", "schema.json")
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = run_cli(["batch-verify", schema, *files])
+    secs[f"cli batch-verify, {n} valid"] = time.perf_counter() - t0
+    launches = kernels.counts()
+    if rc != 0:
+        raise AssertionError(f"batch-verify of {n} valid proofs gave rc {rc}")
+    require_launched("batch-verify", launches,
+                     {"decompress", "table_flat", "select_reduce", "reduce_block", "tail_horner"})
+    t0 = time.perf_counter()
+    bad_files = list(files)
+    bad_files[2 * bad + 1] = os.path.join(d, "proof_bad.bin")
+    rc = run_cli(["batch-verify", schema, *bad_files])
+    secs[f"cli batch-verify, proof {bad} flipped"] = time.perf_counter() - t0
+    if rc != 1:
+        raise AssertionError(f"batch-verify with a flipped byte gave rc {rc}, want 1")
+    t0 = time.perf_counter()
+    entries = [(setup, c, p) for c, p in blobs]
+    entries[bad] = (setup, blobs[bad][0], bytes(flipped))
+    verdicts = verify_many_encoded(entries, TorchEngine(dev))
+    torch.cuda.synchronize()
+    secs[f"verify_many_encoded, proof {bad} flipped"] = time.perf_counter() - t0
+    if verdicts != [i != bad for i in range(n)]:
+        raise AssertionError(f"verify_many_encoded flagged {[i for i, v in enumerate(verdicts) if not v]}")
+
+    row = next(engine_profile.run_batch(setup, blobs, engine_profile.TimedEngine(dev), 1))
+    log(f"batch of {n}: {row['decompressed_points']} points decompressed, merged MSM of "
+        f"{row['msm_points']} points in a bucket of {row['msm_lanes']} lanes; "
+        f"launches during the valid batch-verify {launches}")
+    for step, t in secs.items():
+        log(f"batch step {step}: {t:.3f} s")
+    log(f"batch_verify_encoded by engine call: {json.dumps(row)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -287,21 +504,25 @@ def main() -> int:
         main_path(work)
         launches = kernels.counts()
         log(f"launches on the main path: {launches}")
-        idle = [k for k, n in launches.items() if n == 0]
-        if idle:
-            raise AssertionError(f"kernels never launched on the main path: {idle}")
+        require_launched("cli test", launches, set(launches) - {"select_reduce_fused"})
         if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
             raise AssertionError("JAX was imported")
         prove_verify_times(work)
+        wide = msm_wide(dev)
+        batch = batch_1024(dev, work)
     finally:
         os.chdir(HERE)
         shutil.rmtree(work, ignore_errors=True)
+    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
+        raise AssertionError("JAX was imported")
+    launches = {k: launches[k] + wide[k] + batch[k] for k in launches}
+    require_launched("the main paths", launches, set(launches))
 
     report = {"kernels": [
         {
             "name": name,
             "route": "cuda",
-            "source": "bulletproofspp_tpu_torch/csrc/kernels.cu",
+            "source": f"bulletproofspp_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces,
             "launches": launches[name],
             "max_abs_err": checked[name][0],

@@ -67,4 +67,16 @@ def test_cuda_kernels_match_plain_versions():
     e, o = kernels.table_flat(_points(64, 45, dev)), kernels.table_flat(_points(64, 46, dev))
     digits = np.stack([*glv.recode_signed(-(3**80)), *glv.recode_signed(5**50)])
     assert _same(kernels.fold(e, o, digits), kernels.fold_plain(e, o, digits))
+    # two stacked MSMs of 1,024 lanes, 3 rows
+    pts = _points(2 * 1024, 49, dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(2, 3, 1024)), device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(2, 3, 1024)), device=dev)
+    assert _same(kernels.select_reduce_fused(pts, absd, sgn),
+                 kernels.select_reduce_fused_plain(pts, absd, sgn))
+    # random x's (about half non-residues) and the edge values 0, 1, p - 1
+    xs = [int.from_bytes(rng.bytes(32), "little") % Q for _ in range(253)] + [0, 1, Q - 1]
+    x = limb.from_ints(xs, dev)
+    sign = torch.as_tensor(rng.integers(0, 2, size=256), device=dev)
+    (y, ok), (py, pok) = kernels.decompress(x, sign), kernels.decompress_plain(x, sign)
+    assert torch.equal(y, py) and torch.equal(ok, pok) and 0 < int(ok.sum()) < 256
     assert all(n > 0 for n in kernels.counts().values())

@@ -92,6 +92,7 @@ def test_port_never_imports_jax(tmp_path):
     script = (
         "import sys, json\n"
         "import bulletproofspp_tpu_torch.cli, bulletproofspp_tpu_torch.ops.kernels\n"
+        "import bulletproofspp_tpu_torch.engine_profile, bulletproofspp_tpu.core.batch\n"
         "from bulletproofspp_tpu.core import range_proof as rpm\n"
         "from bulletproofspp_tpu.io_ import schema as S\n"
         "from bulletproofspp_tpu.core.transcript import take_points\n"
@@ -118,7 +119,7 @@ def test_cli_refuses_engine_flag_and_missing_cuda(monkeypatch):
     with pytest.raises(SystemExit):
         cli.main(["test", "--engine", "host"])
     with pytest.raises(SystemExit):
-        cli.main(["batch-verify", "schema.json", "--device", "cpu"])
+        cli.main(["serve", "--device", "cpu"])  # not a command of the port
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["test", "--device", "cuda"])

@@ -142,3 +142,13 @@ def test_plane_round_trip():
     assert np.array_equal(limb.planes_to_numpy(t), A)
     assert limb.unpack_ints(t) == VA
     assert np.array_equal(limb.pack_ints(VA), jlimb.pack_ints(VA))
+
+
+@pytest.mark.parametrize("vals", [SAT + VA, []], ids=["values", "empty"])
+def test_pack_unpack_match_jax_package(vals):
+    """The port's vectorized host packing against the JAX package's
+    per-value loop, both ways, from numpy and from a tensor."""
+    got = limb.pack_ints(vals)
+    assert got.dtype == np.uint32 and np.array_equal(got, jlimb.pack_ints(vals))
+    assert limb.unpack_ints(got) == jlimb.unpack_ints(got) == [int(v) for v in vals]
+    assert limb.unpack_ints(_t(got)) == [int(v) for v in vals]
