@@ -1,0 +1,179 @@
+"""The least time an H100 could take for each kernel's work: its bound.
+
+A kernel's bound is the larger of two times:
+
+  * bytes: each input the function needs read once and each output
+    written once, over the card's memory rate (3.35 TB/s, H100 SXM data
+    sheet).  Limb planes are int64: 128 B a field element, 384 B a point.
+    Where the reads depend on the data (digit selection), the count is of
+    what this run's digits select: each lane's distinct table entries.
+  * operations: the 32-bit integer multiplies of ``csrc/field.cuh`` and
+    ``csrc/curve.cuh`` that the work needs, over the card's rate for them:
+    132 SMs x 64 a clock (the CUDA C++ Programming Guide's throughput of
+    32-bit integer multiply and multiply-add for compute capability 9.0) x
+    the SM clock that ``nvidia-smi`` reads as ``clocks.max.sm``.  A
+    32 x 32 -> 64-bit product counts as two (its low and high words).  The
+    carries, additions and loads are not counted, so the operations bound
+    is low; the card's int32 multiply rate is the one peak this integer
+    work has (the tensor cores take no 32-bit integers).
+
+Counts per function, from the sources: ``fe_mul`` 64 word products of
+the schoolbook, 8 of the 977 H fold and 1 of ``fe_fold``: 146 multiplies;
+``fe_mul_small`` 9 products: 18; ``fe_add`` one ``c * 977``: 2; ``fe_sub``
+two ``o * 977``: 2.  ``pt_add`` is 12 ``fe_mul``, 3 ``fe_mul_small``, 12
+``fe_add`` and 5 ``fe_sub``; ``pt_dbl`` 8, 3, 3 and 1.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+HBM_BYTES_PER_S = 3.35e12
+SMS = 132
+IMAD_PER_CLOCK_PER_SM = 64
+
+FE_BYTES = 16 * 8
+PT_BYTES = 3 * FE_BYTES
+FE_MUL = 2 * (64 + 8 + 1)
+FE_MUL_SMALL = 2 * (8 + 1)
+FE_ADD = 2
+FE_SUB = 2
+PT_ADD = 12 * FE_MUL + 3 * FE_MUL_SMALL + 12 * FE_ADD + 5 * FE_SUB
+PT_DBL = 8 * FE_MUL + 3 * FE_MUL_SMALL + 3 * FE_ADD + 1 * FE_SUB
+
+_SQRT_EXP = ((1 << 256) - (1 << 32) - 977 + 1) // 4
+# decompress: x^3 + 7, the square-and-multiply chain below the top bit, r^2
+# and the negation
+DECOMPRESS = (2 + (_SQRT_EXP.bit_length() - 1) + (bin(_SQRT_EXP).count("1") - 1) + 1) * FE_MUL \
+    + FE_ADD + FE_SUB
+
+# multiplies per chain step, by phase (tools.cu: chain_step)
+CHAIN_STEP = {
+    "padd": PT_ADD,
+    "mul_w16": 2 * (64 + 8),
+    "mul_f16": FE_MUL,
+    "mul_small": FE_MUL_SMALL,
+    "add": FE_ADD,
+    "add_s17": FE_ADD,
+    "sub": FE_SUB,
+    "sub_raw2": FE_ADD + FE_SUB,
+    "carry_full": 2 * FE_ADD,
+    "prod_form": 2 * 64,
+}
+
+
+def card() -> dict:
+    """The card's name, power limit and maximum SM clock from ``nvidia-smi``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    name, power, mhz = (v.strip() for v in out.split(","))
+    return {"name": name, "power_limit_w": float(power), "sm_clock_max_mhz": float(mhz)}
+
+
+def int_mul_rate(sm_mhz: float) -> float:
+    """32-bit integer multiplies a second over the whole card."""
+    return SMS * IMAD_PER_CLOCK_PER_SM * sm_mhz * 1e6
+
+
+def bound(work, sm_mhz: float):
+    """(multiplies, bytes) -> (bound ms, "bytes" or "operations")."""
+    ops, nbytes = work
+    t_ops = ops / int_mul_rate(sm_mhz)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def bound_sum(works, sm_mhz: float):
+    """The bound of launches that run one after another, each (multiplies,
+    bytes): the sum of their bounds, named by the limit that gives the
+    larger part of it."""
+    parts = {"bytes": 0.0, "operations": 0.0}
+    for work in works:
+        ms, by = bound(work, sm_mhz)
+        parts[by] += ms
+    return sum(parts.values()), max(parts, key=parts.get)
+
+
+def _distinct(idx, values: int) -> int:
+    """Sum over (MSM, lane) of the distinct values that ``idx`` (B, rows,
+    L) takes over its rows."""
+    return int(sum(int((idx == e).any(1).sum()) for e in range(values)))
+
+
+def _selected_bytes(absd, sgn) -> int:
+    """Table entries the digits select, each (lane, entry) read once: X and
+    Z by |d|, Y by |d| + 9 s."""
+    return (2 * _distinct(absd, 9) + _distinct(absd + 9 * sgn, 18)) * FE_BYTES
+
+
+# --- work of each kernel: (32-bit multiplies, bytes) -------------------------
+
+
+def padd(n: int):
+    return n * PT_ADD, n * 3 * PT_BYTES
+
+
+def horner(batch: int, rows: int):
+    return batch * rows * (4 * PT_DBL + PT_ADD), (batch * rows + batch) * PT_BYTES
+
+
+def reduce_block(w: int, factor: int):
+    return (w // factor) * (factor - 1) * PT_ADD, (w + w // factor) * PT_BYTES
+
+
+def tail_horner(batch: int, rows: int):
+    ops = batch * rows * (127 * PT_ADD + 4 * PT_DBL + PT_ADD)
+    return ops, (batch * rows * 128 + batch) * PT_BYTES
+
+
+def table_flat(n: int):
+    return n * (7 * PT_ADD + 9 * FE_SUB), n * (PT_BYTES + (9 + 18 + 9) * FE_BYTES)
+
+
+def select_reduce(absd, sgn, factor: int = 8):
+    n = absd.numel()
+    ops = (n // factor) * (factor - 1) * PT_ADD
+    return ops, _selected_bytes(absd, sgn) + n * 16 + (n // factor) * PT_BYTES
+
+
+def fold(n: int, digits):
+    """digits: (4, rows) host ints de, se, do, so, shared by all lanes."""
+    rows = len(digits[0])
+    entries = 0
+    for d, s in ((digits[0], digits[1]), (digits[2], digits[3])):
+        entries += 2 * len(set(int(v) for v in d)) + len({int(a) + 9 * int(b) for a, b in zip(d, s)})
+    ops = n * rows * (4 * PT_DBL + 2 * PT_ADD)
+    return ops, n * (entries * FE_BYTES + PT_BYTES) + 4 * rows * 8
+
+
+def select_reduce_fused(absd, sgn):
+    batch, rows, L = absd.shape
+    n = absd.numel()
+    ops = batch * L * 7 * PT_ADD + (n // 8) * 7 * PT_ADD + int(sgn.sum()) * FE_SUB
+    return ops, batch * L * PT_BYTES + n * 16 + (n // 8) * PT_BYTES
+
+
+def decompress(n: int):
+    return n * DECOMPRESS, n * (FE_BYTES + 8 + FE_BYTES + 1)
+
+
+def sr_variant(absd, sgn, blk: int, out_w: int, noselect: bool):
+    factor = blk // out_w
+    rows, L = absd.shape
+    n = rows * L
+    ops = (n // factor) * (factor - 1) * PT_ADD
+    reads = L * PT_BYTES if noselect else _selected_bytes(absd[None], sgn[None]) + n * 16
+    return ops, reads + (n // factor) * PT_BYTES
+
+
+def grid_copy(L: int, rows: int):
+    return 0, L * FE_BYTES + rows * L * FE_BYTES
+
+
+def chain(phase: str, n: int, rep: int):
+    nstate = 3 if phase == "padd" else 1
+    nb = 3 if phase == "padd" else (0 if phase == "mul_small" else 1)
+    return n * rep * CHAIN_STEP[phase], n * (nstate + nb + 1) * FE_BYTES

@@ -6,31 +6,231 @@ Usage:
   python -m bulletproofspp_tpu_torch.cli test   [spec] [witness] [commits] [proof] [--device cuda|cpu]
   python -m bulletproofspp_tpu_torch.cli batch-verify spec coms1 proof1 [coms2 proof2 ...] [--device cuda|cpu]
 
-``batch-verify`` decodes N same-schema proofs (one batched device
-decompress) and checks them as one merged zero-check MSM
-(``bulletproofspp_tpu.core.batch.batch_verify_encoded``); it prints
-``Batch of N: True|False`` and exits 0 or 1.
+Defaults mirror the reference (app/Main.hs): schema.json witness.json
+commits.bin proof.bin.  ``batch-verify`` decodes N same-schema proofs
+(one batched device decompress) and checks them as one merged zero-check
+MSM (``core.batch.batch_verify_encoded``); it prints ``Batch of N:
+True|False`` and exits 0 or 1.
 
-Installs ``TorchEngine(device)`` as the process's engine and hands the
-command to ``bulletproofspp_tpu.cli.main`` (the shared, JAX-free protocol
-CLI).  The default device is ``cuda``; without CUDA it raises rather than
-run on the CPU.  ``--engine`` (host/jax) belongs to the JAX package's CLI
-and is refused.
+Installs ``TorchEngine(device)`` as the process's engine and runs the
+command on the port's own protocol layer (``core``, ``io_``).  The
+default device is ``cuda``; without CUDA it raises rather than run on the
+CPU.  ``--engine`` (host/jax) belongs to the JAX package's CLI and is
+refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 import torch
 
-from bulletproofspp_tpu import cli as base_cli
-from bulletproofspp_tpu.core.engine import set_default_engine
-
+from .core import range_proof as rpm
+from .core.engine import default_engine, set_default_engine
+from .core.fields import Q
+from .core.transcript import decode_scalar, default_blinds, encode_scalar, take_points
+from .io_ import schema as schema_mod
 from .ops.engine import TorchEngine
 
 COMMANDS = ("prove", "verify", "test", "batch-verify")
+
+
+def load_points(spec, count: int):
+    if spec.basis_seed is not None:
+        return take_points(spec.basis_seed.encode(), count)
+    return read_points_file(spec.basis_file)[:count]
+
+
+def write_points_file(path: str, points):
+    """Data.Binary [WideEncoding]: 8-byte big-endian length, then x||y per
+    point (reference: app/Main.hs:91-98, 261-263)."""
+    with open(path, "wb") as f:
+        f.write(len(points).to_bytes(8, "big"))
+        for x, y in points:
+            f.write(encode_scalar(x))
+            f.write(encode_scalar(y))
+
+
+def read_points_file(path: str):
+    with open(path, "rb") as f:
+        data = f.read()
+    n = int.from_bytes(data[:8], "big")
+    pts = []
+    off = 8
+    for _ in range(n):
+        x = decode_scalar(data[off : off + 32], Q)
+        y = decode_scalar(data[off + 32 : off + 64], Q)
+        pts.append((x, y))
+        off += 64
+    return pts
+
+
+def _resolve_values(spec, witness_objs):
+    """Pair witness amounts with positional default blinds
+    (reference: app/Main.hs:272-277)."""
+    rn = spec.random_seed.encode()
+    gen = default_blinds(rn)
+    out = []
+    for w in witness_objs:
+        bl = next(gen)  # positional: consumed even when an explicit blind exists
+        bl = w.blind if w.blind is not None else bl
+        if spec.is_binary:
+            out.append((w.amount, bl))
+        else:
+            out.append(((w.amount, w.kind), bl))
+    return out
+
+
+def _verbose_report(setup, proof, level: int, values=None, seed=None, engine=None):
+    """Verbose mode (reference: app/Main.hs:214-239, ``runVerbose``):
+    structural report + engine metrics, and at level >= 2 a protocol re-run
+    printing the per-round ``eval_scalar`` invariant of the collapsing
+    argument witness."""
+    from . import metrics
+
+    n_rp, nrm_len, lin_len = setup.info()
+    print(f"range-proof commitments: {len(proof.rp_coms)} (expected {n_rp})")
+    print(f"input commitments:       {len(proof.input_coms)}")
+    print(f"argument rounds:         {len(proof.bp.responses)}")
+    print(f"witness lengths:         nrm={nrm_len} lin={lin_len}; "
+          f"final opening scalars: {len(proof.bp.wit_scalars)}")
+    if level >= 2:
+        for i, s in enumerate(proof.bp.wit_scalars):
+            print(f"  wit[{i}] = {int(s)}")
+        if values is not None:
+            _verbose_rerun(setup, values, seed, engine)
+        snap = metrics.snapshot()
+        print(f"engine metrics: {snap['counters']}")
+
+
+def _verbose_rerun(setup, values, seed, engine):
+    """Re-run the prover printing per-round argument invariants: at each
+    round the collapsed witness's evaluated scalar (|x|^2_q + <c,l>) next
+    to the tracked opening scalar, so a diverging fold shows at the round
+    it happens (reference: app/Main.hs:214-239)."""
+    from .core import bulletproof
+    from .core.transcript import Transcript
+
+    def trace(i, e, sc, arg):
+        label = "initial witness" if i < 0 else f"round {i} (e={int(e)})"
+        print(f"  {label}: tracked scalar={int(sc)} evalScalar={int(arg.eval_scalar())}")
+
+    wit = setup.witness(values)
+    if wit is None:
+        return
+    bulletproof.set_round_trace(trace)
+    try:
+        print("verbose protocol re-run:")
+        setup.prove(Transcript(seed), engine, values, wit)
+    finally:
+        bulletproof.set_round_trace(None)
+
+
+def _batch_verify_cmd(args) -> int:
+    """Decode-and-batch-verify same-schema proofs from wire bytes."""
+    from .core.batch import batch_verify_encoded
+
+    if len(args.files) % 2 != 0:
+        print("batch-verify needs alternating coms/proof file pairs", file=sys.stderr)
+        return 2
+    engine = default_engine()
+    with open(args.spec) as f:
+        spec = schema_mod.parse_spec(json.load(f))
+    points = load_points(spec, schema_mod.points_needed(spec))
+    setup = schema_mod.build_setup(spec, points)
+    entries = []
+    for i in range(0, len(args.files), 2):
+        with open(args.files[i], "rb") as f:
+            coms_b = f.read()
+        with open(args.files[i + 1], "rb") as f:
+            proof_b = f.read()
+        entries.append((setup, coms_b, proof_b))
+    ok = batch_verify_encoded(entries, engine)
+    print(f"Batch of {len(entries)}: {ok}")
+    return 0 if ok else 1
+
+
+def _parser():
+    ap = argparse.ArgumentParser(prog="bulletproofspp-tpu-torch",
+                                 description="Prove and Verify Bulletproof++ Zero Knowledge Proofs")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    for name, with_wit in [("prove", True), ("verify", False), ("test", True)]:
+        p = sub.add_parser(name)
+        p.add_argument("spec", nargs="?", default="schema.json")
+        if with_wit:
+            p.add_argument("witness", nargs="?", default="witness.json")
+        p.add_argument("coms", nargs="?", default="commits.bin")
+        p.add_argument("proof", nargs="?", default="proof.bin")
+        p.add_argument("--verbosity", type=int, default=0)
+        p.add_argument("--write-points", type=int, default=0)
+    bp = sub.add_parser("batch-verify", help="verify N same-schema proofs as one merged MSM")
+    bp.add_argument("spec")
+    bp.add_argument("files", nargs="+", help="alternating coms/proof file pairs")
+    return ap
+
+
+def _run(args) -> int:
+    if args.cmd == "batch-verify":
+        return _batch_verify_cmd(args)
+    with open(args.spec) as f:
+        spec = schema_mod.parse_spec(json.load(f))
+    engine = default_engine()
+
+    points = load_points(spec, schema_mod.points_needed(spec))
+    if args.write_points and spec.basis_seed is not None:
+        write_points_file("points.bin", points[: args.write_points])
+    setup = schema_mod.build_setup(spec, points)
+
+    to_prove = args.cmd in ("prove", "test")
+    to_verify = args.cmd in ("verify", "test")
+    rc = 0
+
+    if to_prove:
+        with open(args.witness) as f:
+            wobjs = schema_mod.parse_witness(json.load(f))
+        if len(wobjs) != len(spec.ranges):
+            print("Different number of values and ranges", file=sys.stderr)
+            return 2
+        values = _resolve_values(spec, wobjs)
+        try:
+            proof = rpm.prove(setup, values, spec.random_seed.encode(), engine)
+        except ValueError as e:
+            # out-of-range amounts or violated conservation (the reference
+            # panics with a message here, app/Main.hs:155-169)
+            print(f"prove failed: {e}", file=sys.stderr)
+            return 2
+        if args.verbosity >= 1:
+            _verbose_report(setup, proof, args.verbosity, values, spec.random_seed.encode(), engine)
+        if to_verify:
+            ok = rpm.verify(setup, proof, engine)
+            print(f"In-process verify: {ok}")
+            rc |= 0 if ok else 1
+        coms_bytes, proof_bytes = rpm.encode_proof(setup, proof)
+        with open(args.coms, "wb") as f:
+            f.write(coms_bytes)
+        with open(args.proof, "wb") as f:
+            f.write(proof_bytes)
+        print(f"Wrote {args.proof} ({len(proof_bytes)} bytes), {args.coms} ({len(coms_bytes)} bytes)")
+
+    if to_verify:
+        with open(args.coms, "rb") as f:
+            coms_bytes = f.read()
+        with open(args.proof, "rb") as f:
+            proof_bytes = f.read()
+        dec = rpm.decode_proof(setup, coms_bytes, proof_bytes)
+        if dec is None:
+            print("invalid proof file", file=sys.stderr)
+            return 2
+        if args.verbosity >= 1:
+            # the reference's verbose mode covers verification too
+            # (app/Main.hs:214-239): structural report of the decoded proof
+            _verbose_report(setup, dec, args.verbosity)
+        ok = rpm.verify(setup, dec, engine)
+        print(f"Proof from file: {ok}")
+        rc |= 0 if ok else 1
+    return rc
 
 
 def main(argv=None):
@@ -43,10 +243,11 @@ def main(argv=None):
         ap.error("--engine is the JAX package's option; this CLI takes --device")
     if not rest or rest[0] not in COMMANDS:
         ap.error(f"command must be one of {', '.join(COMMANDS)}")
+    args = _parser().parse_args(rest)
     if torch.device(opts.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: CUDA is not available")
     set_default_engine(TorchEngine(opts.device))
-    return base_cli.main(rest)
+    return _run(args)
 
 
 if __name__ == "__main__":

@@ -37,6 +37,18 @@ __device__ __forceinline__ void pt_store(int64_t* x, int64_t* y, int64_t* z, int
   fe_store(z, stride, j, p.z);
 }
 
+// Entry |d| (and sign s for Y) of lane j from flat multiple tables: entry e,
+// limb i, lane j at (16 e + i) * n + j; tx and tz hold entries 0..8, ty2
+// also their negated Y at entries 9..17.
+__device__ __forceinline__ Pt table_entry(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
+                                          int64_t n, int64_t j, int64_t d, int64_t s) {
+  Pt e;
+  e.x = fe_load(tx + 16 * d * n, n, j);
+  e.y = fe_load(ty2 + 16 * (d + 9 * s) * n, n, j);
+  e.z = fe_load(tz + 16 * d * n, n, j);
+  return e;
+}
+
 __device__ __noinline__ Pt pt_add(const Pt& p, const Pt& q) {
   Fe t0 = fe_mul(p.x, q.x);
   Fe t1 = fe_mul(p.y, q.y);

@@ -156,8 +156,8 @@ __device__ __forceinline__ Fe fe_reduce512(const u32* t) {
   return r;
 }
 
-__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
-  u32 t[16];
+// The 512-bit product a * b into t[0..15] (words), schoolbook.
+__device__ __forceinline__ void fe_mul_wide(const Fe& a, const Fe& b, u32* t) {
 #pragma unroll
   for (int k = 0; k < 16; k++) t[k] = 0;
 #pragma unroll
@@ -172,6 +172,11 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
     }
     t[i + 8] = (u32)c;
   }
+}
+
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
+  u32 t[16];
+  fe_mul_wide(a, b, t);
   return fe_reduce512(t);
 }
 

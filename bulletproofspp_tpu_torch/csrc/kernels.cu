@@ -38,8 +38,12 @@ inline int blocks_for(int64_t n) {
 }
 
 // --- padd: replaces padd_pallas / _kernel (pallas_field.py:759, :407) -----
-// Lane-wise complete addition, one thread per lane.
-__global__ void padd_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__ y1,
+// Lane-wise complete addition, one thread per lane.  Instantiated for 128,
+// 256, 512 and 1,024 threads a block (the counterpart of padd_pallas's
+// block= sweep, tools/r5_experiments.py H1); __launch_bounds__ caps the
+// registers so that a block of MAXT threads fits an SM.
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) padd_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__ y1,
                             const int64_t* __restrict__ z1, const int64_t* __restrict__ x2,
                             const int64_t* __restrict__ y2, const int64_t* __restrict__ z2,
                             int64_t* __restrict__ ox, int64_t* __restrict__ oy,
@@ -169,16 +173,6 @@ __global__ void table_flat_kernel(const int64_t* __restrict__ px, const int64_t*
   }
 }
 
-// Entry |d| (and sign s for Y) of lane j from the flat tables.
-__device__ __forceinline__ Pt table_entry(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
-                                          int64_t n, int64_t j, int64_t d, int64_t s) {
-  Pt e;
-  e.x = fe_load(tx + 16 * d * n, n, j);
-  e.y = fe_load(ty2 + 16 * (d + 9 * s) * n, n, j);
-  e.z = fe_load(tz + 16 * d * n, n, j);
-  return e;
-}
-
 // --- select_reduce: replaces select_reduce_pallas / _select_reduce_kernel --
 // (:679, :647).  Flat tables of batch * L lanes, digits absd/sgn (batch,
 // rows, L); output (16, batch * rows * L / 8) row-major partials: for MSM b,
@@ -245,10 +239,27 @@ extern "C" {
 
 int bppp_padd(const int64_t* x1, const int64_t* y1, const int64_t* z1, const int64_t* x2,
               const int64_t* y2, const int64_t* z2, int64_t* ox, int64_t* oy, int64_t* oz,
-              int64_t n, void* stream) {
+              int64_t n, int threads, void* stream) {
   if (n > 0) {
-    padd_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(x1, y1, z1, x2, y2, z2, ox,
-                                                                       oy, oz, n);
+    int64_t b = (n + threads - 1) / threads;
+    int blocks = (int)(b > 65535 * 16 ? 65535 * 16 : b);
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (threads) {
+      case 128:
+        padd_kernel<128><<<blocks, 128, 0, s>>>(x1, y1, z1, x2, y2, z2, ox, oy, oz, n);
+        break;
+      case 256:
+        padd_kernel<256><<<blocks, 256, 0, s>>>(x1, y1, z1, x2, y2, z2, ox, oy, oz, n);
+        break;
+      case 512:
+        padd_kernel<512><<<blocks, 512, 0, s>>>(x1, y1, z1, x2, y2, z2, ox, oy, oz, n);
+        break;
+      case 1024:
+        padd_kernel<1024><<<blocks, 1024, 0, s>>>(x1, y1, z1, x2, y2, z2, ox, oy, oz, n);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -38,11 +38,10 @@ import time
 
 import torch
 
-from bulletproofspp_tpu import cli as base_cli
-from bulletproofspp_tpu.core import range_proof as rpm
-from bulletproofspp_tpu.core.batch import batch_verify_encoded
-from bulletproofspp_tpu.io_ import schema as schema_mod
-
+from . import cli
+from .core import range_proof as rpm
+from .core.batch import batch_verify_encoded
+from .io_ import schema as schema_mod
 from .ops import kernels
 from .ops.engine import TorchEngine, _bucket
 
@@ -103,9 +102,9 @@ def _load(name):
     d = os.path.join(EXAMPLES, name)
     with open(os.path.join(d, "schema.json")) as f:
         spec = schema_mod.parse_spec(json.load(f))
-    setup = schema_mod.build_setup(spec, base_cli.load_points(spec, schema_mod.points_needed(spec)))
+    setup = schema_mod.build_setup(spec, cli.load_points(spec, schema_mod.points_needed(spec)))
     with open(os.path.join(d, "witness.json")) as f:
-        values = base_cli._resolve_values(spec, schema_mod.parse_witness(json.load(f)))
+        values = cli._resolve_values(spec, schema_mod.parse_witness(json.load(f)))
     return spec, setup, values
 
 
@@ -155,7 +154,7 @@ def batch_proofs(indices, eng):
     spec, setup, _ = _load("64bit")
     blobs = []
     for i in indices:
-        values = base_cli._resolve_values(spec, schema_mod.parse_witness([{"amount": 10**9 + i}]))
+        values = cli._resolve_values(spec, schema_mod.parse_witness([{"amount": 10**9 + i}]))
         blobs.append(rpm.encode_proof(setup, rpm.prove(setup, values, f"bench{i}".encode(), eng)))
     return setup, blobs
 

@@ -1,11 +1,10 @@
-"""Loader for the native host scalar pipeline (``native/bppp_native.cpp``).
+"""Loader for the native host scalar pipeline (``csrc/bppp_native.cpp``).
 
-The C++ source is shared with the JAX package and read in place.  It is
-compiled with g++ at first use into this package's git-ignored build
-directory, keyed by a content hash of the source, so a stale binary is
-never picked up after a source change.  The GLV lattice is initialised
-from this package's own ``ops.glv`` (``bulletproofspp_tpu.native``
-initialises it from ``bulletproofspp_tpu.ops.glv``, which imports JAX).
+The C++ source is this package's copy of the JAX package's
+``native/bppp_native.cpp``.  It is compiled with g++ at first use into
+this package's git-ignored build directory, keyed by a content hash of
+the source, so a stale binary is never picked up after a source change.
+The GLV lattice is initialised from this package's own ``ops.glv``.
 
 Without g++ (or when the build fails) every call returns None and the
 callers use the pure-Python ``ops.glv``; ``pipeline()`` says which one
@@ -27,9 +26,9 @@ import numpy as np
 
 from .ops import glv
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_REPO, "native", "bppp_native.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_PKG, "csrc", "bppp_native.cpp")
+BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lock = threading.Lock()
 _state = {"lib": None, "tried": False}

@@ -18,9 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bulletproofspp_tpu.core import ec
-from bulletproofspp_tpu.core.fields import Q
-
+from ..core import ec
+from ..core.fields import Q
 from . import limb
 
 B3 = 21

@@ -1,9 +1,10 @@
 """TorchEngine: the protocol layer's engine on PyTorch tensors.
 
 The port of ``bulletproofspp_tpu/ops/engine.py: JaxEngine``.  The
-protocol layer (``bulletproofspp_tpu.core``) calls it through the engine
-interface of ``core/engine.py``; it plugs in with
-``core.engine.set_default_engine(TorchEngine(device))``.  Host work per
+port's protocol layer (``bulletproofspp_tpu_torch.core``) calls it through
+the engine interface of ``core/engine.py``; ``core.engine.default_engine``
+makes one on the CUDA card, and ``set_default_engine(TorchEngine(device))``
+picks another device.  Host work per
 call is the exact-integer GLV split and digit recoding (``native`` /
 ``ops.glv``) and limb packing; all field and curve arithmetic runs on
 the engine's device, for every size (there is no host shortcut).
@@ -21,10 +22,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from bulletproofspp_tpu import metrics
-from bulletproofspp_tpu.core.fields import Q, R
-
-from .. import native
+from .. import metrics, native
+from ..core.fields import Q, R
 from . import curve, glv, limb, msm
 
 BV_CACHE_MAX = 64

@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from bulletproofspp_tpu.core.fields import R
-from bulletproofspp_tpu.core.ec import LAMBDA
+from ..core.ec import LAMBDA
+from ..core.fields import R
 
 # Digit rows per scalar half: 4-bit signed digits covering |k_i| < 2^131.
 ROWS = 33

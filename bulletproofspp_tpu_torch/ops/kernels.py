@@ -1,13 +1,15 @@
 """The port's hand-written CUDA kernels, their plain versions and launch counts.
 
-Nine kernels.  Seven replace Pallas TPU kernels of
+Twelve kernels.  Seven replace Pallas TPU kernels of
 ``bulletproofspp_tpu/ops/pallas_field.py`` (padd, horner, reduce_block,
 tail_horner, table_flat, select_reduce, and select_reduce_fused for MSMs
-of 2^21 lanes and more); two replace XLA-only functions that as plain
-PyTorch dominated the card's time: fold (``fold_mul_kernel`` of
-``bulletproofspp_tpu/ops/msm.py``, basis folding in prove) and
-decompress (``decompress_kernel`` of ``bulletproofspp_tpu/ops/curve.py``,
-proof decoding in verify).  Each keeps the contract at the boundary:
+of 2^21 lanes and more); three replace the Pallas kernels of the JAX
+package's measurement tools (sr_variant and grid_copy of
+``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); two
+replace XLA-only functions that as plain PyTorch dominated the card's
+time: fold (``fold_mul_kernel`` of ``bulletproofspp_tpu/ops/msm.py``,
+basis folding in prove) and decompress (``decompress_kernel`` of
+``bulletproofspp_tpu/ops/curve.py``, proof decoding in verify).  Each keeps the contract at the boundary:
 (16, N) int64 planes of 16-bit limbs, strict in and out (``ops.limb``);
 multiple tables are flat, entry e and limb i of lane j at row 16 e + i
 of a (16 E, N) plane.  Sources: one library per entry file of
@@ -45,7 +47,7 @@ from . import curve, limb
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("kernels.cu", "select_reduce_fused.cu", "decompress.cu")  # one library each
+SOURCES = ("kernels.cu", "select_reduce_fused.cu", "decompress.cu", "tools.cu")  # one library each
 HEADERS = ("curve.cuh", "field.cuh")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,7 +74,7 @@ class Kernel:
 KERNELS = {
     k.name: k
     for k in (
-        Kernel("padd", "kernels.cu", "bppp_padd", [_P] * 9 + [_I64, _P],
+        Kernel("padd", "kernels.cu", "bppp_padd", [_P] * 9 + [_I64, _I32, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:759"),
         Kernel("horner", "kernels.cu", "bppp_horner", [_P] * 6 + [_I64, _I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:446"),
@@ -90,6 +92,12 @@ KERNELS = {
                [_P] * 8 + [_I64, _I64, _I64, _P], "bulletproofspp_tpu/ops/pallas_field.py:615"),
         Kernel("decompress", "decompress.cu", "bppp_decompress", [_P] * 4 + [_I64, _P],
                "bulletproofspp_tpu/ops/curve.py:224"),
+        Kernel("sr_variant", "tools.cu", "bppp_sr_variant", [_P] * 8 + [_I64] * 4 + [_I32, _P],
+               "tools/r5_experiments.py:115"),
+        Kernel("grid_copy", "tools.cu", "bppp_grid_copy", [_P] * 2 + [_I64] * 3 + [_P],
+               "tools/r5_experiments.py:145"),
+        Kernel("chain", "tools.cu", "bppp_chain", [_I32] + [_P] * 7 + [_I64, _I32, _P],
+               "tools/phase_bench.py:43"),
     )
 }
 
@@ -221,8 +229,14 @@ def padd_plain(p, q):
     return curve.tighten3(curve.padd_loose(p, q))
 
 
-def padd(p, q):
-    """P + Q over (16, *batch) strict planes."""
+PADD_THREADS = (128, 256, 512, 1024)
+
+
+def padd(p, q, threads: int = 128):
+    """P + Q over (16, *batch) strict planes; ``threads`` a block (one of
+    ``PADD_THREADS``) on the card."""
+    if threads not in PADD_THREADS:
+        raise ValueError(f"padd: threads must be one of {PADD_THREADS}")
     if p[0].device.type == "cpu":
         return padd_plain(p, q)
     shape = p[0].shape
@@ -230,7 +244,7 @@ def padd(p, q):
     _check(*flat)
     n = flat[0].shape[1]
     out = _empty((limb.NLIMB, n), flat[0])
-    _launch("padd", *_ptrs(*flat, *out), n)
+    _launch("padd", *_ptrs(*flat, *out), n, threads)
     return tuple(t.reshape(shape) for t in out)
 
 
@@ -507,3 +521,174 @@ def decompress(x, sign):
     ok = torch.empty(n, dtype=torch.bool, device=x.device)
     _launch("decompress", *_ptrs(x, sign, y, ok), n)
     return y, ok
+
+
+# ---------------------------------------------------------------------------
+# 10. sr_variant: select_reduce with block blk and output width out_w
+# ---------------------------------------------------------------------------
+
+
+def _halve(p, width: int, out_w: int):
+    """Halving complete adds over the last axis (first half + second half)
+    until ``out_w`` lanes are left; loose out."""
+    while width > out_w:
+        h = width // 2
+        p = curve.padd_loose(tuple(t[..., :h] for t in p), tuple(t[..., h:] for t in p))
+        width = h
+    return p
+
+
+def sr_variant_plain(tables, absd, sgn, blk: int = 1024, out_w: int = 128, noselect: bool = False):
+    """Flat tables of L lanes, digits (rows, L) -> (16, rows * L * out_w /
+    blk) in (row, block, lane) order: each row's blocks of ``blk`` selected
+    entries halve to ``out_w`` lanes (``tools/r5_experiments.py:
+    _sr_kernel``).  ``noselect`` takes entry 1 (+Y) for every (row, lane)
+    (``_sr_kernel_noselect``)."""
+    rows, L = absd.shape
+    if noselect:
+        absd, sgn = torch.ones_like(absd), torch.zeros_like(sgn)
+    sel = select_plain(tables, absd[None], sgn[None])  # (16, 1, rows, L)
+    sel = tuple(t.reshape(limb.NLIMB, rows, L // blk, blk) for t in sel)
+    return tuple(t.reshape(limb.NLIMB, -1) for t in curve.tighten3(_halve(sel, blk, out_w)))
+
+
+def sr_variant(tables, absd, sgn, blk: int = 1024, out_w: int = 128, noselect: bool = False):
+    rows, L = absd.shape
+    if out_w <= 0 or blk % out_w or blk // out_w not in (2, 4, 8, 16) or L % blk:
+        raise ValueError(f"sr_variant: blk {blk} / out_w {out_w} must be 2, 4, 8 or 16 and "
+                         f"divide L = {L} into blocks")
+    if tables[0].device.type == "cpu":
+        return sr_variant_plain(tables, absd, sgn, blk, out_w, noselect)
+    tables = [t.contiguous() for t in tables]
+    _check(*(t.view(-1, limb.NLIMB, L)[0] for t in tables))
+    absd, sgn = absd.contiguous(), sgn.contiguous()
+    if any(d.dtype != torch.int64 or d.device != tables[0].device for d in (absd, sgn)):
+        raise ValueError("sr_variant digits must be int64 on the tables' device")
+    out = _empty((limb.NLIMB, rows * L * out_w // blk), tables[0])
+    _launch("sr_variant", *_ptrs(*tables, absd, sgn, *out), rows, L, blk, out_w, int(noselect))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 11. grid_copy: x + 1 (mod 2^32), written once per row
+# ---------------------------------------------------------------------------
+
+
+def grid_copy_plain(x, rows: int = 33):
+    """(16, L) -> (16, rows * L): (x + 1) mod 2^32, repeated per row."""
+    return ((x + 1) & 0xFFFFFFFF).repeat(1, rows)
+
+
+def grid_copy(x, blk: int = 1024, rows: int = 33):
+    """``tools/r5_experiments.py: grid_copy``: one block per (lane block of
+    ``blk``, row) on the card."""
+    L = x.shape[-1]
+    if x.dim() != 2 or blk <= 0 or L % blk:
+        raise ValueError(f"grid_copy: x must be (16, L) with L a multiple of blk = {blk}")
+    if x.device.type == "cpu":
+        return grid_copy_plain(x, rows)
+    x = x.contiguous()
+    _check(x)
+    out = torch.empty((limb.NLIMB, rows * L), dtype=torch.int64, device=x.device)
+    _launch("grid_copy", *_ptrs(x, out), L, rows, blk)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 12. chain: one phase of the complete add, chained per lane
+# ---------------------------------------------------------------------------
+
+
+def _carry(cols):
+    """(K, ...) nonnegative int64 columns (< 2^62) -> K strict limbs of
+    their value mod 2^(16 K): an exact sequential carry."""
+    out = torch.empty_like(cols)
+    c = torch.zeros_like(cols[0])
+    for i in range(cols.shape[0]):
+        v = cols[i] + c
+        out[i] = v & limb.MASK
+        c = v >> limb.LBITS
+    return out
+
+
+def _product(a, b):
+    """Strict a, b -> the 32 strict limbs of the integer product a * b."""
+    batch = a.shape[1:]
+    prod = (a.unsqueeze(1) * b.unsqueeze(0)).reshape(limb.NLIMB * limb.NLIMB, *batch)
+    cols = torch.zeros((2 * limb.NLIMB, *batch), dtype=torch.int64, device=a.device)
+    cols.index_add_(0, limb._col_index(a.device), prod)
+    return _carry(cols)
+
+
+def _mul_unfolded(x, b):
+    """The product reduced by one pass L + 977 H + 2^32 H, mod 2^256 (the
+    carry out of 2^256 dropped): ``tools.cu: fe_mul_unfolded``."""
+    t = _product(x, b)
+    lo, hi = t[: limb.NLIMB], t[limb.NLIMB :]
+    s = lo + limb.C_LOW * hi
+    s[2:] += hi[:-2]
+    return _carry(s)
+
+
+# name -> (phase index of tools.cu, state planes, value phase).  Value
+# phases are equal mod p to the JAX bodies of tools/phase_bench.py; the
+# limb-form phases (mul_w16, carry_full, prod_form) run the port's nearest
+# step of its own arithmetic and have no JAX value to hold.
+CHAIN_PHASES = {
+    "padd": (0, 3, True),
+    "mul_w16": (1, 1, False),
+    "mul_f16": (2, 1, True),
+    "mul_small": (3, 1, True),
+    "add": (4, 1, True),
+    "add_s17": (5, 1, True),
+    "sub": (6, 1, True),
+    "sub_raw2": (7, 1, True),
+    "carry_full": (8, 1, False),
+    "prod_form": (9, 1, False),
+}
+
+_CHAIN_STEP = {
+    "mul_w16": _mul_unfolded,
+    "mul_f16": limb.mul,
+    "mul_small": lambda x, b: limb.mul_small(x, 3),
+    "add": limb.add,
+    "add_s17": limb.add,
+    "sub": limb.sub,
+    "sub_raw2": lambda x, b: limb.sub(x, limb.add(b, b)),
+    "carry_full": lambda x, b: limb.normalize(limb.add(limb.add(x, x), b)),
+    "prod_form": lambda x, b: _product(x, b)[: limb.NLIMB],
+}
+
+
+def chain_plain(phase: str, a, b, rep: int = 8):
+    """x <- step(x, b) ``rep`` times; returns the first state plane."""
+    if phase == "padd":
+        x = a
+        for _ in range(rep):
+            x = padd_plain(x, b)
+        return x[0]
+    x = a[0]
+    for _ in range(rep):
+        x = _CHAIN_STEP[phase](x, b[0])
+    return x
+
+
+def chain(phase: str, a, b, rep: int = 8):
+    """``tools/phase_bench.py: make_chain(body).run`` for one phase of
+    ``CHAIN_PHASES``: a, the state (``nstate`` (16, L) planes), b three
+    (16, L) planes (padd reads all three, the others b[0])."""
+    idx, nstate, _ = CHAIN_PHASES[phase]
+    if len(a) != nstate or len(b) != 3:
+        raise ValueError(f"chain {phase}: {nstate} state planes and 3 b planes")
+    if a[0].device.type == "cpu":
+        return chain_plain(phase, a, b, rep)
+    a = [t.contiguous() for t in a]
+    b = [t.contiguous() for t in b]
+    _check(*a, *b)
+    n = a[0].shape[1]
+    if any(t.shape != (limb.NLIMB, n) for t in (*a, *b)):
+        raise ValueError("chain planes must all be (16, L)")
+    a = a + [a[0]] * (3 - nstate)
+    out = torch.empty_like(a[0])
+    _launch("chain", idx, *_ptrs(*a, *b, out), n, rep)
+    return out

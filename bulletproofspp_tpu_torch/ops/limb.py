@@ -33,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from bulletproofspp_tpu.core.fields import Q
+from ..core.fields import Q
 
 NLIMB = 16
 LBITS = 16

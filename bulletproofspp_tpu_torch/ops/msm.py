@@ -23,6 +23,12 @@ package (``msm.py:105-196``):
 Everything is batched over a leading MSM axis B (``msm_many``'s K stacked
 MSMs; the JAX package vmaps instead).  Planes: (16, B, L) points and
 (B, ROWS, L) int64 digits.
+
+For a FIXED basis (the bench's, ``bulletproofspp_tpu_torch.bench``) the
+multiple tables are pure precomputation: ``precompute_flat_table`` builds
+them once and ``msm_tabled`` runs the rest, 33 complete adds a lane
+instead of 40 (``msm.py:199-244``).  The engine's own MSMs do not use it:
+their bases change as the argument folds.
 """
 
 from __future__ import annotations
@@ -49,24 +55,53 @@ def msm(px, py, pz, absd, sgn):
     rows = absd.shape[1]
     p = _flat((px, py, pz))
     if L >= SCRATCH_TABLE_MIN_L:
-        flat, width = kernels.select_reduce_fused(p, absd, sgn), L // 8
-    elif L >= 1024:
-        flat, width = kernels.select_reduce(kernels.table_flat(p), absd, sgn), L // 8
-    else:
-        sel = kernels.select_plain(kernels.table_flat(p), absd, sgn)
-        if L < 128:
-            width = L
-            while width > 1:
-                h = width // 2
-                sel = curve.padd(tuple(t[..., :h] for t in sel), tuple(t[..., h:] for t in sel))
-                width = h
-            return kernels.horner(*(t[..., 0] for t in sel))
-        flat, width = _flat(sel), L
+        return _narrow(kernels.select_reduce_fused(p, absd, sgn), L // 8, batch, rows)
+    if L >= 1024:
+        return msm_tabled(kernels.table_flat(p), absd, sgn)
+    sel = kernels.select_plain(kernels.table_flat(p), absd, sgn)
+    if L < 128:
+        width = L
+        while width > 1:
+            h = width // 2
+            sel = curve.padd(tuple(t[..., :h] for t in sel), tuple(t[..., h:] for t in sel))
+            width = h
+        return kernels.horner(*(t[..., 0] for t in sel))
+    return _narrow(_flat(sel), L, batch, rows)
+
+
+def _narrow(flat, width: int, batch: int, rows: int):
+    """Row-major partials of ``width`` lanes a row -> (16, B) sums: the
+    reduce_block chain (8:1 per launch) to 128 lanes, then tail_horner."""
     while width > 128:
         f = min(8, width // 128)
         flat = kernels.reduce_block(flat, f)
         width //= f
     return kernels.tail_horner(tuple(t.reshape(limb.NLIMB, batch, rows * 128) for t in flat), rows)
+
+
+def tabled_supported(L: int) -> bool:
+    """Lane counts the tabled route takes (``msm.py:232-244``): a power of
+    two with 1,024 <= L < SCRATCH_TABLE_MIN_L.  From 2^21 lanes the flat
+    table (4,608 B a lane) is the footprint select_reduce_fused avoids."""
+    return 1024 <= L < SCRATCH_TABLE_MIN_L and (L & (L - 1)) == 0
+
+
+def precompute_flat_table(px, py, pz):
+    """Flat multiple tables of a FIXED basis of B * L lanes, to be kept
+    across MSM calls: (144, N), (288, N), (144, N) int64 planes (the
+    table_flat kernel, ``msm.py:199``)."""
+    return kernels.table_flat(_flat((px, py, pz)))
+
+
+def msm_tabled(tables, absd, sgn):
+    """``msm`` with the table build hoisted out (``msm_tabled_kernel``,
+    ``msm.py:215``): select_reduce, the reduce_block chain and tail_horner.
+    tables: ``precompute_flat_table``'s; absd/sgn (B, ROWS, L).  Returns
+    projective (16, B) planes."""
+    batch, rows, L = absd.shape
+    if not tabled_supported(L):
+        raise ValueError(f"msm_tabled: L = {L} lanes is outside the tabled route")
+    return _narrow(kernels.select_reduce(tables, absd, sgn), L // 8, batch, rows)
 
 
 def fold_mul(pe, po, de, se, do, so):

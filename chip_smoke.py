@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify, measure.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      CUDA kernels from ``bulletproofspp_tpu_torch/csrc`` with nvcc (one
      process per source file, all at once);
   2. hold each kernel (padd, horner, reduce_block, tail_horner,
-     table_flat, select_reduce, fold, select_reduce_fused, decompress)
-     against its plain PyTorch version on the card, at the shapes the main
-     paths give it, on numpy-seeded inputs (identity lanes, P + P, P + (-P)
-     and non-residue x's included): the normalized outputs must be equal
-     limb for limb; time both.  At 2^21 lanes, where the plain route
+     table_flat, select_reduce, fold, select_reduce_fused, decompress,
+     sr_variant, grid_copy, chain) against its plain PyTorch version on the
+     card, at the shapes the main paths give it, on numpy-seeded inputs
+     (identity lanes, P + P, P + (-P) and non-residue x's included; padd
+     also at the measurement path's 65,536 lanes in each of its
+     threads-a-block instantiations): the normalized outputs must be equal
+     limb for limb.  Time both: a kernel's launches back to back (enqueued
+     while the stream sleeps), a plain version's as the host sends them.
+     At 2^21 lanes, where the plain route
      cannot run (its gather alone is 3 x 8.9 GB), select_reduce_fused is
      held against the two kernels table_flat + select_reduce instead, and
      both routes are timed;
   3. reset the launch counts and run the port's CLI ``test`` command
-     (prove, verify, encode, decode, verify) on examples/64bit and
-     examples/128by64: rc 0 and proof/commitment bytes equal to the
-     golden digests of tests/test_golden.py;
+     (prove, verify, encode, decode, verify) on every shipped example
+     (examples/*): rc 0 and proof/commitment bytes equal to the golden
+     digests of tests/test_golden.py (read from that file);
   4. require that every kernel of that path was launched during phase 3
-     and that no JAX module was imported;
+     and that no module of JAX or of the JAX package was imported;
   5. time ``prove`` and ``verify`` per example through the same CLI and
      check that a proof with one flipped byte is rejected (rc 1);
   6. the 2^21-lane MSM: ``TorchEngine.msm`` over 2^20 (scalar, point)
@@ -34,17 +38,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the port's CLI ``batch-verify`` accepts them all (rc 0); with one byte
      of proof 517 flipped it rejects the batch (rc 1), and
      ``verify_many_encoded`` flags proof 517 alone; then one timed
-     ``batch_verify_encoded`` by engine call (engine_profile's batch mode).
+     ``batch_verify_encoded`` by engine call (engine_profile's batch mode);
+  8. the measurement path, run between phases 5 and 6 so that the bench's
+     torch.profiler sessions are the process's first: sr_variant (every
+     (blk, out_w) of the r5 tool's H3/H4, and noselect; at blk 1,024 / out
+     128 equal to select_reduce limb for limb), grid_copy and chain (all
+     ten phases) against their plain versions at L = 65,536; then, counted
+     from 0, the port's bench in-process at 32,768 points (tabled =
+     untabled = the host answer, every IQR under 10%) and the mains of
+     tools.r5_experiments and tools.phase_bench once each.
 
 The line before the last is one JSON object with each kernel's launch
-count (summed over the main-path runs of phases 3, 6 and 7, each counted
-from 0), largest normalized difference and times; the last line is
-{"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
+count (summed over the main-path runs of phases 3, 6, 7 and 8, each
+counted from 0), largest normalized difference, times, bound (``bounds``:
+the larger of its 32-bit multiplies over the card's rate and its bytes
+over 3.35 TB/s; for chain's ten launches the sum of theirs) and, for grid_copy, the time of one PyTorch call that
+computes the same function (``library_ms``; null where there is none);
+the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 CUDA is not available.
 """
 
 from __future__ import annotations
 
+import ast
 import hashlib
 import json
 import os
@@ -64,12 +80,22 @@ WIDE_LANES = 1 << 21  # msm.SCRATCH_TABLE_MIN_L: the fused kernel's route
 BATCH_N, BATCH_BAD = 1024, 517
 DECOMPRESS_L = 16384  # the 1,024-proof batch's decompress bucket
 
-GOLDEN = {  # tests/test_golden.py:45-46 and :57-58 (proof, commitments)
-    "64bit": ("fe39faef84b016b82b017a4ef07ba3f31c5237b0f79c0653376c86f5dbba8c5d",
-              "fd56b4b18729678d4f77a64644771f77ebaf38f686da8523a3fdebcb2d29c8ee"),
-    "128by64": ("c6f5f7cfaaa839c72fc9b7953c261019bf15f015b7de0e35c16a3393493c50f1",
-                "97ed392017a230f3b1278a095764a7859559be22d5f603f41907d1a6658acdbf"),
-}
+MEASURE_L = 65536  # the measurement tools' width (32,768 points)
+SR_CASES = ((1024, 128, False), (1024, 128, True), (512, 128, False), (512, 256, False),
+            (1024, 256, False), (2048, 128, False), (2048, 256, False))
+
+
+def golden() -> dict:
+    """{example: (proof sha256, commitments sha256)} of every shipped
+    example, from the GOLDEN table of tests/test_golden.py."""
+    with open(os.path.join(HERE, "tests", "test_golden.py")) as f:
+        tree = ast.parse(f.read())
+    node = next(n for n in tree.body if isinstance(n, ast.Assign)
+                and any(getattr(t, "id", None) == "GOLDEN" for t in n.targets))
+    table = ast.literal_eval(node.value)
+    if sorted(table) != sorted(os.listdir(os.path.join(HERE, "examples"))):
+        raise AssertionError("tests/test_golden.py does not cover every shipped example")
+    return {name: (proof, coms) for name, (proof, coms, _) in table.items()}
 
 
 def log(*a):
@@ -84,23 +110,30 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 5) -> float:
+def time_ms(fn, reps: int = 5, paced: bool = False) -> float:
+    """Device milliseconds per call of fn between two CUDA events.  A
+    kernel's launches run back to back (``bench.cuda_ms``: enqueued while
+    the stream sleeps; raises if they could not be).  ``paced``: as the
+    host sends them, for the plain versions (more small launches than the
+    queue holds) and for a wrapper that synchronizes (fold uploads its
+    digits)."""
+    from bulletproofspp_tpu_torch import bench
+
     fn()  # warm-up
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    if paced:
+        return bench.events_ms(lambda k: fn(), reps)[0]
+    ms, ahead = bench.cuda_ms(lambda k: fn(), reps)
+    if not ahead:
+        raise AssertionError("a kernel's launches could not be timed back to back")
+    return ms
 
 
 def random_points(n: int, rng, dev):
     """n projective lanes on ``dev``: multiples of G with random Z scaling,
     about 1/8 identity lanes.  Returns the planes and the host affine list."""
-    from bulletproofspp_tpu.core import ec
-    from bulletproofspp_tpu.core.fields import Q
+    from bulletproofspp_tpu_torch.core import ec
+    from bulletproofspp_tpu_torch.core.fields import Q
     from bulletproofspp_tpu_torch.ops import limb
 
     base = [ec.scalar_mul(int(k), ec.G) for k in rng.integers(1, 2**62, size=64)]
@@ -119,7 +152,7 @@ def random_points(n: int, rng, dev):
 def rescale_and_negate(p, rng, negate_mask):
     """Another projective representative of the same lanes (Z scaled), with
     Y negated where ``negate_mask``: for P + P and P + (-P) lanes."""
-    from bulletproofspp_tpu.core.fields import Q
+    from bulletproofspp_tpu_torch.core.fields import Q
     from bulletproofspp_tpu_torch.ops import limb
 
     n = p[0].shape[-1]
@@ -147,7 +180,7 @@ def wide_points(n: int, rng, dev):
 
 def residue_mix(n: int, rng):
     """n x's < p, for about 1/8 of which x^3 + 7 is not a square."""
-    from bulletproofspp_tpu.core.fields import Q
+    from bulletproofspp_tpu_torch.core.fields import Q
 
     xs = []
     while len(xs) < n:
@@ -179,23 +212,28 @@ def compare(name, kernel_out, plain_out):
 
 def check_kernels(dev):
     """Phase 2: each kernel against its plain version at the main path's shapes."""
+    from bulletproofspp_tpu_torch import bounds
     from bulletproofspp_tpu_torch.ops import kernels
 
     rng = np.random.default_rng(SEED)
     rows = []
 
-    # padd: table builds and lane trees, L = 128 ... 4096
-    for L in (128, 1024, 4096):
+    # padd: table builds and lane trees, L = 128 ... 4096; the measurement
+    # path's chains at L = 65,536, every threads-a-block instantiation
+    for L in (128, 1024, 4096, MEASURE_L):
         p, _ = random_points(L, rng, dev)
         mode = rng.integers(0, 3, size=L)  # 0: P + Q, 1: P + P, 2: P + (-P)
         q_other, _ = random_points(L, rng, dev)
         q_same = rescale_and_negate(p, rng, mode == 2)
         sel = torch.as_tensor(mode == 0, device=dev)
         q = tuple(torch.where(sel, a, b) for a, b in zip(q_other, q_same))
-        err = compare(f"padd L={L}", kernels.padd(p, q), kernels.padd_plain(p, q))
-        if L == 4096:
-            rows.append(("padd", err, time_ms(lambda: kernels.padd(p, q), 20),
-                         time_ms(lambda: kernels.padd_plain(p, q), 3), f"L={L}"))
+        want = kernels.padd_plain(p, q)
+        for threads in kernels.PADD_THREADS if L == MEASURE_L else (128,):
+            err = compare(f"padd L={L} threads={threads}", kernels.padd(p, q, threads), want)
+    log(f"padd L={MEASURE_L}: threads {kernels.PADD_THREADS} equal to the plain version")
+    rows.append(("padd", err, time_ms(lambda: kernels.padd(p, q), 20),
+                 time_ms(lambda: kernels.padd_plain(p, q), 3, paced=True),
+                 f"L={L} threads=128", bounds.padd(L)))
 
     # horner: (16, K, 33) row sums for K stacked MSMs (msm_many: K up to 130)
     for K in (1, 130):
@@ -203,7 +241,8 @@ def check_kernels(dev):
         r = tuple(c.reshape(16, K, ROWS) for c in r)
         err = compare(f"horner K={K}", kernels.horner(*r), kernels.horner_plain(*r))
     rows.append(("horner", err, time_ms(lambda: kernels.horner(*r), 5),
-                 time_ms(lambda: kernels.horner_plain(*r), 1), f"K={K} rows={ROWS}"))
+                 time_ms(lambda: kernels.horner_plain(*r), 1, paced=True), f"K={K} rows={ROWS}",
+                 bounds.horner(K, ROWS)))
 
     # reduce_block: factors 2/4/8 at W = 33 * 1024 (a 1,024-lane MSM's rows)
     w = ROWS * 1024
@@ -212,7 +251,8 @@ def check_kernels(dev):
         err = compare(f"reduce_block f={f}", kernels.reduce_block(p, f),
                       kernels.reduce_block_plain(p, f))
     rows.append(("reduce_block", err, time_ms(lambda: kernels.reduce_block(p, 8), 10),
-                 time_ms(lambda: kernels.reduce_block_plain(p, 8), 2), f"W={w} f=8"))
+                 time_ms(lambda: kernels.reduce_block_plain(p, 8), 2, paced=True), f"W={w} f=8",
+                 bounds.reduce_block(w, 8)))
 
     # tail_horner: (16, K, 33 * 128)
     for K in (1, 3):
@@ -222,7 +262,9 @@ def check_kernels(dev):
                       kernels.tail_horner_plain(p, ROWS))
     p1 = tuple(c[:, :1].contiguous() for c in p)
     rows.append(("tail_horner", err, time_ms(lambda: kernels.tail_horner(p1, ROWS), 5),
-                 time_ms(lambda: kernels.tail_horner_plain(p1, ROWS), 1), f"K=1 rows={ROWS}"))
+                 time_ms(lambda: kernels.tail_horner_plain(p1, ROWS), 1, paced=True),
+                 f"K=1 rows={ROWS}",
+                 bounds.tail_horner(1, ROWS)))
     # table_flat and select_reduce: a 4,096-lane MSM (128by64's widest), 33 rows
     from bulletproofspp_tpu_torch.ops import glv
 
@@ -231,14 +273,15 @@ def check_kernels(dev):
     tabs = kernels.table_flat(p)
     err = compare(f"table_flat L={L}", tabs, kernels.table_flat_plain(p))
     rows.append(("table_flat", err, time_ms(lambda: kernels.table_flat(p), 20),
-                 time_ms(lambda: kernels.table_flat_plain(p), 2), f"L={L}"))
+                 time_ms(lambda: kernels.table_flat_plain(p), 2, paced=True), f"L={L}",
+                 bounds.table_flat(L)))
     absd = torch.as_tensor(rng.integers(0, 9, size=(1, ROWS, L)), device=dev)
     sgn = torch.as_tensor(rng.integers(0, 2, size=(1, ROWS, L)), device=dev)
     err = compare(f"select_reduce L={L}", kernels.select_reduce(tabs, absd, sgn),
                   kernels.select_reduce_plain(tabs, absd, sgn))
     rows.append(("select_reduce", err, time_ms(lambda: kernels.select_reduce(tabs, absd, sgn), 10),
-                 time_ms(lambda: kernels.select_reduce_plain(tabs, absd, sgn), 2),
-                 f"L={L} rows={ROWS}"))
+                 time_ms(lambda: kernels.select_reduce_plain(tabs, absd, sgn), 2, paced=True),
+                 f"L={L} rows={ROWS}", bounds.select_reduce(absd, sgn)))
 
     # fold: per-lane b E + a O with shared digits, L = 512 (128by64's widest)
     e = kernels.table_flat(random_points(512, rng, dev)[0])
@@ -246,8 +289,9 @@ def check_kernels(dev):
     b, a = (int(v) << 64 for v in rng.integers(1, 2**62, size=2))
     digits = np.stack([*glv.recode_signed(-b), *glv.recode_signed(a)])
     err = compare("fold L=512", kernels.fold(e, o, digits), kernels.fold_plain(e, o, digits))
-    rows.append(("fold", err, time_ms(lambda: kernels.fold(e, o, digits), 5),
-                 time_ms(lambda: kernels.fold_plain(e, o, digits), 1), "L=512 rows=33"))
+    rows.append(("fold", err, time_ms(lambda: kernels.fold(e, o, digits), 5, paced=True),
+                 time_ms(lambda: kernels.fold_plain(e, o, digits), 1, paced=True), "L=512 rows=33",
+                 bounds.fold(512, digits)))
     # select_reduce_fused: a 4,096-lane MSM, 33 rows, against its plain version
     L = 4096
     p, _ = random_points(L, rng, dev)
@@ -257,8 +301,8 @@ def check_kernels(dev):
                   kernels.select_reduce_fused_plain(p, absd, sgn))
     rows.append(("select_reduce_fused", err,
                  time_ms(lambda: kernels.select_reduce_fused(p, absd, sgn), 10),
-                 time_ms(lambda: kernels.select_reduce_fused_plain(p, absd, sgn), 2),
-                 f"L={L} rows={ROWS}"))
+                 time_ms(lambda: kernels.select_reduce_fused_plain(p, absd, sgn), 2, paced=True),
+                 f"L={L} rows={ROWS}", bounds.select_reduce_fused(absd, sgn)))
 
     # decompress: the 1,024-proof batch's bucket, about 1/8 non-residue x's
     from bulletproofspp_tpu_torch.ops import limb
@@ -272,12 +316,85 @@ def check_kernels(dev):
         raise AssertionError(f"kernel decompress disagrees with its plain version: {err}")
     log(f"decompress L={L}: {L - int(ok.sum().item())} non-residue lanes")
     rows.append(("decompress", err, time_ms(lambda: kernels.decompress(x, sign), 10),
-                 time_ms(lambda: kernels.decompress_plain(x, sign), 1), f"L={L}"))
+                 time_ms(lambda: kernels.decompress_plain(x, sign), 1, paced=True), f"L={L}",
+                 bounds.decompress(L)))
+    rows += check_measurement_kernels(dev, rng)
     torch.cuda.synchronize()
-    for name, err, ms, plain_ms, shape in rows:
-        log(f"kernel {name:19s} {shape:18s} max_abs_err {err}  cuda {ms:.4f} ms  plain {plain_ms:.4f} ms")
+    mhz = bounds.card()["sm_clock_max_mhz"]
+    out = {}
+    for name, err, ms, plain_ms, shape, work, *lib in rows:
+        bound_ms, bound_by = bounds.bound_sum(work if isinstance(work, list) else [work], mhz)
+        library_ms = lib[0] if lib else None
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms}
+        lib_s = f"  library {library_ms:.4f} ms" if library_ms is not None else ""
+        log(f"kernel {name:19s} {shape:28s} max_abs_err {err}  cuda {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}){lib_s}")
+    log(f"bounds at the maximum SM clock of {mhz} MHz (nvidia-smi clocks.max.sm)")
     check_fused_wide(dev, rng)
-    return {name: (err, ms, plain_ms) for name, err, ms, plain_ms, _ in rows}
+    return out
+
+
+def check_measurement_kernels(dev, rng):
+    """Phase 2, the measurement path's kernels at L = 65,536: sr_variant for
+    every (blk, out_w) of the r5 tool and noselect, grid_copy, and chain for
+    all ten phases, against their plain versions (max |diff| 0: normalized
+    for the value phases, raw limbs for the limb-form ones)."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import kernels, limb
+
+    L = MEASURE_L
+    p, _ = random_points(L, rng, dev)
+    tabs = kernels.table_flat(p)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(ROWS, L)), device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(ROWS, L)), device=dev)
+    for blk, out_w, noselect in SR_CASES:
+        err = compare(f"sr_variant blk={blk} out={out_w} noselect={noselect}",
+                      kernels.sr_variant(tabs, absd, sgn, blk, out_w, noselect),
+                      kernels.sr_variant_plain(tabs, absd, sgn, blk, out_w, noselect))
+    same = kernels.sr_variant(tabs, absd, sgn, 1024, 128)
+    ref = kernels.select_reduce(tabs, absd[None], sgn[None])
+    if not all(torch.equal(a, b) for a, b in zip(same, ref)):
+        raise AssertionError("sr_variant at blk 1,024 / out 128 differs from select_reduce")
+    log(f"sr_variant L={L} rows={ROWS}: {len(SR_CASES)} (blk, out_w, noselect) cases equal to "
+        "their plain versions; blk 1,024 / out 128 equal to select_reduce limb for limb")
+    rows = [("sr_variant", err,
+             time_ms(lambda: kernels.sr_variant(tabs, absd, sgn, 1024, 128), 10),
+             time_ms(lambda: kernels.sr_variant_plain(tabs, absd, sgn, 1024, 128), 1, paced=True),
+             f"L={L} rows={ROWS} blk=1024 out=128", bounds.sr_variant(absd, sgn, 1024, 128, False))]
+
+    x = torch.as_tensor(rng.integers(0, 1 << 16, size=(16, L)), device=dev)
+    x[:, :7] = 0xFFFFFFFF  # (x + 1) wraps mod 2^32
+    got, want = kernels.grid_copy(x), kernels.grid_copy_plain(x)
+    err = int((got - want).abs().max().item())
+    if err != 0:
+        raise AssertionError(f"kernel grid_copy disagrees with its plain version: {err}")
+    rows.append(("grid_copy", err, time_ms(lambda: kernels.grid_copy(x), 20),
+                 time_ms(lambda: kernels.grid_copy_plain(x), 5, paced=True), f"L={L} rows={ROWS}",
+                 bounds.grid_copy(L, ROWS), time_ms(lambda: (x + 1).repeat(1, ROWS), 20)))
+
+    ms = plain_ms = 0.0
+    works = []
+    for phase, (_, nstate, value) in kernels.CHAIN_PHASES.items():
+        a = tuple(torch.as_tensor(rng.integers(0, 1 << 16, size=(16, L)), device=dev)
+                  for _ in range(nstate))
+        b = tuple(torch.as_tensor(rng.integers(0, 1 << 16, size=(16, L)), device=dev)
+                  for _ in range(3))
+        for rep in (1, 8):
+            got, want = kernels.chain(phase, a, b, rep), kernels.chain_plain(phase, a, b, rep)
+            if value:
+                got, want = limb.normalize(got), limb.normalize(want)
+            err = int((got - want).abs().max().item())
+            if err != 0:
+                raise AssertionError(f"kernel chain {phase} rep={rep} disagrees with its plain "
+                                     f"version: max |diff| {err}")
+        ms += time_ms(lambda: kernels.chain(phase, a, b, 8), 5)
+        plain_ms += time_ms(lambda: kernels.chain_plain(phase, a, b, 8), 1, paced=True)
+        works.append(bounds.chain(phase, L, 8))
+    log(f"chain L={L}: all ten phases equal to their plain versions, 1 and 8 steps")
+    # ten launches: the bound is the sum of each phase's own
+    rows.append(("chain", 0, ms, plain_ms, f"L={L} rep=8, 10 phases summed", works))
+    return rows
 
 
 def check_fused_wide(dev, rng):
@@ -314,9 +431,9 @@ def run_cli(args) -> int:
 
 
 def main_path(work):
-    """Phase 3: the CLI's test command on each example, golden bytes."""
+    """Phase 3: the CLI's test command on every example, golden bytes."""
     secs = {}
-    for name, (want_proof, want_coms) in GOLDEN.items():
+    for name, (want_proof, want_coms) in golden().items():
         d = os.path.join(work, name)
         os.makedirs(d)
         for f in ("schema.json", "witness.json"):
@@ -336,7 +453,7 @@ def main_path(work):
 
 def prove_verify_times(work):
     """Phase 5: prove and verify seconds per example; a flipped byte fails."""
-    for name, (want_proof, _) in GOLDEN.items():
+    for name, (want_proof, _) in golden().items():
         os.chdir(os.path.join(work, name))
         t0 = time.perf_counter()
         rc = run_cli(["prove", "schema.json", "witness.json", "c2.bin", "p2.bin"])
@@ -367,8 +484,8 @@ def require_launched(path, launches, names):
 
 def msm_wide(dev):
     """Phase 6: one MSM of 2^20 pairs, a bucket of exactly 2^21 GLV lanes."""
-    from bulletproofspp_tpu.core import ec
-    from bulletproofspp_tpu.core.fields import R
+    from bulletproofspp_tpu_torch.core import ec
+    from bulletproofspp_tpu_torch.core.fields import R
     from bulletproofspp_tpu_torch.ops import kernels
     from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
@@ -417,9 +534,9 @@ def msm_wide(dev):
 def batch_1024(dev, work):
     """Phase 7: prove 1,024 proofs on the card, batch-verify them through the
     port's CLI, reject a flipped byte, and find the bad proof."""
-    from bulletproofspp_tpu.core.batch import verify_many_encoded
-    from bulletproofspp_tpu.core.engine import HostEngine
     from bulletproofspp_tpu_torch import engine_profile
+    from bulletproofspp_tpu_torch.core.batch import verify_many_encoded
+    from bulletproofspp_tpu_torch.core.engine import HostEngine
     from bulletproofspp_tpu_torch.ops import kernels
     from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
@@ -482,6 +599,42 @@ def batch_1024(dev, work):
     return launches
 
 
+def measurement_path():
+    """Phase 8: counted from 0, the port's bench at 32,768 points and the
+    two tools' mains, all in this process."""
+    from bulletproofspp_tpu_torch import bench
+    from bulletproofspp_tpu_torch.ops import kernels
+    from bulletproofspp_tpu_torch.tools import phase_bench, r5_experiments
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    out = bench.run()
+    log(f"bench ({time.perf_counter() - t0:.3f} s): {json.dumps(out)}")
+    if not out["correct"]:
+        raise AssertionError("the bench's tabled and untabled MSMs differ from the host answer")
+    if not out["iqr_ok"]:
+        raise AssertionError(f"a bench IQR stayed above 10% of its median: {out['inner_reps']}")
+    if not out["back_to_back"]:
+        raise AssertionError("the bench's device times were not back to back")
+    for tool in (r5_experiments, phase_bench):
+        t0 = time.perf_counter()
+        if tool.main() != 0:
+            raise AssertionError(f"{tool.__name__} failed")
+        log(f"{tool.__name__}: rc 0, {time.perf_counter() - t0:.3f} s")
+    launches = kernels.counts()
+    require_launched("the measurement path", launches,
+                     {"sr_variant", "grid_copy", "chain", "padd", "table_flat", "select_reduce",
+                      "reduce_block", "tail_horner"})
+    log(f"launches on the measurement path: {launches}")
+    return launches
+
+
+def require_port_only():
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "bulletproofspp_tpu"))
+    if foreign:
+        raise AssertionError(f"modules of JAX or the JAX package were imported: {foreign[:8]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -504,18 +657,18 @@ def main() -> int:
         main_path(work)
         launches = kernels.counts()
         log(f"launches on the main path: {launches}")
-        require_launched("cli test", launches, set(launches) - {"select_reduce_fused"})
-        if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-            raise AssertionError("JAX was imported")
+        require_launched("cli test", launches,
+                         set(launches) - {"select_reduce_fused", "sr_variant", "grid_copy", "chain"})
+        require_port_only()
         prove_verify_times(work)
+        measured = measurement_path()  # before any other torch.profiler session
         wide = msm_wide(dev)
         batch = batch_1024(dev, work)
     finally:
         os.chdir(HERE)
         shutil.rmtree(work, ignore_errors=True)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("JAX was imported")
-    launches = {k: launches[k] + wide[k] + batch[k] for k in launches}
+    require_port_only()
+    launches = {k: launches[k] + wide[k] + batch[k] + measured[k] for k in launches}
     require_launched("the main paths", launches, set(launches))
 
     report = {"kernels": [
@@ -525,9 +678,7 @@ def main() -> int:
             "source": f"bulletproofspp_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces,
             "launches": launches[name],
-            "max_abs_err": checked[name][0],
-            "ms": checked[name][1],
-            "plain_ms": checked[name][2],
+            **checked[name],
         }
         for name, k in kernels.KERNELS.items()
     ]}

@@ -16,7 +16,6 @@ import torch
 
 from bulletproofspp_tpu.cli import _resolve_values
 from bulletproofspp_tpu.core import ec
-from bulletproofspp_tpu.core import engine as engine_mod
 from bulletproofspp_tpu.core import range_proof as rpm
 from bulletproofspp_tpu.core.batch import batch_verify_encoded, verify_many_encoded
 from bulletproofspp_tpu.core.encoding import x_and_sign
@@ -25,6 +24,7 @@ from bulletproofspp_tpu.core.fields import Q
 from bulletproofspp_tpu.core.transcript import take_points
 from bulletproofspp_tpu.io_ import schema as schema_mod
 from bulletproofspp_tpu_torch import cli
+from bulletproofspp_tpu_torch.core import engine as engine_mod
 from bulletproofspp_tpu_torch.ops import curve, kernels, limb
 from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
@@ -133,7 +133,8 @@ def test_engine_profile_batch_mode_on_cpu(proofs):
     MSM per batch verify, with their sizes."""
     from bulletproofspp_tpu_torch import engine_profile
 
-    setup, blobs = proofs
+    _, blobs = proofs  # wire bytes; the setup is the port's own
+    setup = engine_profile._load("64bit")[1]
     row = next(engine_profile.run_batch(setup, blobs, engine_profile.TimedEngine("cpu"), 1))
     assert row["batch"] == 3 and row["decompressed_points"] == 3 * 11
     assert row["msm_points"] == 23 + 3 * 11 and row["msm_lanes"] == 128  # 23 shared basis points

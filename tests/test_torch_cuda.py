@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from bulletproofspp_tpu.core import ec
-from bulletproofspp_tpu.core.fields import Q
+from bulletproofspp_tpu_torch.core import ec
+from bulletproofspp_tpu_torch.core.fields import Q
 from bulletproofspp_tpu_torch.ops import curve, glv, kernels, limb
 
 
@@ -79,4 +79,63 @@ def test_cuda_kernels_match_plain_versions():
     sign = torch.as_tensor(rng.integers(0, 2, size=256), device=dev)
     (y, ok), (py, pok) = kernels.decompress(x, sign), kernels.decompress_plain(x, sign)
     assert torch.equal(y, py) and torch.equal(ok, pok) and 0 < int(ok.sum()) < 256
-    assert all(n > 0 for n in kernels.counts().values())
+    launched = kernels.counts()
+    assert all(launched[k] > 0 for k in launched if k not in ("sr_variant", "grid_copy", "chain"))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk,out_w,noselect", [(1024, 128, False), (1024, 128, True),
+                                                (2048, 128, False), (512, 256, False)])
+def test_cuda_sr_variant_matches_plain_version(blk, out_w, noselect):
+    dev = _card()
+    tabs = kernels.table_flat(_points(2048, 60, dev))
+    rng = np.random.default_rng(61)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(3, 2048)), device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(3, 2048)), device=dev)
+    kernels.reset_counts()
+    got = kernels.sr_variant(tabs, absd, sgn, blk, out_w, noselect)
+    assert kernels.counts()["sr_variant"] == 1
+    assert _same(got, kernels.sr_variant_plain(tabs, absd, sgn, blk, out_w, noselect))
+    if (blk, out_w, noselect) == (1024, 128, False):
+        want = kernels.select_reduce(tabs, absd[None], sgn[None])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))  # limb for limb
+
+
+@pytest.mark.cuda
+def test_cuda_grid_copy_matches_plain_version():
+    dev = _card()
+    x = torch.as_tensor(np.random.default_rng(62).integers(0, 1 << 16, size=(16, 4096)), device=dev)
+    x[:, 0] = 0xFFFFFFFF  # wraps to 0
+    kernels.reset_counts()
+    assert torch.equal(kernels.grid_copy(x), kernels.grid_copy_plain(x))
+    assert kernels.counts()["grid_copy"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", sorted(kernels.CHAIN_PHASES))
+def test_cuda_chain_matches_plain_version(phase):
+    dev = _card()
+    rng = np.random.default_rng(63)
+    _, nstate, value = kernels.CHAIN_PHASES[phase]
+    a, b = ([torch.as_tensor(rng.integers(0, 1 << 16, size=(16, 512)), device=dev)
+             for _ in range(k)] for k in (nstate, 3))
+    for rep in (1, 8):
+        got, want = kernels.chain(phase, a, b, rep), kernels.chain_plain(phase, a, b, rep)
+        if value:
+            got, want = limb.normalize(got), limb.normalize(want)
+        assert torch.equal(got, want), rep
+
+
+@pytest.mark.cuda
+def test_cuda_padd_thread_counts_agree():
+    dev = _card()
+    p, q = _points(4096, 64, dev), _points(4096, 65, dev)
+    want = kernels.padd_plain(p, q)
+    for threads in kernels.PADD_THREADS:
+        assert _same(kernels.padd(p, q, threads), want), threads
