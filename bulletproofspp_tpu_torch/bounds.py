@@ -22,6 +22,15 @@ the schoolbook, 8 of the 977 H fold and 1 of ``fe_fold``: 146 multiplies;
 ``fe_mul_small`` 9 products: 18; ``fe_add`` one ``c * 977``: 2; ``fe_sub``
 two ``o * 977``: 2.  ``pt_add`` is 12 ``fe_mul``, 3 ``fe_mul_small``, 12
 ``fe_add`` and 5 ``fe_sub``; ``pt_dbl`` 8, 3, 3 and 1.
+
+Neither limit sees latency.  A kernel whose work is a chain of dependent
+point operations (``tail_horner``, ``horner``, ``fold``) waits on that
+chain, far above both bounds, so each such kernel also has the length of
+its longest dependent chain (``*_chain``): in point operations, and in
+field-product rounds, a round being one product's latency.  One thread
+runs an operation's products one after another (12 an addition, 8 a
+doubling); the warp-cooperative operations of ``csrc/curve_warp.cuh`` run
+them in 2 rounds.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ FE_ADD = 2
 FE_SUB = 2
 PT_ADD = 12 * FE_MUL + 3 * FE_MUL_SMALL + 12 * FE_ADD + 5 * FE_SUB
 PT_DBL = 8 * FE_MUL + 3 * FE_MUL_SMALL + 3 * FE_ADD + 1 * FE_SUB
+ADD_PRODUCTS, DBL_PRODUCTS = 12, 8  # field products of pt_add and pt_dbl
 
 _SQRT_EXP = ((1 << 256) - (1 << 32) - 977 + 1) // 4
 # decompress: x^3 + 7, the square-and-multiply chain below the top bit, r^2
@@ -127,6 +137,24 @@ def reduce_block(w: int, factor: int):
 def tail_horner(batch: int, rows: int):
     ops = batch * rows * (127 * PT_ADD + 4 * PT_DBL + PT_ADD)
     return ops, (batch * rows * 128 + batch) * PT_BYTES
+
+
+def tail_horner_chain(rows: int):
+    """(point operations, product rounds) of tail_horner's chain: the rows'
+    128-lane trees at once (1 + 6 halving levels: 7 additions on one
+    thread), then Horner on one warp (4 doublings and 1 addition a row, 2
+    rounds each)."""
+    return 7 + 5 * rows, 7 * ADD_PRODUCTS + 2 * 5 * rows
+
+
+def horner_chain(rows: int):
+    """horner's chain, one thread per MSM: 4 doublings and 1 addition a row."""
+    return 5 * rows, rows * (4 * DBL_PRODUCTS + ADD_PRODUCTS)
+
+
+def fold_chain(rows: int):
+    """fold's chain, one thread per lane: 4 doublings and 2 additions a row."""
+    return 6 * rows, rows * (4 * DBL_PRODUCTS + 2 * ADD_PRODUCTS)
 
 
 def table_flat(n: int):

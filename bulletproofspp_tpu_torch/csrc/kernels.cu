@@ -18,13 +18,16 @@
 // design is the simple one: one thread per independent lane, coalesced
 // limb-plane loads (neighbouring threads read neighbouring lanes), 8 x 32-bit
 // words in registers with 64-bit carry chains.  Making them fast (fewer
-// carries, madc chains, more lanes per SM) is later work.
+// carries, madc chains, more lanes per SM) is later work.  tail_horner is
+// the exception: its work is one chain of dependent point operations per
+// MSM, bound by their latency, and its design shortens that chain (below).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "curve.cuh"
+#include "curve_warp.cuh"
 
 using namespace bppp;
 
@@ -116,36 +119,48 @@ __global__ void reduce_block_kernel(const int64_t* __restrict__ x, const int64_t
 }
 
 // --- tail_horner: replaces tail_horner_pallas / _tail_horner_kernel --------
-// (:742, :711).  Input (16, batch, rows * 128), output (16, batch).  One
-// block of 64 threads per MSM: for each row the 128 lanes halve in shared
-// memory (pairs t, t + 64, then t, t + 32, ... : the order of the Pallas
-// kernel's roll levels), thread 0 keeps the row sum, and after the last row
-// thread 0 runs the Horner chain over the row sums.
-__global__ void tail_horner_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
-                                   const int64_t* __restrict__ z, int64_t* __restrict__ ox,
-                                   int64_t* __restrict__ oy, int64_t* __restrict__ oz,
-                                   int64_t batch, int64_t rows) {
-  extern __shared__ Pt smem[];
-  Pt* lanes = smem;        // 64
-  Pt* rowsum = smem + 64;  // rows
-  int t = threadIdx.x;
-  int64_t b = blockIdx.x;
-  int64_t stride = batch * rows * 128;
-  for (int64_t r = 0; r < rows; r++) {
-    int64_t base = (b * rows + r) * 128;
-    lanes[t] = pt_add(pt_load(x, y, z, stride, base + t), pt_load(x, y, z, stride, base + t + 64));
-    __syncthreads();
-    for (int h = 32; h >= 1; h /= 2) {
-      if (t < h) lanes[t] = pt_add(lanes[t], lanes[t + h]);
-      __syncthreads();
-    }
-    if (t == 0) rowsum[r] = lanes[0];
+// (:742, :711).  Input (16, batch, rows * 128), output (16, batch), in two
+// launches.  The function is a chain: each row's 128 lanes halve (pairs t,
+// t + 64, then t, t + 32, ... : the order of the Pallas kernel's roll
+// levels), then Horner runs over the row sums, 4 doublings and 1 addition
+// a row.  It is bound by the latency of that chain, not by bytes or
+// multiplies, so the design shortens the chain:
+//  * tail_rows_kernel: one block of 64 threads per (MSM, row), all rows at
+//    once; 7 dependent additions, the row sum to a (16, batch, rows)
+//    scratch;
+//  * tail_horner_kernel: one warp per MSM runs Horner over the row
+//    sums with the warp-cooperative addition and doubling of
+//    curve_warp.cuh (10 rounds of one field product each a row).
+__global__ void __launch_bounds__(64) tail_rows_kernel(const int64_t* __restrict__ x,
+                                                       const int64_t* __restrict__ y,
+                                                       const int64_t* __restrict__ z,
+                                                       int64_t* __restrict__ rx,
+                                                       int64_t* __restrict__ ry,
+                                                       int64_t* __restrict__ rz, int64_t n_rows) {
+  __shared__ Pt lanes[64];
+  const int t = threadIdx.x;
+  const int64_t br = blockIdx.x;  // b * rows + r
+  const int64_t stride = n_rows * 128, base = br * 128;
+  lanes[t] = pt_add(pt_load(x, y, z, stride, base + t), pt_load(x, y, z, stride, base + t + 64));
+  __syncthreads();
+  for (int h = 32; h >= 1; h /= 2) {
+    if (t < h) lanes[t] = pt_add(lanes[t], lanes[t + h]);
     __syncthreads();
   }
-  if (t == 0) {
-    auto row = [&](int64_t r) { return rowsum[r]; };
-    pt_store(ox, oy, oz, batch, b, horner_rows(row, rows));
-  }
+  if (t == 0) pt_store(rx, ry, rz, n_rows, br, lanes[0]);
+}
+
+__global__ void __launch_bounds__(32) tail_horner_kernel(
+    const int64_t* __restrict__ rx, const int64_t* __restrict__ ry,
+    const int64_t* __restrict__ rz, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+    int64_t* __restrict__ oz, int64_t batch, int64_t rows) {
+  extern __shared__ Pt rowsum[];  // rows
+  const int lane = threadIdx.x;
+  const int64_t b = blockIdx.x;
+  for (int64_t r = lane; r < rows; r += 32) rowsum[r] = pt_load(rx, ry, rz, batch * rows, b * rows + r);
+  __syncwarp();
+  const Pt acc = horner_rows_warp(rowsum, rows);
+  if (lane == 0) pt_store(ox, oy, oz, batch, b, acc);
 }
 
 // --- table_flat: replaces table_flat_pallas / _table_flat_kernel -----------
@@ -298,12 +313,14 @@ int bppp_reduce_block(const int64_t* x, const int64_t* y, const int64_t* z, int6
   return (int)cudaGetLastError();
 }
 
-int bppp_tail_horner(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* ox,
-                     int64_t* oy, int64_t* oz, int64_t batch, int64_t rows, void* stream) {
-  if (batch > 0) {
-    size_t smem = (size_t)(64 + rows) * sizeof(Pt);
-    tail_horner_kernel<<<(unsigned)batch, 64, smem, (cudaStream_t)stream>>>(x, y, z, ox, oy, oz,
-                                                                            batch, rows);
+int bppp_tail_horner(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* rx,
+                     int64_t* ry, int64_t* rz, int64_t* ox, int64_t* oy, int64_t* oz,
+                     int64_t batch, int64_t rows, void* stream) {
+  if (batch > 0 && rows > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    tail_rows_kernel<<<(unsigned)(batch * rows), 64, 0, s>>>(x, y, z, rx, ry, rz, batch * rows);
+    tail_horner_kernel<<<(unsigned)batch, 32, rows * sizeof(Pt), s>>>(rx, ry, rz, ox, oy, oz,
+                                                                       batch, rows);
   }
   return (int)cudaGetLastError();
 }

@@ -21,7 +21,8 @@
 //    time), as they do for select_reduce.
 //  * grid_copy: bytes.  It does no arithmetic: 128 B read and 33 x 128 B
 //    written per lane.  One block per (lane block, row), as the TPU grid,
-//    so its time over the block count is the fixed cost of a block.
+//    so its time over the block count is the fixed cost of a block; inside
+//    it, 16-byte accesses without index division and streaming stores.
 //  * chain: by bounds.py's count the padd phase is bound by its multiplies
 //    and the one-plane phases by their bytes (384 B a lane for 8 steps);
 //    their carry chains, which that count leaves out, set the pace.  One
@@ -89,13 +90,24 @@ __global__ void sr_variant_kernel(const int64_t* __restrict__ tx, const int64_t*
 
 // --- grid_copy: replaces tools/r5_experiments.py: grid_copy (:145) --------
 // Kernel body _copy_kernel (:140): x (16, L) -> o (16, rows * L), o[:, r L +
-// l] = (x[:, l] + 1) mod 2^32.  Block (i, r) writes lane block i of row r.
-__global__ void grid_copy_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ o,
+// l] = (x[:, l] + 1) mod 2^32.  Block (i, r) writes lane block i of row r:
+// thread t of 512 takes the lane pairs t, t + 512, ... of each limb in
+// turn (no division), 16 B a load and a store; the output (rows x the
+// input, 277 MB at L = 65,536) is larger than L2, so it is stored
+// streaming (__stcs) and x, read once per row, stays cached.
+__global__ void grid_copy_kernel(const longlong2* __restrict__ x, longlong2* __restrict__ o,
                                  int64_t L, int64_t rows, int64_t blk) {
-  const int64_t i = blockIdx.x, r = blockIdx.y;
-  for (int64_t e = threadIdx.x; e < 16 * blk; e += blockDim.x) {
-    const int64_t limb = e / blk, l = i * blk + e % blk;
-    o[limb * rows * L + r * L + l] = (x[limb * L + l] + 1) & 0xffffffffLL;
+  const int64_t L2 = L / 2, pairs = blk / 2;
+  const longlong2* src = x + blockIdx.x * pairs;
+  longlong2* dst = o + blockIdx.y * L2 + blockIdx.x * pairs;
+  const int64_t out_stride = rows * L2;
+#pragma unroll 4
+  for (int limb = 0; limb < 16; limb++) {
+    for (int64_t q = threadIdx.x; q < pairs; q += blockDim.x) {
+      const longlong2 v = __ldg(src + limb * L2 + q);
+      __stcs(dst + limb * out_stride + q,
+             make_longlong2((v.x + 1) & 0xffffffffLL, (v.y + 1) & 0xffffffffLL));
+    }
   }
 }
 
@@ -219,10 +231,12 @@ int bppp_sr_variant(const int64_t* tx, const int64_t* ty2, const int64_t* tz, co
 
 int bppp_grid_copy(const int64_t* x, int64_t* o, int64_t L, int64_t rows, int64_t blk,
                    void* stream) {
-  if (blk <= 0 || L % blk || rows > 65535) return (int)cudaErrorInvalidValue;
+  if (blk <= 0 || blk % 2 || L % blk || rows > 65535 || (uintptr_t)x % 16 || (uintptr_t)o % 16)
+    return (int)cudaErrorInvalidValue;
   if (L > 0 && rows > 0) {
     dim3 grid((unsigned)(L / blk), (unsigned)rows);
-    grid_copy_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(x, o, L, rows, blk);
+    grid_copy_kernel<<<grid, 512, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const longlong2*>(x), reinterpret_cast<longlong2*>(o), L, rows, blk);
   }
   return (int)cudaGetLastError();
 }

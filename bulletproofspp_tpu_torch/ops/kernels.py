@@ -14,7 +14,8 @@ basis folding in prove) and decompress (``decompress_kernel`` of
 multiple tables are flat, entry e and limb i of lane j at row 16 e + i
 of a (16 E, N) plane.  Sources: one library per entry file of
 ``SOURCES`` (``csrc/*.cu``), all including ``csrc/curve.cuh`` and
-``csrc/field.cuh`` (device functions).
+``csrc/field.cuh`` (device functions); ``kernels.cu`` also
+``csrc/curve_warp.cuh`` (a warp's cooperative addition and doubling).
 
 Every wrapper takes the plain version, written below in PyTorch, only for
 tensors that lie on the CPU; on a CUDA tensor it launches its kernel or
@@ -48,7 +49,7 @@ from . import curve, limb
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("kernels.cu", "select_reduce_fused.cu", "decompress.cu", "tools.cu")  # one library each
-HEADERS = ("curve.cuh", "field.cuh")
+HEADERS = ("curve.cuh", "field.cuh", "curve_warp.cuh")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -80,7 +81,7 @@ KERNELS = {
                "bulletproofspp_tpu/ops/pallas_field.py:446"),
         Kernel("reduce_block", "kernels.cu", "bppp_reduce_block", [_P] * 6 + [_I64, _I32, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:490"),
-        Kernel("tail_horner", "kernels.cu", "bppp_tail_horner", [_P] * 6 + [_I64, _I64, _P],
+        Kernel("tail_horner", "kernels.cu", "bppp_tail_horner", [_P] * 9 + [_I64, _I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:742"),
         Kernel("table_flat", "kernels.cu", "bppp_table_flat", [_P] * 6 + [_I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:538"),
@@ -336,8 +337,9 @@ def tail_horner(p, rows: int):
         return tail_horner_plain(p, rows)
     p = tuple(t.contiguous() for t in p)
     _check(*p)
+    row_sums = _empty((limb.NLIMB, batch * rows), p[0])  # scratch between the two launches
     out = _empty((limb.NLIMB, batch), p[0])
-    _launch("tail_horner", *_ptrs(*p, *out), batch, rows)
+    _launch("tail_horner", *_ptrs(*p, *row_sums, *out), batch, rows)
     return out
 
 
@@ -583,8 +585,8 @@ def grid_copy(x, blk: int = 1024, rows: int = 33):
     """``tools/r5_experiments.py: grid_copy``: one block per (lane block of
     ``blk``, row) on the card."""
     L = x.shape[-1]
-    if x.dim() != 2 or blk <= 0 or L % blk:
-        raise ValueError(f"grid_copy: x must be (16, L) with L a multiple of blk = {blk}")
+    if x.dim() != 2 or blk <= 0 or blk % 2 or L % blk:
+        raise ValueError(f"grid_copy: x must be (16, L) with L a multiple of blk = {blk} (even)")
     if x.device.type == "cpu":
         return grid_copy_plain(x, rows)
     x = x.contiguous()

@@ -12,8 +12,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      card, at the shapes the main paths give it, on numpy-seeded inputs
      (identity lanes, P + P, P + (-P) and non-residue x's included; padd
      also at the measurement path's 65,536 lanes in each of its
-     threads-a-block instantiations): the normalized outputs must be equal
-     limb for limb.  Time both: a kernel's launches back to back (enqueued
+     threads-a-block instantiations; tail_horner at 1, 3 and 130 MSMs with
+     an all-identity and a cancelling row): the normalized outputs must be
+     equal limb for limb.  Time both: a kernel's launches back to back (enqueued
      while the stream sleeps), a plain version's as the host sends them.
      At 2^21 lanes, where the plain route
      cannot run (its gather alone is 3 x 8.9 GB), select_reduce_fused is
@@ -53,7 +54,10 @@ count (summed over the main-path runs of phases 3, 6, 7 and 8, each
 counted from 0), largest normalized difference, times, bound (``bounds``:
 the larger of its 32-bit multiplies over the card's rate and its bytes
 over 3.35 TB/s; for chain's ten launches the sum of theirs) and, for grid_copy, the time of one PyTorch call that
-computes the same function (``library_ms``; null where there is none);
+computes the same function (``library_ms``; null where there is none).
+The kernel lines of phase 2 also give, for tail_horner, horner and fold,
+the time per point operation and per product round of the kernel's
+longest dependent chain (``bounds.*_chain``);
 the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 CUDA is not available.
 """
@@ -175,7 +179,22 @@ def wide_points(n: int, rng, dev):
     k = min(n, 4096)
     p, _ = random_points(k, rng, dev)
     z = torch.as_tensor(rng.integers(0, 1 << 16, size=(limb.NLIMB, n)), device=dev)
-    return tuple(limb.mul(c.repeat(1, n // k), z) for c in p)
+    return tuple(limb.mul(c.repeat(1, -(-n // k))[:, :n], z) for c in p)
+
+
+def tail_lanes(K: int, rng, dev):
+    """(16, K, ROWS * 128) lanes for tail_horner (``wide_points``); in every
+    MSM row 0 is all identity and in row 1 lane t + 64 is the negation of
+    lane t, scaled, so both rows sum to the identity."""
+    from bulletproofspp_tpu_torch.ops import limb
+
+    x, y, z = (c.reshape(16, K, ROWS, 128) for c in wide_points(K * ROWS * 128, rng, dev))
+    x[:, :, 0], z[:, :, 0] = 0, 0
+    k = torch.as_tensor(rng.integers(1, 1 << 16, size=(limb.NLIMB, K, 64)), device=dev)
+    x[:, :, 1, 64:] = limb.mul(x[:, :, 1, :64], k)
+    y[:, :, 1, 64:] = limb.neg(limb.mul(y[:, :, 1, :64], k))
+    z[:, :, 1, 64:] = limb.mul(z[:, :, 1, :64], k)
+    return tuple(c.reshape(16, K, ROWS * 128) for c in (x, y, z))
 
 
 def residue_mix(n: int, rng):
@@ -254,13 +273,15 @@ def check_kernels(dev):
                  time_ms(lambda: kernels.reduce_block_plain(p, 8), 2, paced=True), f"W={w} f=8",
                  bounds.reduce_block(w, 8)))
 
-    # tail_horner: (16, K, 33 * 128)
-    for K in (1, 3):
-        p, _ = random_points(K * ROWS * 128, rng, dev)
-        p = tuple(c.reshape(16, K, ROWS * 128) for c in p)
+    # tail_horner: (16, K, 33 * 128), K = 1, 3 and msm_many's 130, with an
+    # all-identity row and a cancelling row in every MSM
+    lanes = {K: tail_lanes(K, rng, dev) for K in (1, 3, 130)}
+    for K, p in lanes.items():
         err = compare(f"tail_horner K={K}", kernels.tail_horner(p, ROWS),
                       kernels.tail_horner_plain(p, ROWS))
-    p1 = tuple(c[:, :1].contiguous() for c in p)
+    log(f"tail_horner K=130 rows={ROWS}: max_abs_err {err}, cuda "
+        f"{time_ms(lambda: kernels.tail_horner(p, ROWS), 5):.4f} ms")
+    p1 = lanes[1]
     rows.append(("tail_horner", err, time_ms(lambda: kernels.tail_horner(p1, ROWS), 5),
                  time_ms(lambda: kernels.tail_horner_plain(p1, ROWS), 1, paced=True),
                  f"K=1 rows={ROWS}",
@@ -321,6 +342,9 @@ def check_kernels(dev):
     rows += check_measurement_kernels(dev, rng)
     torch.cuda.synchronize()
     mhz = bounds.card()["sm_clock_max_mhz"]
+    # longest dependent chains (point ops, product rounds) at the rows' shapes
+    chains = {"tail_horner": bounds.tail_horner_chain(ROWS), "horner": bounds.horner_chain(ROWS),
+              "fold": bounds.fold_chain(ROWS)}
     out = {}
     for name, err, ms, plain_ms, shape, work, *lib in rows:
         bound_ms, bound_by = bounds.bound_sum(work if isinstance(work, list) else [work], mhz)
@@ -328,8 +352,13 @@ def check_kernels(dev):
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms}
         lib_s = f"  library {library_ms:.4f} ms" if library_ms is not None else ""
+        chain_s = ""
+        if name in chains:
+            ops, rounds = chains[name]
+            chain_s = (f"  chain {ops} point ops ({ms * 1e3 / ops:.3f} us each), {rounds} product "
+                       f"rounds ({ms * 1e3 / rounds:.3f} us each)")
         log(f"kernel {name:19s} {shape:28s} max_abs_err {err}  cuda {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}){lib_s}")
+            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}){lib_s}{chain_s}")
     log(f"bounds at the maximum SM clock of {mhz} MHz (nvidia-smi clocks.max.sm)")
     check_fused_wide(dev, rng)
     return out
@@ -369,9 +398,15 @@ def check_measurement_kernels(dev, rng):
     err = int((got - want).abs().max().item())
     if err != 0:
         raise AssertionError(f"kernel grid_copy disagrees with its plain version: {err}")
-    rows.append(("grid_copy", err, time_ms(lambda: kernels.grid_copy(x), 20),
+    # the kernel and its library call in turns (k, l, l, k), each the mean of its two
+    times = {"k": [], "l": []}
+    for who in "kllk":
+        fn = (lambda: kernels.grid_copy(x)) if who == "k" else (lambda: (x + 1).repeat(1, ROWS))
+        times[who].append(time_ms(fn, 20))
+    log(f"grid_copy L={L} rows={ROWS} in turns: kernel {times['k']} ms, library {times['l']} ms")
+    rows.append(("grid_copy", err, sum(times["k"]) / 2,
                  time_ms(lambda: kernels.grid_copy_plain(x), 5, paced=True), f"L={L} rows={ROWS}",
-                 bounds.grid_copy(L, ROWS), time_ms(lambda: (x + 1).repeat(1, ROWS), 20)))
+                 bounds.grid_copy(L, ROWS), sum(times["l"]) / 2))
 
     ms = plain_ms = 0.0
     works = []

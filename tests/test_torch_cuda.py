@@ -107,13 +107,49 @@ def test_cuda_sr_variant_matches_plain_version(blk, out_w, noselect):
         assert all(torch.equal(a, b) for a, b in zip(got, want))  # limb for limb
 
 
+def _tail_lanes(batch: int, rows: int, seed: int, dev):
+    """(16, batch, rows * 128) lanes for tail_horner: 256 of ``_points``'
+    lanes repeated, each scaled by its own random factor; in every MSM row
+    0 is all identity and in row 1 lane t + 64 is the negation of lane t
+    (scaled again), so both rows sum to the identity."""
+    n = batch * rows * 128
+    rng = np.random.default_rng(seed)
+
+    def factor(*shape):
+        return torch.as_tensor(rng.integers(1, 1 << 16, size=(16, *shape)), device=dev)
+
+    k = factor(n)
+    x, y, z = (limb.mul(c.repeat(1, -(-n // 256))[:, :n], k).reshape(16, batch, rows, 128)
+               for c in _points(256, seed, dev))
+    x[:, :, 0], z[:, :, 0] = 0, 0
+    k = factor(batch, 64)
+    x[:, :, 1, 64:] = limb.mul(x[:, :, 1, :64], k)
+    y[:, :, 1, 64:] = limb.neg(limb.mul(y[:, :, 1, :64], k))
+    z[:, :, 1, 64:] = limb.mul(z[:, :, 1, :64], k)
+    return tuple(c.reshape(16, batch, rows * 128) for c in (x, y, z))
+
+
 @pytest.mark.cuda
-def test_cuda_grid_copy_matches_plain_version():
+@pytest.mark.parametrize("batch", [1, 3, 130])  # 130: msm_many's K
+def test_cuda_tail_horner_matches_plain_version(batch):
+    dev = _card()
+    p = _tail_lanes(batch, 33, 66, dev)
+    kernels.reset_counts()
+    got = kernels.tail_horner(p, 33)
+    assert kernels.counts()["tail_horner"] == 1
+    assert got[0].shape == (16, batch)
+    assert _same(got, kernels.tail_horner_plain(p, 33))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk", [1024, 2048])
+def test_cuda_grid_copy_matches_plain_version(blk):
     dev = _card()
     x = torch.as_tensor(np.random.default_rng(62).integers(0, 1 << 16, size=(16, 4096)), device=dev)
-    x[:, 0] = 0xFFFFFFFF  # wraps to 0
+    x[:, :3] = 0xFFFFFFFF  # wraps to 0
+    x[:, blk - 1] = 0xFFFFFFFF  # the last lane of a block
     kernels.reset_counts()
-    assert torch.equal(kernels.grid_copy(x), kernels.grid_copy_plain(x))
+    assert torch.equal(kernels.grid_copy(x, blk), kernels.grid_copy_plain(x))
     assert kernels.counts()["grid_copy"] == 1
 
 

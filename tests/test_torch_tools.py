@@ -240,6 +240,44 @@ def test_bound_of_launches_in_sequence_sums_their_bounds():
     assert bounds.bound_sum([(0, 3.35e9)], 1980) == bounds.bound((0, 3.35e9), 1980)
 
 
+@pytest.mark.parametrize("kernel,chain", [
+    # all rows' trees at once (7 additions), then 33 rows of 4 doublings + 1
+    # addition on one warp, 2 rounds an operation
+    ("tail_horner", (7 + 33 * 5, 7 * 12 + 33 * 5 * 2)),
+    ("horner", (165, 33 * (4 * 8 + 12))),
+    ("fold", (33 * 6, 33 * (4 * 8 + 2 * 12))),
+])
+def test_dependent_chain_lengths(kernel, chain):
+    """Longest dependent chains at 33 rows, in point operations and in field
+    product rounds (an addition is 12 products, a doubling 8)."""
+    assert getattr(bounds, f"{kernel}_chain")(33) == chain
+    if kernel == "tail_horner":
+        # one block running the 33 row trees in turn, then Horner on one
+        # thread, was 231 + 165 point operations
+        assert 33 * 7 + bounds.horner_chain(33)[0] == 231 + 165 > chain[0]
+
+
+def test_ptxas_usage_parses_the_verbose_log():
+    from bulletproofspp_tpu_torch.tools import ptxas_usage
+
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelPl' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPl
+    192 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 130 registers, used 1 barriers, 6144 bytes smem, 400 bytes cmem[0]
+ptxas info    : Function properties for _ZN4bppp6pt_addERKNS_2PtES2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Used 27 registers, 384 bytes cmem[0]
+"""
+    assert ptxas_usage.parse(log) == {
+        "_Z6kernelPl": {"stack": 192, "spill_stores": 8, "spill_loads": 4, "registers": 130,
+                        "smem": 6144},
+        "_ZN4bppp6pt_addERKNS_2PtES2_": {"stack": 0, "spill_stores": 0, "spill_loads": 0},
+        "_Z5otherv": {"registers": 27, "smem": 0},
+    }
+
+
 @pytest.mark.parametrize("module", ["bench", "tools.r5_experiments", "tools.phase_bench",
                                     "tools.padd_timing"])
 def test_bench_and_tools_refuse_to_run_without_cuda(monkeypatch, capsys, module):
