@@ -6,7 +6,9 @@ A kernel's bound is the larger of two times:
     written once, over the card's memory rate (3.35 TB/s, H100 SXM data
     sheet).  Limb planes are int64: 128 B a field element, 384 B a point.
     Where the reads depend on the data (digit selection), the count is of
-    what this run's digits select: each lane's distinct table entries.
+    what this run's digits select: each lane's distinct table entries
+    (for select_reduce X, Y and Z of each distinct nonzero |d|, its -Y
+    made by negation).
   * operations: the 32-bit integer multiplies of ``csrc/field.cuh`` and
     ``csrc/curve.cuh`` that the work needs, over the card's rate for them:
     132 SMs x 64 a clock (the CUDA C++ Programming Guide's throughput of
@@ -153,8 +155,9 @@ def horner_chain(rows: int):
 
 
 def fold_chain(rows: int):
-    """fold's chain, one thread per lane: 4 doublings and 2 additions a row."""
-    return 6 * rows, rows * (4 * DBL_PRODUCTS + 2 * ADD_PRODUCTS)
+    """fold's chain, one warp per lane: 4 doublings and 2 additions a row,
+    2 rounds each."""
+    return 6 * rows, 2 * 6 * rows
 
 
 def table_flat(n: int):
@@ -162,19 +165,26 @@ def table_flat(n: int):
 
 
 def select_reduce(absd, sgn, factor: int = 8):
+    """Reads: X, Y and Z of each lane's distinct nonzero |d| over its rows
+    (entry 0 is the identity; a negative digit's -Y is made from Y, 2
+    multiplies), the digits; the partials out.  (A gather from the flat
+    tables reads X and Z by |d| and Y by |d| + 9 s, entry 0 and the table's
+    -Y included: ``_selected_bytes``, sr_variant's count.)"""
     n = absd.numel()
-    ops = (n // factor) * (factor - 1) * PT_ADD
-    return ops, _selected_bytes(absd, sgn) + n * 16 + (n // factor) * PT_BYTES
+    ops = (n // factor) * (factor - 1) * PT_ADD + int(sgn.sum()) * FE_SUB
+    entries = _distinct(absd, 9) - int((absd == 0).any(1).sum())
+    return ops, 3 * entries * FE_BYTES + n * 16 + (n // factor) * PT_BYTES
 
 
 def fold(n: int, digits):
-    """digits: (4, rows) host ints de, se, do, so, shared by all lanes."""
+    """digits: (4, rows) host ints de, se, do, so, shared by all lanes and
+    sent in the launch, not read from device memory."""
     rows = len(digits[0])
     entries = 0
     for d, s in ((digits[0], digits[1]), (digits[2], digits[3])):
         entries += 2 * len(set(int(v) for v in d)) + len({int(a) + 9 * int(b) for a, b in zip(d, s)})
     ops = n * rows * (4 * PT_DBL + 2 * PT_ADD)
-    return ops, n * (entries * FE_BYTES + PT_BYTES) + 4 * rows * 8
+    return ops, n * (entries * FE_BYTES + PT_BYTES)
 
 
 def select_reduce_fused(absd, sgn):

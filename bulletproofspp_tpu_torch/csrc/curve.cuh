@@ -68,6 +68,21 @@ __device__ __noinline__ Pt pt_add(const Pt& p, const Pt& q) {
   return r;
 }
 
+// Sum the N points load(j + k s), k < N, in the Pallas kernels' halving
+// order (first half plus second half, until one is left): the pairs m and
+// m + N/2 first, then m and m + N/4, ...  Depth first, so at most
+// log2 N + 1 partial sums are live at a time.
+template <int N, class Load>
+__device__ __forceinline__ Pt halving_tree(const Load& load, int j, int s) {
+  if constexpr (N == 1) {
+    return load(j);
+  } else {
+    Pt a = halving_tree<N / 2>(load, j, 2 * s);
+    Pt b = halving_tree<N / 2>(load, j + s, 2 * s);
+    return pt_add(a, b);
+  }
+}
+
 __device__ __noinline__ Pt pt_dbl(const Pt& p) {
   Fe t0 = fe_mul(p.y, p.y);
   Fe z3 = fe_mul_small(t0, 8);

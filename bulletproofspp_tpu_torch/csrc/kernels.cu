@@ -18,12 +18,16 @@
 // design is the simple one: one thread per independent lane, coalesced
 // limb-plane loads (neighbouring threads read neighbouring lanes), 8 x 32-bit
 // words in registers with 64-bit carry chains.  Making them fast (fewer
-// carries, madc chains, more lanes per SM) is later work.  tail_horner is
-// the exception: its work is one chain of dependent point operations per
-// MSM, bound by their latency, and its design shortens that chain (below).
+// carries, madc chains, more lanes per SM) is later work.  Three are
+// designed for this card instead: tail_horner and fold, whose work is one
+// chain of dependent point operations per MSM or lane, bound by its
+// latency (they run it on a warp: curve_warp.cuh), and select_reduce,
+// whose digit-chosen reads cost more than its adds until its lanes' tables
+// stay close for all rows: in shared memory, or in L2 (below).
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "curve.cuh"
@@ -193,58 +197,170 @@ __global__ void table_flat_kernel(const int64_t* __restrict__ px, const int64_t*
 // rows, L); output (16, batch * rows * L / 8) row-major partials: for MSM b,
 // row r and lane block k of 1,024, output lane t < 128 sums the entries
 // selected by the digits of lanes k*1024 + t + m*128, m < 8, in the halving
-// order of the Pallas kernel.  One thread per output lane; the selection
-// is a direct read at the digit's entry (the TPU's one-hot select exists
-// because its gathers are slow; the H100 gathers natively).  The reads are
-// data-dependent: a warp's loads of one limb are coalesced only among the
-// lanes whose digits pick the same entry, so this kernel moves more memory
-// transactions per add than the others; at 1,024-4,096 lanes it still sits
-// far below the card's bandwidth.
-__global__ void select_reduce_kernel(const int64_t* __restrict__ tx,
-                                     const int64_t* __restrict__ ty2,
-                                     const int64_t* __restrict__ tz,
-                                     const int64_t* __restrict__ absd,
-                                     const int64_t* __restrict__ sgn, int64_t* __restrict__ ox,
-                                     int64_t* __restrict__ oy, int64_t* __restrict__ oz,
-                                     int64_t batch, int64_t rows, int64_t L) {
-  int64_t n = batch * L, per_row = L / 8, n_out = batch * rows * per_row;
+// order of the Pallas kernel (m with m + 4, then m + 2, then m + 1).
+//
+// What bounds it: its adds (7 a partial, 1.9 M at 65,536 lanes and 33 rows),
+// once the selection is cheap.  A gather with one thread per output and the
+// rows outermost in the grid (sr_variant's body, tools.cu) takes more time
+// for the selection than for the adds: a sector of a digit-chosen plane
+// serves about one thread, and each row streams the whole table (4,608 B a
+// lane, 302 MB at 65,536 lanes: six times L2) through L2 again.  Two
+// designs; the wrapper (ops/kernels.py: select_reduce) takes the staged one
+// from STAGE_MIN_LANES = 65,536 lanes a call, where it was 2-12% the faster
+// on the H100 (tools/r5_experiments.py H5, up to prove's 130 MSMs of 4,096
+// lanes), and the gather below:
+//  * select_reduce_kernel, staged: a block owns 16 output columns t of one
+//    lane block, that is 128 lanes (t + m * 128), and first stages their
+//    entries 1..8 into shared memory in coalesced 16-byte reads, as packed
+//    32-bit words laid out [entry][word][lane] (98,304 B; entry 0 is the
+//    identity, and -Y is made with fe_neg at selection, as table_flat made
+//    the table's -Y, so the words are the same).  Then it walks all rows:
+//    one thread per (row, column) reads its 8 lanes' entries from shared
+//    memory (a warp holds 16 distinct lanes of two rows: banks conflict at
+//    most 2-way, whatever the digits) and sums them in registers.  Each
+//    lane's table leaves device memory once for all rows.  176 threads (11
+//    rows at a time) and two blocks an SM: registers, not shared memory,
+//    bound the threads in flight.
+//  * select_reduce_rows_kernel, the gather: one thread per output, the grid
+//    reordered so that the rows of a lane block run in consecutive blocks
+//    and the lane block's table (4.7 MB) stays in L2 across its rows.
+//    Where the lanes fill few blocks, staging a block's table costs more
+//    than gathering from L2.
+constexpr int kSrCols = 16;                      // output columns t a block
+constexpr int kSrLanes = 8 * kSrCols;            // their lanes t + m * 128
+constexpr int kSrGroups = 128 / kSrCols;         // blocks a lane block
+constexpr int kSrSlots = 11;                     // rows a block runs at a time
+constexpr int kSrThreads = kSrSlots * kSrCols;   // 176
+constexpr int kSrWords = 8 * 24 * kSrLanes;      // entries 1..8, 24 words each
+constexpr size_t kSrSmem = kSrWords * sizeof(u32);  // 98,304 B
+
+// Entry |d| of staged lane l with sign s (sel = |d| | s << 4).
+__device__ __forceinline__ Pt sr_entry(const u32* tab, int l, u32 sel) {
+  const int d = sel & 15;
+  const u32* e = tab + (d ? d - 1 : 0) * 24 * kSrLanes + l;
+  Pt p = pt_identity();
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    p.x.w[k] = d ? e[k * kSrLanes] : p.x.w[k];
+    p.y.w[k] = d ? e[(8 + k) * kSrLanes] : p.y.w[k];
+    p.z.w[k] = d ? e[(16 + k) * kSrLanes] : p.z.w[k];
+  }
+  if (sel >> 4) p.y = fe_neg(p.y);
+  return p;
+}
+
+__global__ void __launch_bounds__(kSrThreads, 2)
+    select_reduce_kernel(const int64_t* __restrict__ tx, const int64_t* __restrict__ ty2,
+                         const int64_t* __restrict__ tz, const int64_t* __restrict__ absd,
+                         const int64_t* __restrict__ sgn, int64_t* __restrict__ ox,
+                         int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch,
+                         int64_t rows, int64_t L) {
+  extern __shared__ u32 tab[];  // [entry 1..8][24 words][128 lanes]
+  const int tid = threadIdx.x;
+  const int64_t nblk = L / 1024, n = batch * L, per_row = L / 8, n_out = batch * rows * per_row;
+  const int64_t g = blockIdx.x % kSrGroups, k = (blockIdx.x / kSrGroups) % nblk;
+  const int64_t b = blockIdx.x / (kSrGroups * nblk);
+  const int64_t t0 = k * 1024 + g * kSrCols;  // lane of staged lane 0 within MSM b
+
+  // stage: thread i takes the staged lanes 2 l', 2 l' + 1 of one word, one
+  // 16-byte load of each of the word's two limb planes
+  const longlong2* planes[3] = {reinterpret_cast<const longlong2*>(tx),
+                                reinterpret_cast<const longlong2*>(ty2),
+                                reinterpret_cast<const longlong2*>(tz)};
+#pragma unroll 4
+  for (int i = tid; i < kSrWords / 2; i += kSrThreads) {
+    const int lp = i % (kSrLanes / 2), ew = i / (kSrLanes / 2);  // ew = (e - 1) * 24 + word
+    const int e = ew / 24 + 1, w = ew % 24;
+    const int l = 2 * lp;
+    const int64_t col = b * L + t0 + l % kSrCols + (l / kSrCols) * 128;
+    const longlong2* p = planes[w / 8] + ((16 * e + 2 * (w % 8)) * n + col) / 2;
+    const longlong2 lo = __ldg(p), hi = __ldg(p + n / 2);
+    reinterpret_cast<uint2*>(tab)[(ew * kSrLanes + l) / 2] =
+        make_uint2(((u32)lo.x & 0xffffu) | ((u32)hi.x << 16),
+                   ((u32)lo.y & 0xffffu) | ((u32)hi.y << 16));
+  }
+  __syncthreads();
+
+  // all rows, 11 at a time; thread (slot, c)
+  const int c = tid % kSrCols, slot = tid / kSrCols;
+  for (int64_t r = slot; r < rows; r += kSrSlots) {
+    const int64_t br = b * rows + r, di = br * L + t0 + c;
+    u32 sel[8];
+#pragma unroll
+    for (int m = 0; m < 8; m++) sel[m] = (u32)absd[di + m * 128] | (u32)sgn[di + m * 128] << 4;
+    auto load = [&](int m) { return sr_entry(tab, m * kSrCols + c, sel[m]); };
+    pt_store(ox, oy, oz, n_out, br * per_row + k * 128 + g * kSrCols + c,
+             halving_tree<8>(load, 0, 1));
+  }
+}
+
+// Output o over (b, k, r, t): 128 outputs t of lane block k and row r a
+// block of 128 threads.
+__global__ void select_reduce_rows_kernel(const int64_t* __restrict__ tx,
+                                          const int64_t* __restrict__ ty2,
+                                          const int64_t* __restrict__ tz,
+                                          const int64_t* __restrict__ absd,
+                                          const int64_t* __restrict__ sgn,
+                                          int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+                                          int64_t* __restrict__ oz, int64_t batch, int64_t rows,
+                                          int64_t L) {
+  const int64_t n = batch * L, nblk = L / 1024, per_row = L / 8, n_out = batch * rows * per_row;
   for (int64_t o = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; o < n_out;
        o += (int64_t)gridDim.x * blockDim.x) {
-    int64_t br = o / per_row, q = o % per_row;
-    int64_t b = br / rows;
-    int64_t lane0 = (q / 128) * 1024 + (q % 128);
-    Pt v[8];
-#pragma unroll
-    for (int m = 0; m < 8; m++) {
-      int64_t l = lane0 + m * 128;
-      v[m] = table_entry(tx, ty2, tz, n, b * L + l, absd[br * L + l], sgn[br * L + l]);
-    }
-    halve<8>(v);
-    pt_store(ox, oy, oz, n_out, o, v[0]);
+    const int64_t t = o % 128, r = (o / 128) % rows, k = (o / (128 * rows)) % nblk;
+    const int64_t b = o / (128 * rows * nblk), br = b * rows + r;
+    const int64_t lane0 = k * 1024 + t;
+    auto load = [&](int m) {
+      const int64_t l = lane0 + m * 128;
+      return table_entry(tx, ty2, tz, n, b * L + l, absd[br * L + l], sgn[br * L + l]);
+    };
+    pt_store(ox, oy, oz, n_out, br * per_row + k * 128 + t, halving_tree<8>(load, 0, 1));
   }
 }
 
 // --- fold: replaces the XLA fold_mul_kernel (bulletproofspp_tpu/ops/msm.py:247)
 // Per lane b E_j + a O_j with digit streams shared by all lanes (basis
 // folding and square completion): 33 rows of 4 doublings and 2 additions,
-// the entries read from the lanes' flat tables (table_flat's layout).
-// digits: (4, rows) = de, se, do, so.  One thread per lane; the row index
-// is uniform, so the table reads of a warp are coalesced.
-__global__ void fold_kernel(const int64_t* __restrict__ ex, const int64_t* __restrict__ ey2,
-                            const int64_t* __restrict__ ez, const int64_t* __restrict__ ox,
-                            const int64_t* __restrict__ oy2, const int64_t* __restrict__ oz,
-                            const int64_t* __restrict__ digits, int64_t* __restrict__ rx,
-                            int64_t* __restrict__ ry, int64_t* __restrict__ rz, int64_t n,
-                            int64_t rows) {
-  for (int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; j < n;
-       j += (int64_t)gridDim.x * blockDim.x) {
+// MSB row first, the entries read from the lanes' flat tables (table_flat's
+// layout).
+//
+// What bounds it: the latency of its chain, 198 dependent point operations
+// a lane, at the 16-512 lanes the prover folds (far below both the
+// multiplies and the bytes bounds).  So one warp runs one lane's chain with
+// the warp-cooperative doubling and addition of curve_warp.cuh (2 rounds
+// of independent field products each: 396 rounds, not 1,848 products on
+// one thread), the accumulator replicated in every lane's registers, and a
+// block holds 4 warps, so 512 lanes spread over 128 SMs.  The digits are
+// uniform over the grid: they travel by value in the launch (FoldDigits,
+// 132 bytes the wrapper packs on the host; no upload, no synchronization),
+// and every lane of a warp reads the same entry's limbs (a broadcast), the
+// next row's entries issued before that row's doublings.
+constexpr int kFoldRows = 33;  // ops/glv.py: ROWS
+constexpr int kFoldWarps = 4;
+
+struct FoldDigits {
+  uint8_t d[4][kFoldRows];  // de, se, do, so
+};
+
+__global__ void __launch_bounds__(32 * kFoldWarps)
+    fold_kernel(const int64_t* __restrict__ ex, const int64_t* __restrict__ ey2,
+                const int64_t* __restrict__ ez, const int64_t* __restrict__ ox,
+                const int64_t* __restrict__ oy2, const int64_t* __restrict__ oz,
+                const __grid_constant__ FoldDigits dig, int64_t* __restrict__ rx,
+                int64_t* __restrict__ ry, int64_t* __restrict__ rz, int64_t n) {
+  for (int64_t j = blockIdx.x * (int64_t)kFoldWarps + threadIdx.x / 32; j < n;
+       j += (int64_t)gridDim.x * kFoldWarps) {  // uniform over the warp
     Pt acc = pt_identity();
-    for (int64_t r = 0; r < rows; r++) {
-      for (int k = 0; k < 4; k++) acc = pt_dbl(acc);
-      acc = pt_add(acc, table_entry(ex, ey2, ez, n, j, digits[r], digits[rows + r]));
-      acc = pt_add(acc, table_entry(ox, oy2, oz, n, j, digits[2 * rows + r], digits[3 * rows + r]));
+#pragma unroll 1
+    for (int r = 0; r < kFoldRows; r++) {
+      const Pt e = table_entry(ex, ey2, ez, n, j, dig.d[0][r], dig.d[1][r]);
+      const Pt o = table_entry(ox, oy2, oz, n, j, dig.d[2][r], dig.d[3][r]);
+#pragma unroll 1
+      for (int k = 0; k < 4; k++) acc = pt_dbl_warp(acc);
+      acc = pt_add_warp(acc, e);
+      acc = pt_add_warp(acc, o);
     }
-    pt_store(rx, ry, rz, n, j, acc);
+    if ((threadIdx.x & 31) == 0) pt_store(rx, ry, rz, n, j, acc);
   }
 }
 
@@ -336,22 +452,34 @@ int bppp_table_flat(const int64_t* px, const int64_t* py, const int64_t* pz, int
 
 int bppp_select_reduce(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
                        const int64_t* absd, const int64_t* sgn, int64_t* ox, int64_t* oy,
-                       int64_t* oz, int64_t batch, int64_t rows, int64_t L, void* stream) {
+                       int64_t* oz, int64_t batch, int64_t rows, int64_t L, int staged,
+                       void* stream) {
   if (L % 1024) return (int)cudaErrorInvalidValue;
-  int64_t n_out = batch * rows * (L / 8);
-  if (n_out > 0) {
-    select_reduce_kernel<<<blocks_for(n_out), kThreads, 0, (cudaStream_t)stream>>>(
-        tx, ty2, tz, absd, sgn, ox, oy, oz, batch, rows, L);
+  const int64_t n_out = batch * rows * (L / 8), blocks = batch * (L / 1024) * kSrGroups;
+  if (n_out <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!staged) {
+    select_reduce_rows_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(tx, ty2, tz, absd, sgn, ox,
+                                                                      oy, oz, batch, rows, L);
+    return (int)cudaGetLastError();
   }
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(select_reduce_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSrSmem);
+  if (e != cudaSuccess) return (int)e;
+  select_reduce_kernel<<<(unsigned)blocks, kSrThreads, kSrSmem, s>>>(tx, ty2, tz, absd, sgn, ox, oy,
+                                                                      oz, batch, rows, L);
   return (int)cudaGetLastError();
 }
 
 int bppp_fold(const int64_t* ex, const int64_t* ey2, const int64_t* ez, const int64_t* ox,
-              const int64_t* oy2, const int64_t* oz, const int64_t* digits, int64_t* rx,
-              int64_t* ry, int64_t* rz, int64_t n, int64_t rows, void* stream) {
+              const int64_t* oy2, const int64_t* oz, const void* digits, int64_t* rx,
+              int64_t* ry, int64_t* rz, int64_t n, void* stream) {
   if (n > 0) {
-    fold_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(ex, ey2, ez, ox, oy2, oz,
-                                                                       digits, rx, ry, rz, n, rows);
+    int64_t b = (n + kFoldWarps - 1) / kFoldWarps;
+    const int blocks = (int)(b > 65535 * 16 ? 65535 * 16 : b);
+    fold_kernel<<<blocks, 32 * kFoldWarps, 0, (cudaStream_t)stream>>>(
+        ex, ey2, ez, ox, oy2, oz, *static_cast<const FoldDigits*>(digits), rx, ry, rz, n);
   }
   return (int)cudaGetLastError();
 }

@@ -13,12 +13,13 @@
 //  * sr_variant: integer multiply-adds, as select_reduce (kernels.cu): F - 1
 //    complete additions of ~1,840 32-bit multiplies each per output lane
 //    against F selected entries of 384 B.  One thread per output lane.  The
-//    halving order is a template recursion (halving_tree), so at most
-//    log2 F + 1 partial sums are live: F = 16 (blk 2,048, out 128) keeps 5
-//    points in registers instead of 16, and no narrowing crosses threads.
-//    The digit-dependent gathers, not the adds, set the pace on the card
-//    (r5 H3: the same adds without the selection take under half the
-//    time), as they do for select_reduce.
+//    halving order is a template recursion (curve.cuh: halving_tree), so
+//    at most log2 F + 1 partial sums are live: F = 16 (blk 2,048, out 128)
+//    keeps 5 points in registers instead of 16, and no narrowing crosses
+//    threads.  The digit-dependent gathers, not the adds, set the pace on
+//    the card (r5 H3: the same adds without the selection take under half
+//    the time).  At blk 1,024 / out 128 it computes select_reduce's
+//    function (kernels.cu) in the gather design with the rows outermost.
 //  * grid_copy: bytes.  It does no arithmetic: 128 B read and 33 x 128 B
 //    written per lane.  One block per (lane block, row), as the TPU grid,
 //    so its time over the block count is the fixed cost of a block; inside
@@ -44,21 +45,6 @@ constexpr int kThreads = 128;
 inline int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   return (int)(b > 65535 * 16 ? 65535 * 16 : b);
-}
-
-// Sum the N points load(j + k s), k < N, in the Pallas kernels' halving
-// order (first half plus second half, until one is left): the pairs m and
-// m + N/2 first, then m and m + N/4, ...  Depth first, so at most
-// log2 N + 1 partial sums are live at a time.
-template <int N, class Load>
-__device__ __forceinline__ Pt halving_tree(const Load& load, int j, int s) {
-  if constexpr (N == 1) {
-    return load(j);
-  } else {
-    Pt a = halving_tree<N / 2>(load, j, 2 * s);
-    Pt b = halving_tree<N / 2>(load, j + s, 2 * s);
-    return pt_add(a, b);
-  }
 }
 
 // --- sr_variant: replaces tools/r5_experiments.py: sr_variant (:115) ------

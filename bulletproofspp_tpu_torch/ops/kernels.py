@@ -19,9 +19,10 @@ of a (16 E, N) plane.  Sources: one library per entry file of
 
 Every wrapper takes the plain version, written below in PyTorch, only for
 tensors that lie on the CPU; on a CUDA tensor it launches its kernel or
-raises.  It adds one to ``KERNELS[name].launches`` where it launches, and
-nowhere else.  The library is built from the sources in the repository
-at first use with the nvcc of PyTorch's CUDA home
+raises.  It adds one to ``KERNELS[name].launches`` (and to the count of
+its shape, ``KERNELS[name].shapes``) where it launches, and nowhere
+else.  The library is built from the sources in the repository at first
+use with the nvcc of PyTorch's CUDA home
 (``-gencode arch=compute_90a,code=sm_90a``), one nvcc process per source
 file, all started together, into the git-ignored ``_build`` directory,
 keyed by a hash of the file and the headers, and loaded with ctypes.
@@ -32,6 +33,7 @@ is in the header of its source file.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import hashlib
@@ -44,7 +46,7 @@ import time
 import numpy as np
 import torch
 
-from . import curve, limb
+from . import curve, glv, limb
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -62,7 +64,7 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 class Kernel:
     """One CUDA kernel: its source file, C entry and argument types, the
     TPU kernel it replaces, and the count of launches made through its
-    wrapper."""
+    wrapper, in all and by shape (``"L=65536"``, ``"B=1 L=4096"``, ...)."""
 
     name: str
     source: str
@@ -70,6 +72,7 @@ class Kernel:
     argtypes: list
     replaces: str
     launches: int = 0
+    shapes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
 
 KERNELS = {
@@ -85,9 +88,9 @@ KERNELS = {
                "bulletproofspp_tpu/ops/pallas_field.py:742"),
         Kernel("table_flat", "kernels.cu", "bppp_table_flat", [_P] * 6 + [_I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:538"),
-        Kernel("select_reduce", "kernels.cu", "bppp_select_reduce", [_P] * 8 + [_I64, _I64, _I64, _P],
-               "bulletproofspp_tpu/ops/pallas_field.py:679"),
-        Kernel("fold", "kernels.cu", "bppp_fold", [_P] * 10 + [_I64, _I64, _P],
+        Kernel("select_reduce", "kernels.cu", "bppp_select_reduce",
+               [_P] * 8 + [_I64, _I64, _I64, _I32, _P], "bulletproofspp_tpu/ops/pallas_field.py:679"),
+        Kernel("fold", "kernels.cu", "bppp_fold", [_P] * 10 + [_I64, _P],
                "bulletproofspp_tpu/ops/msm.py:247"),
         Kernel("select_reduce_fused", "select_reduce_fused.cu", "bppp_select_reduce_fused",
                [_P] * 8 + [_I64, _I64, _I64, _P], "bulletproofspp_tpu/ops/pallas_field.py:615"),
@@ -106,10 +109,16 @@ KERNELS = {
 def reset_counts():
     for k in KERNELS.values():
         k.launches = 0
+        k.shapes.clear()
 
 
 def counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def shape_counts() -> dict:
+    """{kernel: {shape: launches}} since the last ``reset_counts``."""
+    return {name: dict(k.shapes) for name, k in KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -204,12 +213,13 @@ def _check(*planes):
         raise ValueError(f"kernel launch needs a CUDA tensor, got {dev}")
 
 
-def _launch(name: str, *args):
+def _launch(name: str, shape: str, *args):
     k = KERNELS[name]
     rc = getattr(lib()[k.source], k.entry)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
     k.launches += 1
+    k.shapes[shape] += 1
 
 
 def _ptrs(*ts):
@@ -245,7 +255,7 @@ def padd(p, q, threads: int = 128):
     _check(*flat)
     n = flat[0].shape[1]
     out = _empty((limb.NLIMB, n), flat[0])
-    _launch("padd", *_ptrs(*flat, *out), n, threads)
+    _launch("padd", f"L={n}", *_ptrs(*flat, *out), n, threads)
     return tuple(t.reshape(shape) for t in out)
 
 
@@ -272,7 +282,7 @@ def horner(rx, ry, rz):
     _check(rx, ry, rz)
     batch, rows = rx.shape[1], rx.shape[2]
     out = _empty((limb.NLIMB, batch), rx)
-    _launch("horner", *_ptrs(rx, ry, rz, *out), batch, rows)
+    _launch("horner", f"K={batch}", *_ptrs(rx, ry, rz, *out), batch, rows)
     return out
 
 
@@ -305,7 +315,7 @@ def reduce_block(p, factor: int):
     p = tuple(t.contiguous() for t in p)
     _check(*p)
     out = _empty((limb.NLIMB, w // factor), p[0])
-    _launch("reduce_block", *_ptrs(*p, *out), w, factor)
+    _launch("reduce_block", f"W={w} f={factor}", *_ptrs(*p, *out), w, factor)
     return out
 
 
@@ -339,7 +349,7 @@ def tail_horner(p, rows: int):
     _check(*p)
     row_sums = _empty((limb.NLIMB, batch * rows), p[0])  # scratch between the two launches
     out = _empty((limb.NLIMB, batch), p[0])
-    _launch("tail_horner", *_ptrs(*p, *row_sums, *out), batch, rows)
+    _launch("tail_horner", f"K={batch}", *_ptrs(*p, *row_sums, *out), batch, rows)
     return out
 
 
@@ -373,7 +383,7 @@ def table_flat(p):
     tx, tz = (torch.empty((limb.NLIMB * TABLE, n), dtype=torch.int64, device=p[0].device)
               for _ in range(2))
     ty2 = torch.empty((2 * limb.NLIMB * TABLE, n), dtype=torch.int64, device=p[0].device)
-    _launch("table_flat", *_ptrs(*p, tx, ty2, tz), n)
+    _launch("table_flat", f"L={n}", *_ptrs(*p, tx, ty2, tz), n)
     return tx, ty2, tz
 
 
@@ -403,7 +413,24 @@ def select_reduce_plain(tables, absd, sgn):
     return reduce_block_plain(tuple(t.reshape(limb.NLIMB, -1) for t in sel), 8)
 
 
+# Lanes a call (B * L) from which the staged design runs.  On the H100
+# (tools/r5_experiments.py H5) it was 2-12% faster than the gather from
+# 65,536 lanes a call (one or two MSMs of 65,536; prove's 66 of 2,048, 98
+# and 130 of 4,096), within 2% at 16,384 and 32,768, and 2.5x slower at
+# 4,096, where 32 blocks stage too few lanes to fill the card.
+STAGE_MIN_LANES = 65536
+
+
 def select_reduce(tables, absd, sgn):
+    batch, _, L = absd.shape
+    return select_reduce_design(tables, absd, sgn, batch * L >= STAGE_MIN_LANES)
+
+
+def select_reduce_design(tables, absd, sgn, staged: bool):
+    """``select_reduce`` through one of its two designs (``csrc/kernels.cu``):
+    ``staged``, each block's lanes' tables in shared memory for all rows, or
+    the gather with the rows of a lane block in consecutive blocks.
+    ``select_reduce`` picks by lane count; the measurement tools pick."""
     batch, rows, L = absd.shape
     if L % 1024:
         raise ValueError(f"select_reduce: lane count {L} must be a multiple of 1024")
@@ -415,7 +442,8 @@ def select_reduce(tables, absd, sgn):
     if any(d.dtype != torch.int64 or d.device != tables[0].device for d in (absd, sgn)):
         raise ValueError("select_reduce digits must be int64 on the tables' device")
     out = _empty((limb.NLIMB, batch * rows * L // 8), tables[0])
-    _launch("select_reduce", *_ptrs(*tables, absd, sgn, *out), batch, rows, L)
+    _launch("select_reduce", f"B={batch} L={L} {'staged' if staged else 'rows'}",
+            *_ptrs(*tables, absd, sgn, *out), batch, rows, L, int(staged))
     return out
 
 
@@ -444,19 +472,30 @@ def fold_plain(te, to, digits):
     return curve.tighten3(acc)
 
 
+def fold_digits(digits) -> bytes:
+    """Host digits (4, ROWS) de, se, do, so -> the fold kernel's launch
+    argument (``csrc/kernels.cu: FoldDigits``): 4 x 33 bytes, row q at byte
+    33 q.  Raises unless there are ``glv.ROWS`` rows of integer magnitudes
+    0..8 and signs 0/1."""
+    d = np.asarray(digits)
+    if (d.shape != (4, glv.ROWS) or not np.issubdtype(d.dtype, np.integer) or d.min() < 0
+            or d[0::2].max() > 8 or d[1::2].max() > 1):
+        raise ValueError(f"fold digits must be (4, {glv.ROWS}) integers: magnitudes 0..8 and "
+                         "signs 0/1")
+    return d.astype(np.uint8).tobytes()
+
+
 def fold(te, to, digits):
+    """``fold_plain`` on the card: the digits go to the kernel by value
+    (``fold_digits``), so the call neither uploads nor synchronizes."""
+    packed = ctypes.create_string_buffer(fold_digits(digits), 4 * glv.ROWS)
     if te[0].device.type == "cpu":
         return fold_plain(te, to, digits)
     tabs = [t.contiguous() for t in (*te, *to)]
     n = tabs[0].shape[1]
     _check(*(t.view(-1, limb.NLIMB, n)[0] for t in tabs))
-    digits = np.asarray(digits, np.int64)
-    if digits.shape[0] != 4 or digits.min() < 0 or digits[0::2].max() > 8 or digits[1::2].max() > 1:
-        raise ValueError("fold digits must be (4, rows): magnitudes 0..8 and signs 0/1")
-    rows = digits.shape[1]
-    dig = torch.from_numpy(digits).to(tabs[0].device)
     out = _empty((limb.NLIMB, n), tabs[0])
-    _launch("fold", *_ptrs(*tabs, dig, *out), n, rows)
+    _launch("fold", f"L={n}", *_ptrs(*tabs), ctypes.addressof(packed), *_ptrs(*out), n)
     return out
 
 
@@ -486,7 +525,7 @@ def select_reduce_fused(p, absd, sgn):
     if any(d.dtype != torch.int64 or d.device != p[0].device for d in (absd, sgn)):
         raise ValueError("select_reduce_fused digits must be int64 on the points' device")
     out = _empty((limb.NLIMB, batch * rows * L // 8), p[0])
-    _launch("select_reduce_fused", *_ptrs(*p, absd, sgn, *out), batch, rows, L)
+    _launch("select_reduce_fused", f"B={batch} L={L}", *_ptrs(*p, absd, sgn, *out), batch, rows, L)
     return out
 
 
@@ -521,7 +560,7 @@ def decompress(x, sign):
         raise ValueError("decompress takes x (16, L) and sign (L,) int64 on one device")
     y = torch.empty_like(x)
     ok = torch.empty(n, dtype=torch.bool, device=x.device)
-    _launch("decompress", *_ptrs(x, sign, y, ok), n)
+    _launch("decompress", f"L={n}", *_ptrs(x, sign, y, ok), n)
     return y, ok
 
 
@@ -567,7 +606,8 @@ def sr_variant(tables, absd, sgn, blk: int = 1024, out_w: int = 128, noselect: b
     if any(d.dtype != torch.int64 or d.device != tables[0].device for d in (absd, sgn)):
         raise ValueError("sr_variant digits must be int64 on the tables' device")
     out = _empty((limb.NLIMB, rows * L * out_w // blk), tables[0])
-    _launch("sr_variant", *_ptrs(*tables, absd, sgn, *out), rows, L, blk, out_w, int(noselect))
+    _launch("sr_variant", f"L={L} blk={blk} out={out_w}", *_ptrs(*tables, absd, sgn, *out), rows, L,
+            blk, out_w, int(noselect))
     return out
 
 
@@ -592,7 +632,7 @@ def grid_copy(x, blk: int = 1024, rows: int = 33):
     x = x.contiguous()
     _check(x)
     out = torch.empty((limb.NLIMB, rows * L), dtype=torch.int64, device=x.device)
-    _launch("grid_copy", *_ptrs(x, out), L, rows, blk)
+    _launch("grid_copy", f"L={L}", *_ptrs(x, out), L, rows, blk)
     return out
 
 
@@ -692,5 +732,5 @@ def chain(phase: str, a, b, rep: int = 8):
         raise ValueError("chain planes must all be (16, L)")
     a = a + [a[0]] * (3 - nstate)
     out = torch.empty_like(a[0])
-    _launch("chain", idx, *_ptrs(*a, *b, out), n, rep)
+    _launch("chain", f"L={n}", idx, *_ptrs(*a, *b, out), n, rep)
     return out

@@ -1,4 +1,4 @@
-"""Where the MSM's select-and-reduce time goes on the card: four experiments.
+"""Where the MSM's select-and-reduce time goes on the card: five experiments.
 
     python -m bulletproofspp_tpu_torch.tools.r5_experiments
 
@@ -13,8 +13,14 @@ digit rows:
       its time over the block count is the fixed cost of a block;
   H3  ``sr_variant`` at blk 1,024 / out 128 with the digit selection and
       without it (entry 1 for every lane), beside ``select_reduce``, the
-      MSM's kernel for the same function, on the same inputs;
-  H4  ``sr_variant`` at blk 512, 1,024, 2,048 and out 128, 256.
+      MSM's kernel for the same function (its staged design at this
+      size), and its gather design (the rows of a lane block in
+      consecutive blocks), on the same inputs;
+  H4  ``sr_variant`` at blk 512, 1,024, 2,048 and out 128, 256;
+  H5  ``select_reduce``'s two designs at 4,096 to 532,480 lanes a call:
+      one MSM of 4,096 to 65,536 lanes, two of 65,536, and prove's
+      ``msm_many`` calls of 66 MSMs of 2,048 and 98 and 130 of 4,096
+      (``ops.kernels.STAGE_MIN_LANES`` picks between the designs).
 
 Each line gives the median and IQR of CUDA-event timings of launches run
 back to back (``bench.sampled`` and ``bench.cuda_ms``: repetitions double
@@ -90,11 +96,28 @@ def run() -> list:
     report("H3 select_reduce (the MSM's kernel)",
            lambda k: kernels.select_reduce(tables, absd[None], sgn[None]),
            bounds.select_reduce(absd[None], sgn[None]), per_lane=L)
+    report("H3 select_reduce, rows design",
+           lambda k: kernels.select_reduce_design(tables, absd[None], sgn[None], False),
+           bounds.select_reduce(absd[None], sgn[None]), per_lane=L)
     for blk, out_w, noselect in SR_CASES:
         tag = "H3" if blk == 1024 and out_w == 128 else "H4"
         label = f"{tag} sr blk={blk} out={out_w}" + (" NOSELECT" if noselect else "")
         report(label, lambda k: kernels.sr_variant(tables, absd, sgn, blk, out_w, noselect),
                bounds.sr_variant(absd, sgn, blk, out_w, noselect), per_lane=L)
+
+    # H5: select_reduce's two designs by lanes a call: B MSMs on the basis
+    # tables' first n lanes, MSM i's digits those lanes' rolled by 997 i;
+    # (66, 2,048), (98, 4,096) and (130, 4,096) are msm_many's calls in prove
+    for batch, n in ((1, 4096), (1, 16384), (1, 32768), (1, L), (2, L), (66, 2048), (98, 4096),
+                     (130, 4096)):
+        tabs = [t.view(-1, limb.NLIMB, L)[..., :n].repeat(1, 1, batch).reshape(t.shape[0], -1)
+                for t in tables]
+        ad, sg = (torch.stack([d[:, :n].roll(997 * i, 1) for i in range(batch)])
+                  for d in (absd, sgn))
+        for staged in (True, False):
+            report(f"H5 select_reduce B={batch} L={n} {'staged' if staged else 'rows'}",
+                   lambda k: kernels.select_reduce_design(tabs, ad, sg, staged),
+                   bounds.select_reduce(ad, sg), per_lane=batch * n)
     return rows
 
 

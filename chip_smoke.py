@@ -8,14 +8,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      process per source file, all at once);
   2. hold each kernel (padd, horner, reduce_block, tail_horner,
      table_flat, select_reduce, fold, select_reduce_fused, decompress,
-     sr_variant, grid_copy, chain) against its plain PyTorch version on the
-     card, at the shapes the main paths give it, on numpy-seeded inputs
-     (identity lanes, P + P, P + (-P) and non-residue x's included; padd
-     also at the measurement path's 65,536 lanes in each of its
-     threads-a-block instantiations; tail_horner at 1, 3 and 130 MSMs with
-     an all-identity and a cancelling row): the normalized outputs must be
-     equal limb for limb.  Time both: a kernel's launches back to back (enqueued
-     while the stream sleeps), a plain version's as the host sends them.
+     sr_variant, grid_copy, chain) against its plain PyTorch version on
+     the card, at the shapes the main paths give it, on numpy-seeded
+     inputs (identity lanes, P + P, P + (-P) and non-residue x's
+     included; padd also at the measurement path's 65,536 lanes in
+     each of its threads-a-block instantiations; tail_horner at 1, 3 and
+     130 MSMs with an all-identity and a cancelling row; select_reduce at
+     one, three and 130 MSMs of 4,096 lanes with a row of zero digits and
+     sign 1, each launch checked to take the design its lane count picks
+     and to equal the other design, and at 65,536 lanes; fold at 16, 520
+     and 512 lanes, zero digits
+     with sign 1 in both streams at 16 and 520): the normalized outputs
+     must be equal limb for limb.  Time both: a kernel's launches back to
+     back (enqueued while the stream sleeps), a plain version's as the host
+     sends them.  select_reduce is timed in turns with its yardsticks on
+     the same inputs: at 4,096 lanes (its gather design) with sr_variant
+     (blk 1,024 / out 128, its function with the rows outermost), at 65,536
+     (its staged design) with sr_variant, sr_variant noselect and its gather
+     design (all equal to it limb for limb).
      At 2^21 lanes, where the plain route
      cannot run (its gather alone is 3 x 8.9 GB), select_reduce_fused is
      held against the two kernels table_flat + select_reduce instead, and
@@ -44,14 +54,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      torch.profiler sessions are the process's first: sr_variant (every
      (blk, out_w) of the r5 tool's H3/H4, and noselect; at blk 1,024 / out
      128 equal to select_reduce limb for limb), grid_copy and chain (all
-     ten phases) against their plain versions at L = 65,536; then, counted
+     ten phases) against their plain versions at L = 65,536 (in phase 2);
+     then, counted
      from 0, the port's bench in-process at 32,768 points (tabled =
      untabled = the host answer, every IQR under 10%) and the mains of
      tools.r5_experiments and tools.phase_bench once each.
 
-The line before the last is one JSON object with each kernel's launch
-count (summed over the main-path runs of phases 3, 6, 7 and 8, each
-counted from 0), largest normalized difference, times, bound (``bounds``:
+The line before the last is one JSON object with, for each kernel and
+each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
+design, and 65,536, its staged design), the kernel's launch count (summed
+over the main-path runs of phases 3, 6, 7 and 8, each counted from 0) in
+all and by shape, largest normalized difference, times, bound (``bounds``:
 the larger of its 32-bit multiplies over the card's rate and its bytes
 over 3.35 TB/s; for chain's ten launches the sum of theirs) and, for grid_copy, the time of one PyTorch call that
 computes the same function (``library_ms``; null where there is none).
@@ -65,6 +78,7 @@ CUDA is not available.
 from __future__ import annotations
 
 import ast
+import collections
 import hashlib
 import json
 import os
@@ -119,8 +133,7 @@ def time_ms(fn, reps: int = 5, paced: bool = False) -> float:
     kernel's launches run back to back (``bench.cuda_ms``: enqueued while
     the stream sleeps; raises if they could not be).  ``paced``: as the
     host sends them, for the plain versions (more small launches than the
-    queue holds) and for a wrapper that synchronizes (fold uploads its
-    digits)."""
+    queue holds)."""
     from bulletproofspp_tpu_torch import bench
 
     fn()  # warm-up
@@ -131,6 +144,15 @@ def time_ms(fn, reps: int = 5, paced: bool = False) -> float:
     if not ahead:
         raise AssertionError("a kernel's launches could not be timed back to back")
     return ms
+
+
+def in_turns(fns: dict, reps: int):
+    """Back-to-back times of each fn, in the order given and then in reverse
+    (a, b, b, a): ({name: mean of its two}, {name: [both]})."""
+    times = {k: [] for k in fns}
+    for k in [*fns, *reversed(fns)]:
+        times[k].append(time_ms(fns[k], reps))
+    return {k: sum(v) / 2 for k, v in times.items()}, times
 
 
 def random_points(n: int, rng, dev):
@@ -229,10 +251,24 @@ def compare(name, kernel_out, plain_out):
     return err
 
 
+def select_reduce_plain_by_msm(tables, absd, sgn, chunk: int = 26):
+    """``select_reduce_plain`` run ``chunk`` MSMs at a time (the MSMs are
+    independent: the same function), so that its memory stays bounded."""
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    batch, _, L = absd.shape
+    outs = []
+    for b0 in range(0, batch, chunk):
+        b1 = min(batch, b0 + chunk)
+        tb = [t.view(t.shape[0], batch, L)[:, b0:b1].reshape(t.shape[0], -1) for t in tables]
+        outs.append(kernels.select_reduce_plain(tb, absd[b0:b1], sgn[b0:b1]))
+    return tuple(torch.cat(c, 1) for c in zip(*outs))
+
+
 def check_kernels(dev):
     """Phase 2: each kernel against its plain version at the main path's shapes."""
     from bulletproofspp_tpu_torch import bounds
-    from bulletproofspp_tpu_torch.ops import kernels
+    from bulletproofspp_tpu_torch.ops import kernels, limb
 
     rng = np.random.default_rng(SEED)
     rows = []
@@ -296,21 +332,55 @@ def check_kernels(dev):
     rows.append(("table_flat", err, time_ms(lambda: kernels.table_flat(p), 20),
                  time_ms(lambda: kernels.table_flat_plain(p), 2, paced=True), f"L={L}",
                  bounds.table_flat(L)))
-    absd = torch.as_tensor(rng.integers(0, 9, size=(1, ROWS, L)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(1, ROWS, L)), device=dev)
-    err = compare(f"select_reduce L={L}", kernels.select_reduce(tabs, absd, sgn),
-                  kernels.select_reduce_plain(tabs, absd, sgn))
-    rows.append(("select_reduce", err, time_ms(lambda: kernels.select_reduce(tabs, absd, sgn), 10),
+    # select_reduce (also timed at L = 65,536 with the measurement kernels):
+    # msm_many's 130 MSMs of 4,096 lanes (the staged design), three and one
+    # (the gather), row 0 all zero digits with sign 1; each call must take
+    # the design its lane count picks and equal the other design limb for
+    # limb.  At B = 1 timed in turns with sr_variant (the same function,
+    # the rows outermost in the grid)
+    for batch in (130, 3, 1):
+        absd = torch.as_tensor(rng.integers(0, 9, size=(batch, ROWS, L)), device=dev)
+        sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, ROWS, L)), device=dev)
+        absd[:, 0], sgn[:, 0] = 0, 1
+        tb = kernels.table_flat(wide_points(batch * L, rng, dev)) if batch > 1 else tabs
+        staged = batch * L >= kernels.STAGE_MIN_LANES
+        kernels.reset_counts()
+        got = kernels.select_reduce(tb, absd, sgn)
+        design = f"B={batch} L={L} {'staged' if staged else 'rows'}"
+        if kernels.shape_counts()["select_reduce"] != {design: 1}:
+            raise AssertionError(f"select_reduce did not launch as {design}: "
+                                 f"{kernels.shape_counts()['select_reduce']}")
+        err = compare(f"select_reduce B={batch} L={L}", got, select_reduce_plain_by_msm(tb, absd, sgn))
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, kernels.select_reduce_design(tb, absd, sgn, not staged))):
+            raise AssertionError(f"select_reduce's two designs differ at B={batch} L={L}")
+    same = kernels.sr_variant(tabs, absd[0], sgn[0], 1024, 128)
+    if not all(torch.equal(a, b) for a, b in zip(same, kernels.select_reduce(tabs, absd, sgn))):
+        raise AssertionError(f"sr_variant at blk 1,024 / out 128 differs from select_reduce, L={L}")
+    means, both = in_turns({"select_reduce": lambda: kernels.select_reduce(tabs, absd, sgn),
+                            "sr_variant": lambda: kernels.sr_variant(tabs, absd[0], sgn[0])}, 10)
+    log(f"select_reduce L={L} rows={ROWS}: equal to its plain version and its other design (B = "
+        f"130 staged, 3 and 1 the gather) and to sr_variant limb for limb; in turns select_reduce "
+        f"{both['select_reduce']} ms, sr_variant (rows outermost) {both['sr_variant']} ms")
+    rows.append(("select_reduce", err, means["select_reduce"],
                  time_ms(lambda: kernels.select_reduce_plain(tabs, absd, sgn), 2, paced=True),
-                 f"L={L} rows={ROWS}", bounds.select_reduce(absd, sgn)))
+                 f"B=1 L={L} rows={ROWS}", bounds.select_reduce(absd, sgn)))
 
     # fold: per-lane b E + a O with shared digits, L = 512 (128by64's widest)
-    e = kernels.table_flat(random_points(512, rng, dev)[0])
-    o = kernels.table_flat(random_points(512, rng, dev)[0])
+    # for the row; 16 and 520 lanes (not a multiple of a block's 4 warps)
+    # with an identity lane, and rows of zero digits with sign 1
     b, a = (int(v) << 64 for v in rng.integers(1, 2**62, size=2))
     digits = np.stack([*glv.recode_signed(-b), *glv.recode_signed(a)])
-    err = compare("fold L=512", kernels.fold(e, o, digits), kernels.fold_plain(e, o, digits))
-    rows.append(("fold", err, time_ms(lambda: kernels.fold(e, o, digits), 5, paced=True),
+    edge = digits.copy()
+    edge[0, :3], edge[1, :3] = 0, 1
+    edge[2, 5:9], edge[3, 5:9] = 0, 1
+    for L, dig in ((16, edge), (520, edge), (512, digits)):
+        pts = random_points(L, rng, dev)[0]
+        for c, v in zip(pts, (0, 1, 0)):
+            c[:, 0] = limb.from_ints([v], dev)[:, 0]
+        e, o = kernels.table_flat(pts), kernels.table_flat(random_points(L, rng, dev)[0])
+        err = compare(f"fold L={L}", kernels.fold(e, o, dig), kernels.fold_plain(e, o, dig))
+    rows.append(("fold", err, time_ms(lambda: kernels.fold(e, o, digits), 10),
                  time_ms(lambda: kernels.fold_plain(e, o, digits), 1, paced=True), "L=512 rows=33",
                  bounds.fold(512, digits)))
     # select_reduce_fused: a 4,096-lane MSM, 33 rows, against its plain version
@@ -326,8 +396,6 @@ def check_kernels(dev):
                  f"L={L} rows={ROWS}", bounds.select_reduce_fused(absd, sgn)))
 
     # decompress: the 1,024-proof batch's bucket, about 1/8 non-residue x's
-    from bulletproofspp_tpu_torch.ops import limb
-
     L = DECOMPRESS_L
     x = limb.from_ints(residue_mix(L, rng), dev)
     sign = torch.as_tensor(rng.integers(0, 2, size=L), device=dev)
@@ -345,12 +413,12 @@ def check_kernels(dev):
     # longest dependent chains (point ops, product rounds) at the rows' shapes
     chains = {"tail_horner": bounds.tail_horner_chain(ROWS), "horner": bounds.horner_chain(ROWS),
               "fold": bounds.fold_chain(ROWS)}
-    out = {}
+    out = collections.defaultdict(list)
     for name, err, ms, plain_ms, shape, work, *lib in rows:
         bound_ms, bound_by = bounds.bound_sum(work if isinstance(work, list) else [work], mhz)
         library_ms = lib[0] if lib else None
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms}
+        out[name].append({"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
         lib_s = f"  library {library_ms:.4f} ms" if library_ms is not None else ""
         chain_s = ""
         if name in chains:
@@ -381,14 +449,31 @@ def check_measurement_kernels(dev, rng):
         err = compare(f"sr_variant blk={blk} out={out_w} noselect={noselect}",
                       kernels.sr_variant(tabs, absd, sgn, blk, out_w, noselect),
                       kernels.sr_variant_plain(tabs, absd, sgn, blk, out_w, noselect))
-    same = kernels.sr_variant(tabs, absd, sgn, 1024, 128)
-    ref = kernels.select_reduce(tabs, absd[None], sgn[None])
-    if not all(torch.equal(a, b) for a, b in zip(same, ref)):
-        raise AssertionError("sr_variant at blk 1,024 / out 128 differs from select_reduce")
+    sr_err = err
+    # select_reduce at the bench's shape (its staged design); its gather
+    # design and sr_variant at blk 1,024 / out 128 compute the same function:
+    # all three equal limb for limb
+    ad, sg = absd[None], sgn[None]
+    ref = kernels.select_reduce(tabs, ad, sg)
+    err = compare(f"select_reduce L={L}", ref, kernels.select_reduce_plain(tabs, ad, sg))
+    for name, got in (("sr_variant", kernels.sr_variant(tabs, absd, sgn, 1024, 128)),
+                      ("the rows design", kernels.select_reduce_design(tabs, ad, sg, False))):
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"{name} differs from select_reduce at L={L}")
     log(f"sr_variant L={L} rows={ROWS}: {len(SR_CASES)} (blk, out_w, noselect) cases equal to "
-        "their plain versions; blk 1,024 / out 128 equal to select_reduce limb for limb")
-    rows = [("sr_variant", err,
-             time_ms(lambda: kernels.sr_variant(tabs, absd, sgn, 1024, 128), 10),
+        "their plain versions; select_reduce equal to its plain version, and sr_variant at blk "
+        "1,024 / out 128 and select_reduce's rows design equal to it limb for limb")
+    means, both = in_turns({
+        "select_reduce": lambda: kernels.select_reduce(tabs, ad, sg),
+        "sr_variant": lambda: kernels.sr_variant(tabs, absd, sgn, 1024, 128),
+        "noselect": lambda: kernels.sr_variant(tabs, absd, sgn, 1024, 128, True),
+        "rows design": lambda: kernels.select_reduce_design(tabs, ad, sg, False)}, 10)
+    log(f"select_reduce L={L} rows={ROWS} in turns (ms): {json.dumps(both)}; select_reduce / "
+        f"sr_variant {means['select_reduce'] / means['sr_variant']:.4f}")
+    rows = [("select_reduce", err, means["select_reduce"],
+             time_ms(lambda: kernels.select_reduce_plain(tabs, ad, sg), 1, paced=True),
+             f"B=1 L={L} rows={ROWS}", bounds.select_reduce(ad, sg)),
+            ("sr_variant", sr_err, means["sr_variant"],
              time_ms(lambda: kernels.sr_variant_plain(tabs, absd, sgn, 1024, 128), 1, paced=True),
              f"L={L} rows={ROWS} blk=1024 out=128", bounds.sr_variant(absd, sgn, 1024, 128, False))]
 
@@ -398,15 +483,14 @@ def check_measurement_kernels(dev, rng):
     err = int((got - want).abs().max().item())
     if err != 0:
         raise AssertionError(f"kernel grid_copy disagrees with its plain version: {err}")
-    # the kernel and its library call in turns (k, l, l, k), each the mean of its two
-    times = {"k": [], "l": []}
-    for who in "kllk":
-        fn = (lambda: kernels.grid_copy(x)) if who == "k" else (lambda: (x + 1).repeat(1, ROWS))
-        times[who].append(time_ms(fn, 20))
-    log(f"grid_copy L={L} rows={ROWS} in turns: kernel {times['k']} ms, library {times['l']} ms")
-    rows.append(("grid_copy", err, sum(times["k"]) / 2,
+    # the kernel and its library call in turns
+    means, both = in_turns({"kernel": lambda: kernels.grid_copy(x),
+                            "library": lambda: (x + 1).repeat(1, ROWS)}, 20)
+    log(f"grid_copy L={L} rows={ROWS} in turns: kernel {both['kernel']} ms, library "
+        f"{both['library']} ms")
+    rows.append(("grid_copy", err, means["kernel"],
                  time_ms(lambda: kernels.grid_copy_plain(x), 5, paced=True), f"L={L} rows={ROWS}",
-                 bounds.grid_copy(L, ROWS), sum(times["l"]) / 2))
+                 bounds.grid_copy(L, ROWS), means["library"]))
 
     ms = plain_ms = 0.0
     works = []
@@ -551,6 +635,7 @@ def msm_wide(dev):
     log(f"msm of {n} pairs ({2 * n} lanes): equal to the host-integer answer, {secs:.3f} s, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches {launches}")
+    shapes = kernels.shape_counts()
     from torch.profiler import ProfilerActivity, profile
 
     from bulletproofspp_tpu_torch import engine_profile
@@ -563,7 +648,7 @@ def msm_wide(dev):
     device_s, top = engine_profile.device_time(prof)
     log(f"msm of {n} pairs under torch.profiler: {secs:.3f} s wall, {device_s:.4f} s of device "
         f"time, by kernel (ms, launches) {json.dumps(top)}")
-    return launches
+    return shapes
 
 
 def batch_1024(dev, work):
@@ -603,7 +688,7 @@ def batch_1024(dev, work):
     t0 = time.perf_counter()
     rc = run_cli(["batch-verify", schema, *files])
     secs[f"cli batch-verify, {n} valid"] = time.perf_counter() - t0
-    launches = kernels.counts()
+    launches, shapes = kernels.counts(), kernels.shape_counts()
     if rc != 0:
         raise AssertionError(f"batch-verify of {n} valid proofs gave rc {rc}")
     require_launched("batch-verify", launches,
@@ -631,7 +716,7 @@ def batch_1024(dev, work):
     for step, t in secs.items():
         log(f"batch step {step}: {t:.3f} s")
     log(f"batch_verify_encoded by engine call: {json.dumps(row)}")
-    return launches
+    return shapes
 
 
 def measurement_path():
@@ -661,7 +746,7 @@ def measurement_path():
                      {"sr_variant", "grid_copy", "chain", "padd", "table_flat", "select_reduce",
                       "reduce_block", "tail_horner"})
     log(f"launches on the measurement path: {launches}")
-    return launches
+    return kernels.shape_counts()
 
 
 def require_port_only():
@@ -690,7 +775,7 @@ def main() -> int:
     try:
         kernels.reset_counts()
         main_path(work)
-        launches = kernels.counts()
+        launches, cli_shapes = kernels.counts(), kernels.shape_counts()
         log(f"launches on the main path: {launches}")
         require_launched("cli test", launches,
                          set(launches) - {"select_reduce_fused", "sr_variant", "grid_copy", "chain"})
@@ -703,8 +788,13 @@ def main() -> int:
         os.chdir(HERE)
         shutil.rmtree(work, ignore_errors=True)
     require_port_only()
-    launches = {k: launches[k] + wide[k] + batch[k] + measured[k] for k in launches}
+    shapes = {k: collections.Counter() for k in launches}
+    for run in (cli_shapes, wide, batch, measured):
+        for k, by_shape in run.items():
+            shapes[k].update(by_shape)
+    launches = {k: sum(v.values()) for k, v in shapes.items()}
     require_launched("the main paths", launches, set(launches))
+    log(f"launches on the main paths by shape: {json.dumps(shapes)}")
 
     report = {"kernels": [
         {
@@ -713,9 +803,10 @@ def main() -> int:
             "source": f"bulletproofspp_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces,
             "launches": launches[name],
-            **checked[name],
+            "shapes": dict(shapes[name]),
+            **row,
         }
-        for name, k in kernels.KERNELS.items()
+        for name, k in kernels.KERNELS.items() for row in checked[name]
     ]}
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {

@@ -175,3 +175,62 @@ def test_cuda_padd_thread_counts_agree():
     want = kernels.padd_plain(p, q)
     for threads in kernels.PADD_THREADS:
         assert _same(kernels.padd(p, q, threads), want), threads
+
+
+def _edge_digits():
+    """Fold digits (4, 33) with rows of zero digits and sign 1 in both
+    streams (they select (0 : -1 : 0))."""
+    d = np.stack([*glv.recode_signed(-(7**45)), *glv.recode_signed(11**36)])
+    d[0, :4], d[1, :4] = 0, 1
+    d[2, 10:13], d[3, 10:13] = 0, 1
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [16, 512, 520])  # 520: not a multiple of a block's 4 warps
+def test_cuda_fold_matches_plain_version(L):
+    dev = _card()
+    e, o = kernels.table_flat(_points(L, 70, dev)), kernels.table_flat(_points(L, 71, dev))
+    digits = _edge_digits()
+    kernels.fold(e, o, digits)  # builds the library
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")  # an upload of the digits would synchronize
+    try:
+        got = kernels.fold(e, o, digits)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.counts()["fold"] == 1
+    assert _same(got, kernels.fold_plain(e, o, digits))
+
+
+def _wide_tables(n: int, seed: int, dev):
+    """Flat tables of n lanes: 1,024 of ``_points``' lanes repeated, each
+    scaled by its own random factor."""
+    rng = np.random.default_rng(seed)
+    k = torch.as_tensor(rng.integers(1, 1 << 16, size=(16, n)), device=dev)
+    return kernels.table_flat(tuple(limb.mul(c.repeat(1, -(-n // 1024))[:, :n], k)
+                                    for c in _points(1024, seed, dev)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,L", [(1, 1024), (1, 4096), (3, 4096), (1, 65536)])
+def test_cuda_select_reduce_matches_plain_version(batch, L):
+    dev = _card()
+    tabs = _wide_tables(batch * L, 72, dev)
+    rng = np.random.default_rng(73)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(batch, 33, L)), device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, 33, L)), device=dev)
+    absd[:, 5], sgn[:, 5] = 0, 1  # a row of (0 : -1 : 0)
+    kernels.reset_counts()
+    got = kernels.select_reduce(tabs, absd, sgn)
+    assert kernels.counts()["select_reduce"] == 1
+    design = "staged" if batch * L >= kernels.STAGE_MIN_LANES else "rows"
+    assert kernels.shape_counts()["select_reduce"] == {f"B={batch} L={L} {design}": 1}
+    assert _same(got, kernels.select_reduce_plain(tabs, absd, sgn))
+    for staged in (True, False):  # both designs, limb for limb
+        other = kernels.select_reduce_design(tabs, absd, sgn, staged)
+        assert all(torch.equal(a, b) for a, b in zip(got, other))
+    if batch == 1:
+        old = kernels.sr_variant(tabs, absd[0], sgn[0], 1024, 128)
+        assert all(torch.equal(a, b) for a, b in zip(got, old))

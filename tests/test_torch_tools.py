@@ -209,7 +209,8 @@ def test_tabled_supported_matches_the_jax_condition(monkeypatch):
 
 def test_bench_work_counts():
     """The bound's counts: a complete add's multiplies, distinct selected
-    entries, and the MSM's adds (33 a lane tabled, 40 untabled)."""
+    entries, and the MSM's adds (33 a lane tabled, 40 untabled) and
+    negations."""
     assert bounds.PT_ADD == 12 * 146 + 3 * 18 + 12 * 2 + 5 * 2
     absd = torch.tensor([[[0, 1], [0, 2], [3, 2]]])
     sgn = torch.tensor([[[0, 0], [1, 0], [0, 1]]])
@@ -220,7 +221,8 @@ def test_bench_work_counts():
     untab_ops = bench._msm_work(a, s, False, 1024)[0]
     assert untab_ops - tab_ops == bounds.table_flat(1024)[0]
     adds = 33 * (1024 - 1)  # every lane of a row summed into one, rows by Horner
-    assert tab_ops == adds * bounds.PT_ADD + 33 * (4 * bounds.PT_DBL + bounds.PT_ADD)
+    negations = int(s.sum()) * bounds.FE_SUB  # select_reduce makes -Y of negative digits
+    assert tab_ops == adds * bounds.PT_ADD + 33 * (4 * bounds.PT_DBL + bounds.PT_ADD) + negations
     ms, by = bounds.bound((0, 3.35e9), 1980)
     assert by == "bytes" and abs(ms - 1.0) < 1e-12
 
@@ -245,7 +247,9 @@ def test_bound_of_launches_in_sequence_sums_their_bounds():
     # addition on one warp, 2 rounds an operation
     ("tail_horner", (7 + 33 * 5, 7 * 12 + 33 * 5 * 2)),
     ("horner", (165, 33 * (4 * 8 + 12))),
-    ("fold", (33 * 6, 33 * (4 * 8 + 2 * 12))),
+    # 33 rows of 4 doublings + 2 additions on one warp, 2 rounds an operation
+    # (on one thread: 33 * (4 * 8 + 2 * 12) = 1,848 products)
+    ("fold", (33 * 6, 33 * 6 * 2)),
 ])
 def test_dependent_chain_lengths(kernel, chain):
     """Longest dependent chains at 33 rows, in point operations and in field
