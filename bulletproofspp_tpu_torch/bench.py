@@ -27,8 +27,9 @@ the samples' IQR is under 10% of their median:
   * one tabled and one untabled MSM, and one end-to-end call, under
     ``torch.profiler``: device milliseconds by kernel, and the device's
     idle share of the end-to-end call's wall time.  A profile that misses
-    a launch of the port's kernels (counted by ``ops.kernels``) is
-    reported as incomplete, and its idle share as null: not measured.
+    a launch of the port's kernels (counted by ``ops.kernels``, matched
+    to the profile by each wrapper's ``device_kernels``) is reported as
+    incomplete, and its idle share as null: not measured.
 
 ``roofline_util`` = adds a lane x L x t_padd / MSM time: how close the
 assembled pipeline comes to its own complete-add kernel.  ``bound_share``
@@ -46,8 +47,10 @@ carry-on.  Imports no JAX.
 
 from __future__ import annotations
 
+import collections
 import json
 import random
+import re
 import statistics
 import sys
 import time
@@ -192,10 +195,30 @@ def _profile(fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launched = {k: n - before[k] for k, n in kernels.counts().items() if n > before[k]}
-    device_s, by_kernel = device_time(prof)
-    seen = {k: sum(v[1] for key, v in by_kernel.items() if f"{k}_kernel" in key) for k in launched}
+    device_s, by_kernel = device_time(prof, top=None)
     return {"wall_s": wall, "device_s": device_s, "by_kernel": by_kernel,
-            "complete": seen == launched}
+            "complete": profile_complete(launched, by_kernel)}
+
+
+def profile_complete(launched: dict, by_kernel: dict) -> bool:
+    """Whether a profile's kernels ({name: [ms, launches]}, keyed as
+    ``engine_profile.device_time`` keys them) hold every launch in
+    ``launched`` ({wrapper: launches}): each ``__global__`` function of the
+    wrappers' ``device_kernels`` (or each set of alternatives, ``"a|b"``)
+    ran as many times as the wrappers' launches that run it.  Matched by
+    function name, so a kernel shared by two wrappers (``horner_warp_kernel``)
+    counts for both."""
+    want = collections.Counter()
+    for k, n in launched.items():
+        for group in kernels.KERNELS[k].device_kernels:
+            want[group] += n
+    seen = collections.Counter()
+    for key, (_, n) in by_kernel.items():
+        name = re.search(r"\b(\w+_kernel)\b", key)
+        for group in want:
+            if name and name.group(1) in group.split("|"):
+                seen[group] += n
+    return seen == want
 
 
 def run() -> dict:

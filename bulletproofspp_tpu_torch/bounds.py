@@ -26,13 +26,13 @@ two ``o * 977``: 2.  ``pt_add`` is 12 ``fe_mul``, 3 ``fe_mul_small``, 12
 ``fe_add`` and 5 ``fe_sub``; ``pt_dbl`` 8, 3, 3 and 1.
 
 Neither limit sees latency.  A kernel whose work is a chain of dependent
-point operations (``tail_horner``, ``horner``, ``fold``) waits on that
-chain, far above both bounds, so each such kernel also has the length of
-its longest dependent chain (``*_chain``): in point operations, and in
-field-product rounds, a round being one product's latency.  One thread
-runs an operation's products one after another (12 an addition, 8 a
-doubling); the warp-cooperative operations of ``csrc/curve_warp.cuh`` run
-them in 2 rounds.
+point operations (``tail_horner``, ``horner``, ``fold``) or whose blocks
+each wait on one (``select_reduce_fused``) sits far above both bounds, so
+each such kernel also has the length of its longest dependent chain
+(``*_chain``): in point operations, and in field-product rounds, a round
+being one product's latency.  One thread runs an addition's 12 products
+one after another; the warp-cooperative operations of
+``csrc/curve_warp.cuh`` run an addition's or a doubling's in 2 rounds.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ FE_ADD = 2
 FE_SUB = 2
 PT_ADD = 12 * FE_MUL + 3 * FE_MUL_SMALL + 12 * FE_ADD + 5 * FE_SUB
 PT_DBL = 8 * FE_MUL + 3 * FE_MUL_SMALL + 3 * FE_ADD + 1 * FE_SUB
-ADD_PRODUCTS, DBL_PRODUCTS = 12, 8  # field products of pt_add and pt_dbl
+ADD_PRODUCTS = 12  # field products of pt_add
 
 _SQRT_EXP = ((1 << 256) - (1 << 32) - 977 + 1) // 4
 # decompress: x^3 + 7, the square-and-multiply chain below the top bit, r^2
@@ -150,8 +150,16 @@ def tail_horner_chain(rows: int):
 
 
 def horner_chain(rows: int):
-    """horner's chain, one thread per MSM: 4 doublings and 1 addition a row."""
-    return 5 * rows, rows * (4 * DBL_PRODUCTS + ADD_PRODUCTS)
+    """horner's chain, one warp per MSM: 4 doublings and 1 addition a row,
+    2 rounds each."""
+    return 5 * rows, 2 * 5 * rows
+
+
+def select_reduce_fused_chain(rows: int):
+    """select_reduce_fused's chain, one thread per lane or (row, column): the
+    build's 7 additions, then the rows 11 at a time, 7 additions a row."""
+    ops = 7 + -(-rows // 11) * 7
+    return ops, ops * ADD_PRODUCTS
 
 
 def fold_chain(rows: int):

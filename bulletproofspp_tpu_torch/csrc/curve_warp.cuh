@@ -104,7 +104,7 @@ __device__ __forceinline__ Pt pt_dbl_warp(const Pt& p) {
 }
 
 // Horner over row sums, MSB row first (acc = 16 acc + row r), the order of
-// horner_rows in kernels.cu; every lane ends with the sum.
+// horner_plain (ops/kernels.py); every lane ends with the sum.
 __device__ __forceinline__ Pt horner_rows_warp(const Pt* rowsum, int64_t rows) {
   Pt acc = pt_identity();
   for (int64_t r = 0; r < rows; r++) {

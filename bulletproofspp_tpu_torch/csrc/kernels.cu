@@ -18,9 +18,9 @@
 // design is the simple one: one thread per independent lane, coalesced
 // limb-plane loads (neighbouring threads read neighbouring lanes), 8 x 32-bit
 // words in registers with 64-bit carry chains.  Making them fast (fewer
-// carries, madc chains, more lanes per SM) is later work.  Three are
-// designed for this card instead: tail_horner and fold, whose work is one
-// chain of dependent point operations per MSM or lane, bound by its
+// carries, madc chains, more lanes per SM) is later work.  Four are
+// designed for this card instead: horner, tail_horner and fold, whose work
+// is one chain of dependent point operations per MSM or lane, bound by its
 // latency (they run it on a warp: curve_warp.cuh), and select_reduce,
 // whose digit-chosen reads cost more than its adds until its lanes' tables
 // stay close for all rows: in shared memory, or in L2 (below).
@@ -32,6 +32,7 @@
 
 #include "curve.cuh"
 #include "curve_warp.cuh"
+#include "select_reduce.cuh"
 
 using namespace bppp;
 
@@ -63,17 +64,6 @@ __global__ void __launch_bounds__(MAXT) padd_kernel(const int64_t* __restrict__ 
   }
 }
 
-// Horner over row sums, MSB row first: acc = 16 * acc + row(r).
-template <class Row>
-__device__ Pt horner_rows(Row row, int64_t rows) {
-  Pt acc = pt_identity();
-  for (int64_t r = 0; r < rows; r++) {
-    for (int k = 0; k < 4; k++) acc = pt_dbl(acc);
-    acc = pt_add(acc, row(r));
-  }
-  return acc;
-}
-
 // Sum F points in the Pallas kernels' halving order (pairs m, m + F/2
 // first, then m, m + F/4, ...) into v[0].
 template <int F>
@@ -83,21 +73,6 @@ __device__ __forceinline__ void halve(Pt* v) {
 #pragma unroll
     for (int m = 0; m < h; m++) v[m] = pt_add(v[m], v[m + h]);
   }
-}
-
-// --- horner: replaces horner_pallas / _horner_kernel (:446, :419) ----------
-// Input (16, batch, rows), output (16, batch); one thread per MSM.  The
-// chain of 4 doublings and 1 addition per row is sequential by nature; the
-// batch dimension (K stacked MSMs of one msm_many call) is the parallelism.
-__global__ void horner_kernel(const int64_t* __restrict__ rx, const int64_t* __restrict__ ry,
-                              const int64_t* __restrict__ rz, int64_t* __restrict__ ox,
-                              int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch,
-                              int64_t rows) {
-  int64_t b = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  int64_t stride = batch * rows;
-  auto row = [&](int64_t r) { return pt_load(rx, ry, rz, stride, b * rows + r); };
-  pt_store(ox, oy, oz, batch, b, horner_rows(row, rows));
 }
 
 // --- reduce_block: replaces reduce_block_pallas / _reduce_block_kernel -----
@@ -123,18 +98,21 @@ __global__ void reduce_block_kernel(const int64_t* __restrict__ x, const int64_t
 }
 
 // --- tail_horner: replaces tail_horner_pallas / _tail_horner_kernel --------
-// (:742, :711).  Input (16, batch, rows * 128), output (16, batch), in two
-// launches.  The function is a chain: each row's 128 lanes halve (pairs t,
-// t + 64, then t, t + 32, ... : the order of the Pallas kernel's roll
-// levels), then Horner runs over the row sums, 4 doublings and 1 addition
-// a row.  It is bound by the latency of that chain, not by bytes or
-// multiplies, so the design shortens the chain:
+// (:742, :711), and horner: replaces horner_pallas / _horner_kernel (:446,
+// :419).  tail_horner: input (16, batch, rows * 128), output (16, batch), in
+// two launches; horner: input (16, batch, rows) row sums, output (16,
+// batch), in one.  The function is a chain: each row's 128 lanes halve
+// (pairs t, t + 64, then t, t + 32, ... : the order of the Pallas kernel's
+// roll levels), then Horner runs over the row sums, 4 doublings and 1
+// addition a row.  It is bound by the latency of that chain, not by bytes
+// or multiplies, so the design shortens the chain:
 //  * tail_rows_kernel: one block of 64 threads per (MSM, row), all rows at
 //    once; 7 dependent additions, the row sum to a (16, batch, rows)
 //    scratch;
-//  * tail_horner_kernel: one warp per MSM runs Horner over the row
-//    sums with the warp-cooperative addition and doubling of
-//    curve_warp.cuh (10 rounds of one field product each a row).
+//  * horner_warp_kernel, tail_horner's second launch and horner's only one:
+//    one warp per MSM runs Horner over the row sums with the
+//    warp-cooperative addition and doubling of curve_warp.cuh (10 rounds of
+//    one field product each a row, where one thread would run 44 products).
 __global__ void __launch_bounds__(64) tail_rows_kernel(const int64_t* __restrict__ x,
                                                        const int64_t* __restrict__ y,
                                                        const int64_t* __restrict__ z,
@@ -154,7 +132,7 @@ __global__ void __launch_bounds__(64) tail_rows_kernel(const int64_t* __restrict
   if (t == 0) pt_store(rx, ry, rz, n_rows, br, lanes[0]);
 }
 
-__global__ void __launch_bounds__(32) tail_horner_kernel(
+__global__ void __launch_bounds__(32) horner_warp_kernel(
     const int64_t* __restrict__ rx, const int64_t* __restrict__ ry,
     const int64_t* __restrict__ rz, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
     int64_t* __restrict__ oz, int64_t batch, int64_t rows) {
@@ -209,46 +187,15 @@ __global__ void table_flat_kernel(const int64_t* __restrict__ px, const int64_t*
 // from STAGE_MIN_LANES = 65,536 lanes a call, where it was 2-12% the faster
 // on the H100 (tools/r5_experiments.py H5, up to prove's 130 MSMs of 4,096
 // lanes), and the gather below:
-//  * select_reduce_kernel, staged: a block owns 16 output columns t of one
-//    lane block, that is 128 lanes (t + m * 128), and first stages their
-//    entries 1..8 into shared memory in coalesced 16-byte reads, as packed
-//    32-bit words laid out [entry][word][lane] (98,304 B; entry 0 is the
-//    identity, and -Y is made with fe_neg at selection, as table_flat made
-//    the table's -Y, so the words are the same).  Then it walks all rows:
-//    one thread per (row, column) reads its 8 lanes' entries from shared
-//    memory (a warp holds 16 distinct lanes of two rows: banks conflict at
-//    most 2-way, whatever the digits) and sums them in registers.  Each
-//    lane's table leaves device memory once for all rows.  176 threads (11
-//    rows at a time) and two blocks an SM: registers, not shared memory,
-//    bound the threads in flight.
+//  * select_reduce_kernel, staged: each block first stages its 128 lanes'
+//    entries 1..8 (select_reduce.cuh: sr_rows) into shared memory in coalesced
+//    16-byte reads, then runs sr_rows over all rows.  Each lane's table
+//    leaves device memory once for all rows.
 //  * select_reduce_rows_kernel, the gather: one thread per output, the grid
 //    reordered so that the rows of a lane block run in consecutive blocks
 //    and the lane block's table (4.7 MB) stays in L2 across its rows.
 //    Where the lanes fill few blocks, staging a block's table costs more
 //    than gathering from L2.
-constexpr int kSrCols = 16;                      // output columns t a block
-constexpr int kSrLanes = 8 * kSrCols;            // their lanes t + m * 128
-constexpr int kSrGroups = 128 / kSrCols;         // blocks a lane block
-constexpr int kSrSlots = 11;                     // rows a block runs at a time
-constexpr int kSrThreads = kSrSlots * kSrCols;   // 176
-constexpr int kSrWords = 8 * 24 * kSrLanes;      // entries 1..8, 24 words each
-constexpr size_t kSrSmem = kSrWords * sizeof(u32);  // 98,304 B
-
-// Entry |d| of staged lane l with sign s (sel = |d| | s << 4).
-__device__ __forceinline__ Pt sr_entry(const u32* tab, int l, u32 sel) {
-  const int d = sel & 15;
-  const u32* e = tab + (d ? d - 1 : 0) * 24 * kSrLanes + l;
-  Pt p = pt_identity();
-#pragma unroll
-  for (int k = 0; k < 8; k++) {
-    p.x.w[k] = d ? e[k * kSrLanes] : p.x.w[k];
-    p.y.w[k] = d ? e[(8 + k) * kSrLanes] : p.y.w[k];
-    p.z.w[k] = d ? e[(16 + k) * kSrLanes] : p.z.w[k];
-  }
-  if (sel >> 4) p.y = fe_neg(p.y);
-  return p;
-}
-
 __global__ void __launch_bounds__(kSrThreads, 2)
     select_reduce_kernel(const int64_t* __restrict__ tx, const int64_t* __restrict__ ty2,
                          const int64_t* __restrict__ tz, const int64_t* __restrict__ absd,
@@ -256,11 +203,8 @@ __global__ void __launch_bounds__(kSrThreads, 2)
                          int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch,
                          int64_t rows, int64_t L) {
   extern __shared__ u32 tab[];  // [entry 1..8][24 words][128 lanes]
-  const int tid = threadIdx.x;
-  const int64_t nblk = L / 1024, n = batch * L, per_row = L / 8, n_out = batch * rows * per_row;
-  const int64_t g = blockIdx.x % kSrGroups, k = (blockIdx.x / kSrGroups) % nblk;
-  const int64_t b = blockIdx.x / (kSrGroups * nblk);
-  const int64_t t0 = k * 1024 + g * kSrCols;  // lane of staged lane 0 within MSM b
+  const int64_t n = batch * L;
+  const SrBlock blk = sr_block(L);
 
   // stage: thread i takes the staged lanes 2 l', 2 l' + 1 of one word, one
   // 16-byte load of each of the word's two limb planes
@@ -268,11 +212,11 @@ __global__ void __launch_bounds__(kSrThreads, 2)
                                 reinterpret_cast<const longlong2*>(ty2),
                                 reinterpret_cast<const longlong2*>(tz)};
 #pragma unroll 4
-  for (int i = tid; i < kSrWords / 2; i += kSrThreads) {
+  for (int i = threadIdx.x; i < kSrWords / 2; i += kSrThreads) {
     const int lp = i % (kSrLanes / 2), ew = i / (kSrLanes / 2);  // ew = (e - 1) * 24 + word
     const int e = ew / 24 + 1, w = ew % 24;
     const int l = 2 * lp;
-    const int64_t col = b * L + t0 + l % kSrCols + (l / kSrCols) * 128;
+    const int64_t col = blk.b * L + blk.lane(l);
     const longlong2* p = planes[w / 8] + ((16 * e + 2 * (w % 8)) * n + col) / 2;
     const longlong2 lo = __ldg(p), hi = __ldg(p + n / 2);
     reinterpret_cast<uint2*>(tab)[(ew * kSrLanes + l) / 2] =
@@ -280,18 +224,7 @@ __global__ void __launch_bounds__(kSrThreads, 2)
                    ((u32)lo.y & 0xffffu) | ((u32)hi.y << 16));
   }
   __syncthreads();
-
-  // all rows, 11 at a time; thread (slot, c)
-  const int c = tid % kSrCols, slot = tid / kSrCols;
-  for (int64_t r = slot; r < rows; r += kSrSlots) {
-    const int64_t br = b * rows + r, di = br * L + t0 + c;
-    u32 sel[8];
-#pragma unroll
-    for (int m = 0; m < 8; m++) sel[m] = (u32)absd[di + m * 128] | (u32)sgn[di + m * 128] << 4;
-    auto load = [&](int m) { return sr_entry(tab, m * kSrCols + c, sel[m]); };
-    pt_store(ox, oy, oz, n_out, br * per_row + k * 128 + g * kSrCols + c,
-             halving_tree<8>(load, 0, 1));
-  }
+  sr_rows(tab, absd, sgn, ox, oy, oz, batch, rows, L, blk);
 }
 
 // Output o over (b, k, r, t): 128 outputs t of lane block k and row r a
@@ -398,10 +331,8 @@ int bppp_padd(const int64_t* x1, const int64_t* y1, const int64_t* z1, const int
 int bppp_horner(const int64_t* rx, const int64_t* ry, const int64_t* rz, int64_t* ox,
                 int64_t* oy, int64_t* oz, int64_t batch, int64_t rows, void* stream) {
   if (batch > 0) {
-    int threads = batch < 32 ? 32 : 64;
-    int blocks = (int)((batch + threads - 1) / threads);
-    horner_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(rx, ry, rz, ox, oy, oz, batch,
-                                                                 rows);
+    horner_warp_kernel<<<(unsigned)batch, 32, rows * sizeof(Pt), (cudaStream_t)stream>>>(
+        rx, ry, rz, ox, oy, oz, batch, rows);
   }
   return (int)cudaGetLastError();
 }
@@ -435,7 +366,7 @@ int bppp_tail_horner(const int64_t* x, const int64_t* y, const int64_t* z, int64
   if (batch > 0 && rows > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     tail_rows_kernel<<<(unsigned)(batch * rows), 64, 0, s>>>(x, y, z, rx, ry, rz, batch * rows);
-    tail_horner_kernel<<<(unsigned)batch, 32, rows * sizeof(Pt), s>>>(rx, ry, rz, ox, oy, oz,
+    horner_warp_kernel<<<(unsigned)batch, 32, rows * sizeof(Pt), s>>>(rx, ry, rz, ox, oy, oz,
                                                                        batch, rows);
   }
   return (int)cudaGetLastError();

@@ -193,9 +193,10 @@ def profile_prove(name, eng):
             "device_idle_share": 1 - device_s / wall, "top_kernels_ms_launches": top}
 
 
-def device_time(prof):
+def device_time(prof, top: int | None = 8):
     """A finished ``torch.profiler`` run -> (device seconds in kernels and
-    copies, {kernel: [ms, launches]} of the 8 largest)."""
+    copies, {kernel: [ms, launches]} of the ``top`` largest, or of all
+    where ``top`` is None)."""
     per = collections.Counter()
     launches = collections.Counter()
     for ev in prof.key_averages():
@@ -206,8 +207,8 @@ def device_time(prof):
             key = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
             per[key] += dev_us
             launches[key] += ev.count
-    top = {k: [round(v / 1e3, 4), launches[k]] for k, v in per.most_common(8)}
-    return sum(per.values()) / 1e6, top
+    largest = {k: [round(v / 1e3, 4), launches[k]] for k, v in per.most_common(top)}
+    return sum(per.values()) / 1e6, largest
 
 
 def main(argv=None) -> int:

@@ -15,7 +15,9 @@ multiple tables are flat, entry e and limb i of lane j at row 16 e + i
 of a (16 E, N) plane.  Sources: one library per entry file of
 ``SOURCES`` (``csrc/*.cu``), all including ``csrc/curve.cuh`` and
 ``csrc/field.cuh`` (device functions); ``kernels.cu`` also
-``csrc/curve_warp.cuh`` (a warp's cooperative addition and doubling).
+``csrc/curve_warp.cuh`` (a warp's cooperative addition and doubling), and
+``kernels.cu`` and ``select_reduce_fused.cu`` ``csrc/select_reduce.cuh``
+(the staged row phase they share).
 
 Every wrapper takes the plain version, written below in PyTorch, only for
 tensors that lie on the CPU; on a CUDA tensor it launches its kernel or
@@ -51,7 +53,7 @@ from . import curve, glv, limb
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("kernels.cu", "select_reduce_fused.cu", "decompress.cu", "tools.cu")  # one library each
-HEADERS = ("curve.cuh", "field.cuh", "curve_warp.cuh")
+HEADERS = ("curve.cuh", "field.cuh", "curve_warp.cuh", "select_reduce.cuh")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -63,14 +65,17 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 @dataclasses.dataclass
 class Kernel:
     """One CUDA kernel: its source file, C entry and argument types, the
-    TPU kernel it replaces, and the count of launches made through its
-    wrapper, in all and by shape (``"L=65536"``, ``"B=1 L=4096"``, ...)."""
+    TPU kernel it replaces, the ``__global__`` functions one launch runs
+    (``device_kernels``: each of them once, in order; ``"a|b"`` where the
+    launch runs one of a and b), and the count of launches made through
+    its wrapper, in all and by shape (``"L=65536"``, ``"B=1 L=4096"``, ...)."""
 
     name: str
     source: str
     entry: str
     argtypes: list
     replaces: str
+    device_kernels: tuple
     launches: int = 0
     shapes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
@@ -79,29 +84,32 @@ KERNELS = {
     k.name: k
     for k in (
         Kernel("padd", "kernels.cu", "bppp_padd", [_P] * 9 + [_I64, _I32, _P],
-               "bulletproofspp_tpu/ops/pallas_field.py:759"),
+               "bulletproofspp_tpu/ops/pallas_field.py:759", ("padd_kernel",)),
         Kernel("horner", "kernels.cu", "bppp_horner", [_P] * 6 + [_I64, _I64, _P],
-               "bulletproofspp_tpu/ops/pallas_field.py:446"),
+               "bulletproofspp_tpu/ops/pallas_field.py:446", ("horner_warp_kernel",)),
         Kernel("reduce_block", "kernels.cu", "bppp_reduce_block", [_P] * 6 + [_I64, _I32, _P],
-               "bulletproofspp_tpu/ops/pallas_field.py:490"),
+               "bulletproofspp_tpu/ops/pallas_field.py:490", ("reduce_block_kernel",)),
         Kernel("tail_horner", "kernels.cu", "bppp_tail_horner", [_P] * 9 + [_I64, _I64, _P],
-               "bulletproofspp_tpu/ops/pallas_field.py:742"),
+               "bulletproofspp_tpu/ops/pallas_field.py:742",
+               ("tail_rows_kernel", "horner_warp_kernel")),
         Kernel("table_flat", "kernels.cu", "bppp_table_flat", [_P] * 6 + [_I64, _P],
-               "bulletproofspp_tpu/ops/pallas_field.py:538"),
+               "bulletproofspp_tpu/ops/pallas_field.py:538", ("table_flat_kernel",)),
         Kernel("select_reduce", "kernels.cu", "bppp_select_reduce",
-               [_P] * 8 + [_I64, _I64, _I64, _I32, _P], "bulletproofspp_tpu/ops/pallas_field.py:679"),
+               [_P] * 8 + [_I64, _I64, _I64, _I32, _P], "bulletproofspp_tpu/ops/pallas_field.py:679",
+               ("select_reduce_kernel|select_reduce_rows_kernel",)),
         Kernel("fold", "kernels.cu", "bppp_fold", [_P] * 10 + [_I64, _P],
-               "bulletproofspp_tpu/ops/msm.py:247"),
+               "bulletproofspp_tpu/ops/msm.py:247", ("fold_kernel",)),
         Kernel("select_reduce_fused", "select_reduce_fused.cu", "bppp_select_reduce_fused",
-               [_P] * 8 + [_I64, _I64, _I64, _P], "bulletproofspp_tpu/ops/pallas_field.py:615"),
+               [_P] * 8 + [_I64, _I64, _I64, _P], "bulletproofspp_tpu/ops/pallas_field.py:615",
+               ("select_reduce_fused_kernel",)),
         Kernel("decompress", "decompress.cu", "bppp_decompress", [_P] * 4 + [_I64, _P],
-               "bulletproofspp_tpu/ops/curve.py:224"),
+               "bulletproofspp_tpu/ops/curve.py:224", ("decompress_kernel",)),
         Kernel("sr_variant", "tools.cu", "bppp_sr_variant", [_P] * 8 + [_I64] * 4 + [_I32, _P],
-               "tools/r5_experiments.py:115"),
+               "tools/r5_experiments.py:115", ("sr_variant_kernel",)),
         Kernel("grid_copy", "tools.cu", "bppp_grid_copy", [_P] * 2 + [_I64] * 3 + [_P],
-               "tools/r5_experiments.py:145"),
+               "tools/r5_experiments.py:145", ("grid_copy_kernel",)),
         Kernel("chain", "tools.cu", "bppp_chain", [_I32] + [_P] * 7 + [_I64, _I32, _P],
-               "tools/phase_bench.py:43"),
+               "tools/phase_bench.py:43", ("chain_kernel",)),
     )
 }
 
@@ -202,7 +210,9 @@ def build_seconds():
     return _state["build_seconds"]
 
 
-def _check(*planes):
+def _check(*planes) -> torch.device:
+    """The planes' one CUDA device; raises unless they are (16, ...) int64,
+    contiguous and on it."""
     dev = planes[0].device
     for t in planes:
         if t.dtype != torch.int64 or t.device != dev or t.shape[0] != limb.NLIMB:
@@ -211,11 +221,16 @@ def _check(*planes):
             raise ValueError("kernel inputs must be contiguous")
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs a CUDA tensor, got {dev}")
+    return dev
 
 
-def _launch(name: str, shape: str, *args):
+def _launch(name: str, shape: str, dev: torch.device, *args):
+    """Launch under ``dev`` (the tensors' device, from ``_check``) on its
+    current stream, whatever the process's current device is."""
     k = KERNELS[name]
-    rc = getattr(lib()[k.source], k.entry)(*args, torch.cuda.current_stream().cuda_stream)
+    fn = getattr(lib()[k.source], k.entry)
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
     k.launches += 1
@@ -252,10 +267,10 @@ def padd(p, q, threads: int = 128):
         return padd_plain(p, q)
     shape = p[0].shape
     flat = [t.reshape(limb.NLIMB, -1).contiguous() for t in (*p, *q)]
-    _check(*flat)
+    dev = _check(*flat)
     n = flat[0].shape[1]
     out = _empty((limb.NLIMB, n), flat[0])
-    _launch("padd", f"L={n}", *_ptrs(*flat, *out), n, threads)
+    _launch("padd", f"L={n}", dev, *_ptrs(*flat, *out), n, threads)
     return tuple(t.reshape(shape) for t in out)
 
 
@@ -279,10 +294,10 @@ def horner(rx, ry, rz):
     if rx.device.type == "cpu":
         return horner_plain(rx, ry, rz)
     rx, ry, rz = (t.contiguous() for t in (rx, ry, rz))
-    _check(rx, ry, rz)
+    dev = _check(rx, ry, rz)
     batch, rows = rx.shape[1], rx.shape[2]
     out = _empty((limb.NLIMB, batch), rx)
-    _launch("horner", f"K={batch}", *_ptrs(rx, ry, rz, *out), batch, rows)
+    _launch("horner", f"K={batch}", dev, *_ptrs(rx, ry, rz, *out), batch, rows)
     return out
 
 
@@ -313,9 +328,9 @@ def reduce_block(p, factor: int):
     if p[0].device.type == "cpu":
         return reduce_block_plain(p, factor)
     p = tuple(t.contiguous() for t in p)
-    _check(*p)
+    dev = _check(*p)
     out = _empty((limb.NLIMB, w // factor), p[0])
-    _launch("reduce_block", f"W={w} f={factor}", *_ptrs(*p, *out), w, factor)
+    _launch("reduce_block", f"W={w} f={factor}", dev, *_ptrs(*p, *out), w, factor)
     return out
 
 
@@ -346,10 +361,10 @@ def tail_horner(p, rows: int):
     if p[0].device.type == "cpu":
         return tail_horner_plain(p, rows)
     p = tuple(t.contiguous() for t in p)
-    _check(*p)
+    dev = _check(*p)
     row_sums = _empty((limb.NLIMB, batch * rows), p[0])  # scratch between the two launches
     out = _empty((limb.NLIMB, batch), p[0])
-    _launch("tail_horner", f"K={batch}", *_ptrs(*p, *row_sums, *out), batch, rows)
+    _launch("tail_horner", f"K={batch}", dev, *_ptrs(*p, *row_sums, *out), batch, rows)
     return out
 
 
@@ -378,12 +393,12 @@ def table_flat(p):
     if p[0].device.type == "cpu":
         return table_flat_plain(p)
     p = tuple(t.contiguous() for t in p)
-    _check(*p)
+    dev = _check(*p)
     n = p[0].shape[1]
     tx, tz = (torch.empty((limb.NLIMB * TABLE, n), dtype=torch.int64, device=p[0].device)
               for _ in range(2))
     ty2 = torch.empty((2 * limb.NLIMB * TABLE, n), dtype=torch.int64, device=p[0].device)
-    _launch("table_flat", f"L={n}", *_ptrs(*p, tx, ty2, tz), n)
+    _launch("table_flat", f"L={n}", dev, *_ptrs(*p, tx, ty2, tz), n)
     return tx, ty2, tz
 
 
@@ -437,12 +452,12 @@ def select_reduce_design(tables, absd, sgn, staged: bool):
     if tables[0].device.type == "cpu":
         return select_reduce_plain(tables, absd, sgn)
     tables = [t.contiguous() for t in tables]
-    _check(*(t.view(-1, limb.NLIMB, batch * L)[0] for t in tables))
+    dev = _check(*(t.view(-1, limb.NLIMB, batch * L)[0] for t in tables))
     absd, sgn = absd.contiguous(), sgn.contiguous()
     if any(d.dtype != torch.int64 or d.device != tables[0].device for d in (absd, sgn)):
         raise ValueError("select_reduce digits must be int64 on the tables' device")
     out = _empty((limb.NLIMB, batch * rows * L // 8), tables[0])
-    _launch("select_reduce", f"B={batch} L={L} {'staged' if staged else 'rows'}",
+    _launch("select_reduce", f"B={batch} L={L} {'staged' if staged else 'rows'}", dev,
             *_ptrs(*tables, absd, sgn, *out), batch, rows, L, int(staged))
     return out
 
@@ -493,9 +508,9 @@ def fold(te, to, digits):
         return fold_plain(te, to, digits)
     tabs = [t.contiguous() for t in (*te, *to)]
     n = tabs[0].shape[1]
-    _check(*(t.view(-1, limb.NLIMB, n)[0] for t in tabs))
+    dev = _check(*(t.view(-1, limb.NLIMB, n)[0] for t in tabs))
     out = _empty((limb.NLIMB, n), tabs[0])
-    _launch("fold", f"L={n}", *_ptrs(*tabs), ctypes.addressof(packed), *_ptrs(*out), n)
+    _launch("fold", f"L={n}", dev, *_ptrs(*tabs), ctypes.addressof(packed), *_ptrs(*out), n)
     return out
 
 
@@ -511,8 +526,9 @@ def select_reduce_fused_plain(p, absd, sgn):
 
 def select_reduce_fused(p, absd, sgn):
     """(16, B * L) strict lanes and digits (B, ROWS, L) -> (16, B * ROWS *
-    L / 8) row-major partials, equal to ``select_reduce(table_flat(p),
-    absd, sgn)``; the lanes' tables stay in the kernel's shared memory."""
+    L / 8) row-major partials, equal limb for limb (before normalization)
+    to ``select_reduce(table_flat(p), absd, sgn)``; the lanes' tables are
+    built in the kernel's shared memory and never reach device memory."""
     batch, rows, L = absd.shape
     if L % 1024 or p[0].shape[-1] != batch * L:
         raise ValueError(f"select_reduce_fused: {batch} MSMs of L = {L} lanes (a multiple of "
@@ -520,12 +536,13 @@ def select_reduce_fused(p, absd, sgn):
     if p[0].device.type == "cpu":
         return select_reduce_fused_plain(p, absd, sgn)
     p = tuple(t.contiguous() for t in p)
-    _check(*p)
+    dev = _check(*p)
     absd, sgn = absd.contiguous(), sgn.contiguous()
     if any(d.dtype != torch.int64 or d.device != p[0].device for d in (absd, sgn)):
         raise ValueError("select_reduce_fused digits must be int64 on the points' device")
     out = _empty((limb.NLIMB, batch * rows * L // 8), p[0])
-    _launch("select_reduce_fused", f"B={batch} L={L}", *_ptrs(*p, absd, sgn, *out), batch, rows, L)
+    _launch("select_reduce_fused", f"B={batch} L={L}", dev, *_ptrs(*p, absd, sgn, *out), batch,
+            rows, L)
     return out
 
 
@@ -554,13 +571,13 @@ def decompress(x, sign):
     if x.device.type == "cpu":
         return decompress_plain(x, sign)
     x, sign = x.contiguous(), sign.contiguous()
-    _check(x)
+    dev = _check(x)
     n = x.shape[1]
     if x.dim() != 2 or sign.shape != (n,) or sign.dtype != torch.int64 or sign.device != x.device:
         raise ValueError("decompress takes x (16, L) and sign (L,) int64 on one device")
     y = torch.empty_like(x)
     ok = torch.empty(n, dtype=torch.bool, device=x.device)
-    _launch("decompress", f"L={n}", *_ptrs(x, sign, y, ok), n)
+    _launch("decompress", f"L={n}", dev, *_ptrs(x, sign, y, ok), n)
     return y, ok
 
 
@@ -601,13 +618,13 @@ def sr_variant(tables, absd, sgn, blk: int = 1024, out_w: int = 128, noselect: b
     if tables[0].device.type == "cpu":
         return sr_variant_plain(tables, absd, sgn, blk, out_w, noselect)
     tables = [t.contiguous() for t in tables]
-    _check(*(t.view(-1, limb.NLIMB, L)[0] for t in tables))
+    dev = _check(*(t.view(-1, limb.NLIMB, L)[0] for t in tables))
     absd, sgn = absd.contiguous(), sgn.contiguous()
     if any(d.dtype != torch.int64 or d.device != tables[0].device for d in (absd, sgn)):
         raise ValueError("sr_variant digits must be int64 on the tables' device")
     out = _empty((limb.NLIMB, rows * L * out_w // blk), tables[0])
-    _launch("sr_variant", f"L={L} blk={blk} out={out_w}", *_ptrs(*tables, absd, sgn, *out), rows, L,
-            blk, out_w, int(noselect))
+    _launch("sr_variant", f"L={L} blk={blk} out={out_w}", dev, *_ptrs(*tables, absd, sgn, *out),
+            rows, L, blk, out_w, int(noselect))
     return out
 
 
@@ -630,9 +647,9 @@ def grid_copy(x, blk: int = 1024, rows: int = 33):
     if x.device.type == "cpu":
         return grid_copy_plain(x, rows)
     x = x.contiguous()
-    _check(x)
+    dev = _check(x)
     out = torch.empty((limb.NLIMB, rows * L), dtype=torch.int64, device=x.device)
-    _launch("grid_copy", f"L={L}", *_ptrs(x, out), L, rows, blk)
+    _launch("grid_copy", f"L={L}", dev, *_ptrs(x, out), L, rows, blk)
     return out
 
 
@@ -726,11 +743,11 @@ def chain(phase: str, a, b, rep: int = 8):
         return chain_plain(phase, a, b, rep)
     a = [t.contiguous() for t in a]
     b = [t.contiguous() for t in b]
-    _check(*a, *b)
+    dev = _check(*a, *b)
     n = a[0].shape[1]
     if any(t.shape != (limb.NLIMB, n) for t in (*a, *b)):
         raise ValueError("chain planes must all be (16, L)")
     a = a + [a[0]] * (3 - nstate)
     out = torch.empty_like(a[0])
-    _launch("chain", f"L={n}", idx, *_ptrs(*a, *b, out), n, rep)
+    _launch("chain", f"L={n}", dev, idx, *_ptrs(*a, *b, out), n, rep)
     return out

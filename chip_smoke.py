@@ -12,7 +12,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the card, at the shapes the main paths give it, on numpy-seeded
      inputs (identity lanes, P + P, P + (-P) and non-residue x's
      included; padd also at the measurement path's 65,536 lanes in
-     each of its threads-a-block instantiations; tail_horner at 1, 3 and
+     each of its threads-a-block instantiations; horner at 1, 2 and 130
+     MSMs with an all-identity row and a row that cancels or doubles the
+     accumulator, word for word; tail_horner at 1, 3 and
      130 MSMs with an all-identity and a cancelling row; select_reduce at
      one, three and 130 MSMs of 4,096 lanes with a row of zero digits and
      sign 1, each launch checked to take the design its lane count picks
@@ -25,11 +27,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the same inputs: at 4,096 lanes (its gather design) with sr_variant
      (blk 1,024 / out 128, its function with the rows outermost), at 65,536
      (its staged design) with sr_variant, sr_variant noselect and its gather
-     design (all equal to it limb for limb).
-     At 2^21 lanes, where the plain route
-     cannot run (its gather alone is 3 x 8.9 GB), select_reduce_fused is
-     held against the two kernels table_flat + select_reduce instead, and
-     both routes are timed;
+     design (all equal to it limb for limb).  select_reduce_fused, with a
+     row of zero digits and sign 1, equals the two kernels table_flat +
+     select_reduce limb for limb (raw) at 4,096 lanes and at 2^21 lanes,
+     and is timed in turns with them, each route's peak device memory
+     above its inputs logged; at 2^21 lanes its plain version runs three
+     rows at a time (its gather of all rows alone is 3 x 8.9 GB);
   3. reset the launch counts and run the port's CLI ``test`` command
      (prove, verify, encode, decode, verify) on every shipped example
      (examples/*): rc 0 and proof/commitment bytes equal to the golden
@@ -62,15 +65,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
-design, and 65,536, its staged design), the kernel's launch count (summed
+design, and 65,536, its staged design; horner at 130 MSMs and at 1, the
+main paths' shape; select_reduce_fused at 4,096 lanes and at 2^21, its
+route), the kernel's launch count (summed
 over the main-path runs of phases 3, 6, 7 and 8, each counted from 0) in
-all and by shape, largest normalized difference, times, bound (``bounds``:
+all, by path (``launches_by_path``: cli_test, msm_2_21, batch_verify,
+measurement) and by shape, largest normalized difference, times, bound (``bounds``:
 the larger of its 32-bit multiplies over the card's rate and its bytes
 over 3.35 TB/s; for chain's ten launches the sum of theirs) and, for grid_copy, the time of one PyTorch call that
 computes the same function (``library_ms``; null where there is none).
-The kernel lines of phase 2 also give, for tail_horner, horner and fold,
-the time per point operation and per product round of the kernel's
-longest dependent chain (``bounds.*_chain``);
+The kernel lines of phase 2, and the JSON line (``chain``), also give, for
+tail_horner, horner, fold and select_reduce_fused, the time per point
+operation and per product round of the kernel's longest dependent chain
+(``bounds.*_chain``);
 the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 CUDA is not available.
 """
@@ -219,6 +226,27 @@ def tail_lanes(K: int, rng, dev):
     return tuple(c.reshape(16, K, ROWS * 128) for c in (x, y, z))
 
 
+def horner_rows(K: int, rng, dev):
+    """(16, K, ROWS) row sums for horner (``random_points``, each with its
+    own Z): in every MSM row 0 is all identity, row 1 a multiple P of G and
+    row 2 -16 P in even MSMs (16 P + (-16 P) after the doublings) and 16 P
+    in odd ones (16 P + 16 P)."""
+    from bulletproofspp_tpu_torch.core import ec
+    from bulletproofspp_tpu_torch.core.fields import Q
+    from bulletproofspp_tpu_torch.ops import limb
+
+    x, y, z = (c.reshape(16, K, ROWS) for c in random_points(K * ROWS, rng, dev)[0])
+    x[:, :, 0], z[:, :, 0] = 0, 0
+    p = [ec.scalar_mul(int(k), ec.G) for k in rng.integers(1, 2**62, size=K)]
+    sixteen = [ec.scalar_mul(16, q) for q in p]
+    for r, pts in ((1, p), (2, [q if b % 2 else ec.neg(q) for b, q in enumerate(sixteen)])):
+        zs = [int(v) * (1 << 190) % Q for v in rng.integers(1, 2**62, size=K)]
+        for c, coords in zip((x, y, z), ([q[0] * k % Q for q, k in zip(pts, zs)],
+                                         [q[1] * k % Q for q, k in zip(pts, zs)], zs)):
+            c[:, :, r] = limb.from_ints(coords, dev)
+    return x, y, z
+
+
 def residue_mix(n: int, rng):
     """n x's < p, for about 1/8 of which x^3 + 7 is not a square."""
     from bulletproofspp_tpu_torch.core.fields import Q
@@ -290,14 +318,21 @@ def check_kernels(dev):
                  time_ms(lambda: kernels.padd_plain(p, q), 3, paced=True),
                  f"L={L} threads=128", bounds.padd(L)))
 
-    # horner: (16, K, 33) row sums for K stacked MSMs (msm_many: K up to 130)
-    for K in (1, 130):
-        r, _ = random_points(K * ROWS, rng, dev)
-        r = tuple(c.reshape(16, K, ROWS) for c in r)
-        err = compare(f"horner K={K}", kernels.horner(*r), kernels.horner_plain(*r))
-    rows.append(("horner", err, time_ms(lambda: kernels.horner(*r), 5),
-                 time_ms(lambda: kernels.horner_plain(*r), 1, paced=True), f"K={K} rows={ROWS}",
-                 bounds.horner(K, ROWS)))
+    # horner: (16, K, 33) row sums for K stacked MSMs (msm_many: K up to 130),
+    # with edge rows; word for word
+    # (timed at K = 130 and at K = 1, the main paths' shape)
+    sums = {K: horner_rows(K, rng, dev) for K in (1, 2, 130)}
+    for K, r in sums.items():
+        got, want = kernels.horner(*r), kernels.horner_plain(*r)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"horner K={K} differs from its plain version word for word")
+        err = compare(f"horner K={K}", got, want)
+    log("horner K=1, 2 and 130 with edge rows: equal to its plain version word for word")
+    for K in (130, 1):
+        r = sums[K]
+        rows.append(("horner", err, time_ms(lambda: kernels.horner(*r), 5),
+                     time_ms(lambda: kernels.horner_plain(*r), 1, paced=True),
+                     f"K={K} rows={ROWS}", bounds.horner(K, ROWS)))
 
     # reduce_block: factors 2/4/8 at W = 33 * 1024 (a 1,024-lane MSM's rows)
     w = ROWS * 1024
@@ -383,17 +418,7 @@ def check_kernels(dev):
     rows.append(("fold", err, time_ms(lambda: kernels.fold(e, o, digits), 10),
                  time_ms(lambda: kernels.fold_plain(e, o, digits), 1, paced=True), "L=512 rows=33",
                  bounds.fold(512, digits)))
-    # select_reduce_fused: a 4,096-lane MSM, 33 rows, against its plain version
-    L = 4096
-    p, _ = random_points(L, rng, dev)
-    absd = torch.as_tensor(rng.integers(0, 9, size=(1, ROWS, L)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(1, ROWS, L)), device=dev)
-    err = compare(f"select_reduce_fused L={L}", kernels.select_reduce_fused(p, absd, sgn),
-                  kernels.select_reduce_fused_plain(p, absd, sgn))
-    rows.append(("select_reduce_fused", err,
-                 time_ms(lambda: kernels.select_reduce_fused(p, absd, sgn), 10),
-                 time_ms(lambda: kernels.select_reduce_fused_plain(p, absd, sgn), 2, paced=True),
-                 f"L={L} rows={ROWS}", bounds.select_reduce_fused(absd, sgn)))
+    rows += check_fused(dev, rng)
 
     # decompress: the 1,024-proof batch's bucket, about 1/8 non-residue x's
     L = DECOMPRESS_L
@@ -412,23 +437,26 @@ def check_kernels(dev):
     mhz = bounds.card()["sm_clock_max_mhz"]
     # longest dependent chains (point ops, product rounds) at the rows' shapes
     chains = {"tail_horner": bounds.tail_horner_chain(ROWS), "horner": bounds.horner_chain(ROWS),
-              "fold": bounds.fold_chain(ROWS)}
+              "fold": bounds.fold_chain(ROWS),
+              "select_reduce_fused": bounds.select_reduce_fused_chain(ROWS)}
     out = collections.defaultdict(list)
     for name, err, ms, plain_ms, shape, work, *lib in rows:
         bound_ms, bound_by = bounds.bound_sum(work if isinstance(work, list) else [work], mhz)
         library_ms = lib[0] if lib else None
-        out[name].append({"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+        row = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         lib_s = f"  library {library_ms:.4f} ms" if library_ms is not None else ""
         chain_s = ""
         if name in chains:
             ops, rounds = chains[name]
+            row["chain"] = {"ops": ops, "rounds": rounds, "us_per_op": ms * 1e3 / ops,
+                            "us_per_round": ms * 1e3 / rounds}
             chain_s = (f"  chain {ops} point ops ({ms * 1e3 / ops:.3f} us each), {rounds} product "
                        f"rounds ({ms * 1e3 / rounds:.3f} us each)")
+        out[name].append(row)
         log(f"kernel {name:19s} {shape:28s} max_abs_err {err}  cuda {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}){lib_s}{chain_s}")
     log(f"bounds at the maximum SM clock of {mhz} MHz (nvidia-smi clocks.max.sm)")
-    check_fused_wide(dev, rng)
     return out
 
 
@@ -516,24 +544,73 @@ def check_measurement_kernels(dev, rng):
     return rows
 
 
-def check_fused_wide(dev, rng):
-    """select_reduce_fused at 2^21 lanes and 33 rows against table_flat +
-    select_reduce on the same inputs (exact), both routes timed."""
+def select_reduce_fused_plain_by_rows(p, absd, sgn, chunk: int = 3):
+    """``select_reduce_fused_plain`` for one MSM, the tables built once and
+    the rows selected and narrowed ``chunk`` at a time (the rows are
+    independent and the partials row-major: the same function), so that
+    its memory stays bounded at 2^21 lanes."""
     from bulletproofspp_tpu_torch.ops import kernels
 
-    L = WIDE_LANES
-    p = wide_points(L, rng, dev)
-    absd = torch.as_tensor(rng.integers(0, 9, size=(1, ROWS, L)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(1, ROWS, L)), device=dev)
-    err = compare(f"select_reduce_fused L={L}", kernels.select_reduce_fused(p, absd, sgn),
-                  kernels.select_reduce(kernels.table_flat(p), absd, sgn))
-    fused = time_ms(lambda: kernels.select_reduce_fused(p, absd, sgn), 3)
-    torch.cuda.reset_peak_memory_stats()
-    two = time_ms(lambda: kernels.select_reduce(kernels.table_flat(p), absd, sgn), 3)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"select_reduce_fused L={L} rows={ROWS}: max_abs_err {err} against table_flat + "
-        f"select_reduce; fused {fused:.4f} ms, table_flat + select_reduce {two:.4f} ms "
-        f"(peak device memory of the two-kernel route {peak:.2f} GiB)")
+    tables = kernels.table_flat_plain(p)
+    parts = [kernels.select_reduce_plain(tables, absd[:, r:r + chunk], sgn[:, r:r + chunk])
+             for r in range(0, absd.shape[1], chunk)]
+    return tuple(torch.cat(c, 1) for c in zip(*parts))
+
+
+def check_fused(dev, rng):
+    """select_reduce_fused with a row of zero digits and sign 1 and about
+    1/8 identity lanes, equal limb for limb (raw) to table_flat +
+    select_reduce on the same inputs, both routes timed in turns and the
+    peak device memory each allocates above its inputs (and above what is
+    held for the comparison) logged, and equal after normalization to its
+    plain version: at 4,096 lanes, and at 2^21 lanes, its route, where the
+    plain version runs a few rows at a time.  Returns a row for each."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    out = []
+    for L in (4096, WIDE_LANES):
+        p = random_points(L, rng, dev)[0] if L == 4096 else wide_points(L, rng, dev)
+        absd = torch.as_tensor(rng.integers(0, 9, size=(1, ROWS, L)), device=dev)
+        sgn = torch.as_tensor(rng.integers(0, 2, size=(1, ROWS, L)), device=dev)
+        absd[:, 3], sgn[:, 3] = 0, 1
+        routes = {"fused": lambda: kernels.select_reduce_fused(p, absd, sgn),
+                  "table_flat + select_reduce":
+                      lambda: kernels.select_reduce(kernels.table_flat(p), absd, sgn)}
+        inputs = sum(t.numel() * t.element_size() for t in (*p, absd, sgn)) / 2**30
+        peaks = {}
+        for name, fn in routes.items():
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = fn()
+            torch.cuda.synchronize()
+            peaks[name] = (torch.cuda.max_memory_allocated() - held) / 2**30
+            if name == "fused":
+                fused = got
+                continue
+            raw = max(int((a - b).abs().max().item()) for a, b in zip(fused, got))
+            if raw != 0:
+                raise AssertionError(f"select_reduce_fused differs from table_flat + "
+                                     f"select_reduce at L={L}: max |diff| {raw} (raw limbs)")
+        del got
+        means, both = in_turns(routes, 3 if L == WIDE_LANES else 10)
+        log(f"select_reduce_fused L={L} rows={ROWS}: equal limb for limb to table_flat + "
+            f"select_reduce; in turns (ms) {json.dumps(both)}; fused / two kernels "
+            f"{means['fused'] / means['table_flat + select_reduce']:.4f}; peak device memory "
+            f"above the inputs ({inputs:.2f} GiB), by route (GiB) {json.dumps(peaks)}")
+        if L == 4096:
+            plain = lambda: kernels.select_reduce_fused_plain(p, absd, sgn)  # noqa: E731
+            plain_reps = 2
+        else:
+            plain = lambda: select_reduce_fused_plain_by_rows(p, absd, sgn)  # noqa: E731
+            plain_reps = 1
+        err = compare(f"select_reduce_fused L={L}", fused, plain())
+        out.append(("select_reduce_fused", err, means["fused"],
+                    time_ms(plain, plain_reps, paced=True), f"L={L} rows={ROWS}",
+                    bounds.select_reduce_fused(absd, sgn)))
+        del fused
+    return out
 
 
 def sha(path) -> str:
@@ -788,13 +865,17 @@ def main() -> int:
         os.chdir(HERE)
         shutil.rmtree(work, ignore_errors=True)
     require_port_only()
+    paths = {"cli_test": cli_shapes, "msm_2_21": wide, "batch_verify": batch,
+             "measurement": measured}
     shapes = {k: collections.Counter() for k in launches}
-    for run in (cli_shapes, wide, batch, measured):
+    for run in paths.values():
         for k, by_shape in run.items():
             shapes[k].update(by_shape)
     launches = {k: sum(v.values()) for k, v in shapes.items()}
     require_launched("the main paths", launches, set(launches))
+    by_path = {k: {path: sum(run[k].values()) for path, run in paths.items()} for k in launches}
     log(f"launches on the main paths by shape: {json.dumps(shapes)}")
+    log(f"launches by path: {json.dumps(by_path)}")
 
     report = {"kernels": [
         {
@@ -803,6 +884,7 @@ def main() -> int:
             "source": f"bulletproofspp_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces,
             "launches": launches[name],
+            "launches_by_path": by_path[name],
             "shapes": dict(shapes[name]),
             **row,
         }

@@ -234,3 +234,61 @@ def test_cuda_select_reduce_matches_plain_version(batch, L):
     if batch == 1:
         old = kernels.sr_variant(tabs, absd[0], sgn[0], 1024, 128)
         assert all(torch.equal(a, b) for a, b in zip(got, old))
+
+
+def _horner_rows(batch: int, seed: int, dev):
+    """(16, batch, 33) row sums, each point with its own projective Z: row 0
+    all identity, row 1 a multiple P of G, row 2 -16 P in even MSMs (16 P +
+    (-16 P) after the doublings) and 16 P in odd ones (16 P + 16 P), the
+    other rows multiples of G."""
+    rng = np.random.default_rng(seed)
+    pool = [ec.scalar_mul(int(k), ec.G) for k in rng.integers(1, 2**62, size=32)]
+    cols = ([], [], [])
+    for b in range(batch):
+        p = pool[int(rng.integers(0, len(pool)))]
+        sixteen = ec.scalar_mul(16, p)
+        row2 = ec.neg(sixteen) if b % 2 == 0 else sixteen
+        for r in range(33):
+            z = (int(rng.integers(1, 2**62)) << 180) % Q
+            if r == 0:
+                coords = (0, z, 0)
+            else:
+                pt = p if r == 1 else row2 if r == 2 else pool[int(rng.integers(0, len(pool)))]
+                coords = (pt[0] * z % Q, pt[1] * z % Q, z)
+            for c, v in zip(cols, coords):
+                c.append(v)
+    return tuple(limb.from_ints(c, dev).reshape(16, batch, 33) for c in cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 130])  # 130: msm_many's K
+def test_cuda_horner_matches_plain_version_word_for_word(batch):
+    dev = _card()
+    r = _horner_rows(batch, 80, dev)
+    kernels.horner(*r)  # builds the library
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kernels.horner(*r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.shape_counts()["horner"] == {f"K={batch}": 1}
+    assert all(torch.equal(a, b) for a, b in zip(got, kernels.horner_plain(*r)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,L", [(1, 1024), (1, 4096), (2, 2048)])
+def test_cuda_select_reduce_fused_equals_the_two_kernel_route(batch, L):
+    dev = _card()
+    p = _points(batch * L, 74, dev)  # every 7th lane the identity
+    rng = np.random.default_rng(75)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(batch, 33, L)), device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, 33, L)), device=dev)
+    absd[:, 5], sgn[:, 5] = 0, 1  # a row of (0 : -1 : 0)
+    kernels.reset_counts()
+    got = kernels.select_reduce_fused(p, absd, sgn)
+    assert kernels.shape_counts()["select_reduce_fused"] == {f"B={batch} L={L}": 1}
+    two = kernels.select_reduce(kernels.table_flat(p), absd, sgn)
+    assert all(torch.equal(a, b) for a, b in zip(got, two))  # limb for limb, raw
+    assert _same(got, kernels.select_reduce_fused_plain(p, absd, sgn))

@@ -1,0 +1,120 @@
+"""Kernel launches run under their tensors' device, on that device's current
+stream, whatever the process's current device is.  On the CPU: the kernel
+libraries and the torch.cuda calls are stubbed, the entries record the
+device guard they ran under and the stream they were given, and every
+wrapper runs on meta tensors that its device check places on cuda:1."""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from bulletproofspp_tpu_torch.ops import glv, kernels
+
+DEV1 = torch.device("cuda", 1)
+
+
+def _stream(dev):
+    return 7000 + dev.index  # a stream handle that names its device
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """Stubs lib() and torch.cuda's device guard and current stream; yields
+    the list of (kernel entry, device guarded, stream) the entries saw."""
+    seen, guard = [], []
+
+    class Device:
+        def __init__(self, dev):
+            self.dev = torch.device(dev)
+
+        def __enter__(self):
+            guard.append(self.dev)
+
+        def __exit__(self, *exc):
+            guard.pop()
+
+    def current_stream(device=None):
+        # no argument: the process's current device, device 0 here
+        dev = torch.device("cuda", 0) if device is None else torch.device(device)
+        return types.SimpleNamespace(cuda_stream=_stream(dev))
+
+    def entry(name):
+        def call(*args):
+            seen.append((name, guard[-1] if guard else None, args[-1]))
+            return 0
+        return call
+
+    lib = types.SimpleNamespace(**{k.entry: entry(k.entry) for k in kernels.KERNELS.values()})
+    monkeypatch.setattr(kernels, "lib", lambda: {src: lib for src in kernels.SOURCES})
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    kernels.reset_counts()
+    yield seen
+    kernels.reset_counts()
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_launch_takes_the_stream_of_the_tensors_device_under_its_guard(launches, index):
+    dev = torch.device("cuda", index)
+    kernels._launch("padd", "L=1", dev, 0, 0)
+    assert launches == [("bppp_padd", dev, _stream(dev))]
+    assert kernels.counts()["padd"] == 1 and kernels.shape_counts()["padd"] == {"L=1": 1}
+
+
+def test_launch_that_fails_raises_and_is_not_counted(launches, monkeypatch):
+    lib = types.SimpleNamespace(bppp_padd=lambda *a: 1)
+    monkeypatch.setattr(kernels, "lib", lambda: {src: lib for src in kernels.SOURCES})
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        kernels._launch("padd", "L=1", DEV1, 0)
+    assert kernels.counts()["padd"] == 0
+
+
+def _meta(*shape):
+    return torch.zeros(shape, dtype=torch.int64, device="meta")
+
+
+def _pt(*shape):
+    return tuple(_meta(16, *shape) for _ in range(3))
+
+
+def _tables(n):
+    return _meta(144, n), _meta(288, n), _meta(144, n)
+
+
+_DIGITS = np.stack([*glv.recode_signed(3**80), *glv.recode_signed(5**50)])
+
+CALLS = {
+    "padd": lambda: kernels.padd(_pt(256), _pt(256)),
+    "horner": lambda: kernels.horner(*_pt(2, 33)),
+    "reduce_block": lambda: kernels.reduce_block(_pt(1024), 8),
+    "tail_horner": lambda: kernels.tail_horner(_pt(1, 2 * 128), 2),
+    "table_flat": lambda: kernels.table_flat(_pt(1024)),
+    "select_reduce": lambda: kernels.select_reduce(_tables(1024), _meta(1, 3, 1024),
+                                                   _meta(1, 3, 1024)),
+    "fold": lambda: kernels.fold(_tables(16), _tables(16), _DIGITS),
+    "select_reduce_fused": lambda: kernels.select_reduce_fused(_pt(1024), _meta(1, 3, 1024),
+                                                               _meta(1, 3, 1024)),
+    "decompress": lambda: kernels.decompress(_meta(16, 64), _meta(64)),
+    "sr_variant": lambda: kernels.sr_variant(_tables(1024), _meta(3, 1024), _meta(3, 1024)),
+    "grid_copy": lambda: kernels.grid_copy(_meta(16, 1024)),
+    "chain": lambda: kernels.chain("padd", _pt(64), _pt(64)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(kernels.KERNELS))
+def test_every_wrapper_launches_under_its_tensors_device(launches, monkeypatch, name):
+    """The device the wrapper's check returns (cuda:1 here, not the
+    process's current device 0) is the one its launch runs under."""
+    checked = []
+
+    def check(*planes):
+        checked.append({t.device.type for t in planes})
+        return DEV1
+
+    monkeypatch.setattr(kernels, "_check", check)
+    CALLS[name]()
+    assert checked == [{"meta"}]
+    assert launches == [(kernels.KERNELS[name].entry, DEV1, _stream(DEV1))]
+    assert kernels.counts()[name] == 1

@@ -1,0 +1,70 @@
+"""The bench's profile check: the device kernels a profile holds are matched
+to the port's wrappers by the ``__global__`` functions each wrapper's launch
+runs (``kernels.KERNELS[...].device_kernels``).  On the CPU: every listed
+function exists in its source file, and ``bench.profile_complete`` reads
+stubbed ``torch.profiler`` events as ``engine_profile.device_time`` keys
+them."""
+
+import os
+import re
+import types
+
+import pytest
+
+from bulletproofspp_tpu_torch import bench
+from bulletproofspp_tpu_torch.engine_profile import device_time
+from bulletproofspp_tpu_torch.ops import kernels
+
+
+def _globals(source):
+    with open(os.path.join(kernels.CSRC, source)) as f:
+        text = f.read()
+    return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text))
+
+
+@pytest.mark.parametrize("name", sorted(kernels.KERNELS))
+def test_device_kernels_are_global_functions_of_the_wrappers_source(name):
+    k = kernels.KERNELS[name]
+    listed = {f for group in k.device_kernels for f in group.split("|")}
+    assert listed and listed <= _globals(k.source)
+
+
+def _prof(*events):
+    """A finished profile stub: (key as the profiler demangles it, launches)."""
+    evs = [types.SimpleNamespace(key=key, self_device_time_total=10.0 * n, count=n)
+           for key, n in events]
+    evs.append(types.SimpleNamespace(key="aten::add", self_device_time_total=5.0, count=1))
+    return types.SimpleNamespace(key_averages=lambda: evs)
+
+
+_TAIL = "(anonymous namespace)::tail_rows_kernel(long const*, long const*, long)"
+_HORNER = "(anonymous namespace)::horner_warp_kernel(long const*, long const*, long, long)"
+_REDUCE = "void (anonymous namespace)::reduce_block_kernel<8>(long const*, long const*, long)"
+_STAGED = "(anonymous namespace)::select_reduce_kernel(long const*, long, long, long)"
+_ROWS = "(anonymous namespace)::select_reduce_rows_kernel(long const*, long, long, long)"
+_TORCH = "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<long>>(int)"
+_COPY = "Memcpy HtoD (Pageable -> Device)"
+
+CASES = {
+    # tail_horner runs two device kernels a launch; horner shares the second
+    "tail_horner and horner": ({"tail_horner": 2, "horner": 3, "reduce_block": 4},
+                               [(_TAIL, 2), (_HORNER, 5), (_REDUCE, 4), (_TORCH, 9), (_COPY, 3)],
+                               True),
+    "one tail_horner": ({"tail_horner": 1}, [(_TAIL, 1), (_HORNER, 1)], True),
+    "a missing horner_warp_kernel": ({"tail_horner": 2, "horner": 3},
+                                     [(_TAIL, 2), (_HORNER, 4)], False),
+    "two instantiations of a template": ({"reduce_block": 3},
+                                         [(_REDUCE, 2), (_REDUCE.replace("<8>", "<4>"), 1)], True),
+    "one launch too many": ({"horner": 3}, [(_HORNER, 4)], False),
+    # select_reduce runs one of its two designs a launch
+    "both select_reduce designs": ({"select_reduce": 3}, [(_STAGED, 2), (_ROWS, 1)], True),
+    "a missing select_reduce": ({"select_reduce": 3}, [(_STAGED, 2)], False),
+    "no port kernel in the profile": ({"reduce_block": 1}, [(_TORCH, 1)], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_profile_complete_matches_launches_by_device_kernel(case):
+    launched, events, want = CASES[case]
+    _, by_kernel = device_time(_prof(*events), top=None)
+    assert bench.profile_complete(launched, by_kernel) is want

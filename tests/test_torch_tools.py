@@ -246,10 +246,15 @@ def test_bound_of_launches_in_sequence_sums_their_bounds():
     # all rows' trees at once (7 additions), then 33 rows of 4 doublings + 1
     # addition on one warp, 2 rounds an operation
     ("tail_horner", (7 + 33 * 5, 7 * 12 + 33 * 5 * 2)),
-    ("horner", (165, 33 * (4 * 8 + 12))),
+    # 33 rows of 4 doublings + 1 addition on one warp, 2 rounds an operation
+    # (on one thread: 33 * (4 * 8 + 12) = 1,452 products)
+    ("horner", (165, 330)),
     # 33 rows of 4 doublings + 2 additions on one warp, 2 rounds an operation
     # (on one thread: 33 * (4 * 8 + 2 * 12) = 1,848 products)
     ("fold", (33 * 6, 33 * 6 * 2)),
+    # the build's 7 additions, then 3 passes of 11 rows, 7 additions each,
+    # 12 products an addition on one thread
+    ("select_reduce_fused", (7 + 3 * 7, (7 + 3 * 7) * 12)),
 ])
 def test_dependent_chain_lengths(kernel, chain):
     """Longest dependent chains at 33 rows, in point operations and in field
@@ -259,6 +264,9 @@ def test_dependent_chain_lengths(kernel, chain):
         # one block running the 33 row trees in turn, then Horner on one
         # thread, was 231 + 165 point operations
         assert 33 * 7 + bounds.horner_chain(33)[0] == 231 + 165 > chain[0]
+    if kernel == "select_reduce_fused":  # a pass for every 11 rows begun
+        assert [bounds.select_reduce_fused_chain(r)[0] for r in (1, 11, 12, 22, 23)] == \
+            [14, 14, 21, 21, 28]
 
 
 def test_ptxas_usage_parses_the_verbose_log():
