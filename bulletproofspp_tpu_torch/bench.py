@@ -50,7 +50,6 @@ from __future__ import annotations
 import collections
 import json
 import random
-import re
 import statistics
 import sys
 import time
@@ -206,18 +205,18 @@ def profile_complete(launched: dict, by_kernel: dict) -> bool:
     ``launched`` ({wrapper: launches}): each ``__global__`` function of the
     wrappers' ``device_kernels`` (or each set of alternatives, ``"a|b"``)
     ran as many times as the wrappers' launches that run it.  Matched by
-    function name, so a kernel shared by two wrappers (``horner_warp_kernel``)
-    counts for both."""
+    function name (``engine_profile.wrappers_of``), so a kernel shared by
+    two wrappers (``horner_warp_kernel``) counts for both."""
+    from .engine_profile import wrappers_of
+
     want = collections.Counter()
     for k, n in launched.items():
         for group in kernels.KERNELS[k].device_kernels:
             want[group] += n
     seen = collections.Counter()
     for key, (_, n) in by_kernel.items():
-        name = re.search(r"\b(\w+_kernel)\b", key)
-        for group in want:
-            if name and name.group(1) in group.split("|"):
-                seen[group] += n
+        for group in set(wrappers_of(key).values()) & want.keys():
+            seen[group] += n
     return seen == want
 
 

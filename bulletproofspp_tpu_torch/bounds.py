@@ -168,6 +168,21 @@ def fold_chain(rows: int):
     return 6 * rows, 2 * 6 * rows
 
 
+def table_flat_chain(design: str):
+    """table_flat's chain, a lane's 7 additions: 12 product rounds each on
+    one thread (``"wide"``), 2 on a group of threads (``"narrow"``)."""
+    return 7, 7 * _add_rounds(design)
+
+
+def padd_chain(design: str):
+    """padd's chain, one addition: 12 rounds wide, 2 narrow."""
+    return 1, _add_rounds(design)
+
+
+def _add_rounds(design: str) -> int:
+    return {"wide": ADD_PRODUCTS, "narrow": 2}[design]
+
+
 def table_flat(n: int):
     return n * (7 * PT_ADD + 9 * FE_SUB), n * (PT_BYTES + (9 + 18 + 9) * FE_BYTES)
 

@@ -18,12 +18,16 @@
 // design is the simple one: one thread per independent lane, coalesced
 // limb-plane loads (neighbouring threads read neighbouring lanes), 8 x 32-bit
 // words in registers with 64-bit carry chains.  Making them fast (fewer
-// carries, madc chains, more lanes per SM) is later work.  Four are
+// carries, madc chains, more lanes per SM) is later work.  Six are
 // designed for this card instead: horner, tail_horner and fold, whose work
 // is one chain of dependent point operations per MSM or lane, bound by its
-// latency (they run it on a warp: curve_warp.cuh), and select_reduce,
-// whose digit-chosen reads cost more than its adds until its lanes' tables
-// stay close for all rows: in shared memory, or in L2 (below).
+// latency (they run it on a warp: curve_warp.cuh); padd and table_flat,
+// which at the narrow widths most of their calls have (16 to a few
+// thousand lanes) fill few SMs and wait on one thread's additions, so below
+// a lane count they run each lane's additions on a group of kNarrowGroup
+// threads (curve_warp.cuh) and keep the one-thread body for wide calls; and
+// select_reduce, whose digit-chosen reads cost more than its adds until its
+// lanes' tables stay close for all rows: in shared memory, or in L2 (below).
 
 #include <cuda_runtime.h>
 
@@ -39,17 +43,24 @@ using namespace bppp;
 namespace {
 
 constexpr int kThreads = 128;
+// The narrow designs' group: the narrowest that holds an addition's 6
+// products a round, so a warp carries 4 lanes for the instructions of one
+// (groups of 16 and 32 were slower on the H100 from 2,048 lanes).
+constexpr int kNarrowGroup = 8;
+constexpr int kNarrowLanes = kThreads / kNarrowGroup;  // lanes a block
 
-inline int blocks_for(int64_t n) {
-  int64_t b = (n + kThreads - 1) / kThreads;
+inline int blocks_for(int64_t n, int per_block = kThreads) {
+  int64_t b = (n + per_block - 1) / per_block;
   return (int)(b > 65535 * 16 ? 65535 * 16 : b);
 }
 
 // --- padd: replaces padd_pallas / _kernel (pallas_field.py:759, :407) -----
-// Lane-wise complete addition, one thread per lane.  Instantiated for 128,
-// 256, 512 and 1,024 threads a block (the counterpart of padd_pallas's
-// block= sweep, tools/r5_experiments.py H1); __launch_bounds__ caps the
-// registers so that a block of MAXT threads fits an SM.
+// Lane-wise complete addition.  Two designs, the same words (the wrapper,
+// ops/kernels.py: padd, picks by lane count).  padd_kernel, wide: one
+// thread per lane, instantiated for 128, 256, 512 and 1,024 threads a block
+// (the counterpart of padd_pallas's block= sweep, tools/r5_experiments.py
+// H1); __launch_bounds__ caps the registers so that a block of MAXT threads
+// fits an SM.
 template <int MAXT>
 __global__ void __launch_bounds__(MAXT) padd_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__ y1,
                             const int64_t* __restrict__ z1, const int64_t* __restrict__ x2,
@@ -61,6 +72,32 @@ __global__ void __launch_bounds__(MAXT) padd_kernel(const int64_t* __restrict__ 
     Pt p = pt_load(x1, y1, z1, n, j);
     Pt q = pt_load(x2, y2, z2, n, j);
     pt_store(ox, oy, oz, n, j, pt_add(p, q));
+  }
+}
+
+// The narrow design, for the halving trees of MSMs under 128 lanes and
+// complete_square (16 to a few thousand lanes): one lane per group of
+// kNarrowGroup threads, its addition in 2 rounds of 6 products
+// (pt_add_warp), the result's 24 words stored by the group
+// (fe_store_group).  A block carries kNarrowLanes lanes; the loop is
+// uniform over the block, and a group past the last lane computes lane
+// n - 1 again and stores nothing (every thread takes part in the shuffles).
+__global__ void __launch_bounds__(kThreads)
+    padd_narrow_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__ y1,
+                       const int64_t* __restrict__ z1, const int64_t* __restrict__ x2,
+                       const int64_t* __restrict__ y2, const int64_t* __restrict__ z2,
+                       int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+                       int64_t* __restrict__ oz, int64_t n) {
+  for (int64_t j0 = blockIdx.x * (int64_t)kNarrowLanes; j0 < n;
+       j0 += (int64_t)gridDim.x * kNarrowLanes) {
+    const int64_t j = j0 + threadIdx.x / kNarrowGroup, jl = j < n ? j : n - 1;
+    const Pt r = pt_add_warp<kNarrowGroup>(pt_load(x1, y1, z1, n, jl),
+                                           pt_load(x2, y2, z2, n, jl));
+    if (j < n) {
+      int64_t* const dst[3] = {ox, oy, oz};
+      const Fe v[3] = {r.x, r.y, r.z};
+      fe_store_group<kNarrowGroup>(dst, v, n, j);
+    }
   }
 }
 
@@ -149,8 +186,17 @@ __global__ void __launch_bounds__(32) horner_warp_kernel(
 // (:538, :515).  Per lane the multiples 0P..8P (7 complete additions) and
 // the 9 negated Y, in the flat layout the select and fold kernels read:
 // entry e, limb i, lane j at (16 e + i) * n + j, so tx and tz are (144, n)
-// and ty2 is (288, n) (entries 9..17 hold -Y of 0P..8P).  One thread per
-// lane; each entry is stored as soon as it is made.
+// and ty2 is (288, n) (entries 9..17 hold -Y of 0P..8P).  Each entry is
+// stored as soon as it is made.  Two designs, the same words (the wrapper,
+// ops/kernels.py: table_flat, picks by lane count):
+//  * table_flat_kernel, wide: one thread per lane, 84 products one after
+//    another.  Near the card's rate of additions once the lanes fill it
+//    (msm_many's stacked tables, the bench's 65,536 lanes).
+//  * table_flat_narrow_kernel, narrow: one lane per group of kNarrowGroup
+//    threads, the 7 additions in 14 rounds of 6 products (pt_add_warp); the
+//    group shares each entry's 64 limb rows of stores (fe_store_group).  For the
+//    16-4,096 lanes of fold's and the small MSMs' tables, where the wide
+//    design fills a few SMs and waits on its chain.
 __global__ void table_flat_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
                                   const int64_t* __restrict__ pz, int64_t* __restrict__ tx,
                                   int64_t* __restrict__ ty2, int64_t* __restrict__ tz,
@@ -166,6 +212,29 @@ __global__ void table_flat_kernel(const int64_t* __restrict__ px, const int64_t*
       fe_store(ty2 + 16 * e * n, n, j, acc.y);
       fe_store(ty2 + 16 * (e + 9) * n, n, j, fe_neg(acc.y));
       fe_store(tz + 16 * e * n, n, j, acc.z);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    table_flat_narrow_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
+                             const int64_t* __restrict__ pz, int64_t* __restrict__ tx,
+                             int64_t* __restrict__ ty2, int64_t* __restrict__ tz, int64_t n) {
+  for (int64_t j0 = blockIdx.x * (int64_t)kNarrowLanes; j0 < n;
+       j0 += (int64_t)gridDim.x * kNarrowLanes) {
+    const int64_t j = j0 + threadIdx.x / kNarrowGroup, jl = j < n ? j : n - 1;
+    const Pt base = pt_load(px, py, pz, n, jl);
+    Pt acc = pt_identity();
+#pragma unroll 1
+    for (int e = 0; e < 9; e++) {
+      if (e == 1) acc = base;
+      if (e > 1) acc = pt_add_warp<kNarrowGroup>(acc, base);
+      if (j < n) {
+        int64_t* const dst[4] = {tx + 16 * e * n, ty2 + 16 * e * n, ty2 + 16 * (e + 9) * n,
+                                 tz + 16 * e * n};
+        const Fe v[4] = {acc.x, acc.y, fe_neg(acc.y), acc.z};
+        fe_store_group<kNarrowGroup>(dst, v, n, j);
+      }
     }
   }
 }
@@ -301,12 +370,15 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
 
 extern "C" {
 
+// narrow: 1 runs the narrow design, 0 the wide one with `threads` a block.
 int bppp_padd(const int64_t* x1, const int64_t* y1, const int64_t* z1, const int64_t* x2,
               const int64_t* y2, const int64_t* z2, int64_t* ox, int64_t* oy, int64_t* oz,
-              int64_t n, int threads, void* stream) {
-  if (n > 0) {
-    int64_t b = (n + threads - 1) / threads;
-    int blocks = (int)(b > 65535 * 16 ? 65535 * 16 : b);
+              int64_t n, int threads, int narrow, void* stream) {
+  if (n > 0 && narrow) {
+    padd_narrow_kernel<<<blocks_for(n, kNarrowLanes), kThreads, 0, (cudaStream_t)stream>>>(
+        x1, y1, z1, x2, y2, z2, ox, oy, oz, n);
+  } else if (n > 0) {
+    const int blocks = blocks_for(n, threads);
     cudaStream_t s = (cudaStream_t)stream;
     switch (threads) {
       case 128:
@@ -372,9 +444,13 @@ int bppp_tail_horner(const int64_t* x, const int64_t* y, const int64_t* z, int64
   return (int)cudaGetLastError();
 }
 
+// narrow: 1 runs the narrow design, 0 the wide one.
 int bppp_table_flat(const int64_t* px, const int64_t* py, const int64_t* pz, int64_t* tx,
-                    int64_t* ty2, int64_t* tz, int64_t n, void* stream) {
-  if (n > 0) {
+                    int64_t* ty2, int64_t* tz, int64_t n, int narrow, void* stream) {
+  if (n > 0 && narrow) {
+    table_flat_narrow_kernel<<<blocks_for(n, kNarrowLanes), kThreads, 0, (cudaStream_t)stream>>>(
+        px, py, pz, tx, ty2, tz, n);
+  } else if (n > 0) {
     table_flat_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(px, py, pz, tx, ty2,
                                                                              tz, n);
   }

@@ -8,9 +8,10 @@ then ``--repeat`` timed runs of each.  Every ``TorchEngine`` call is
 wrapped with ``torch.cuda.synchronize()`` on both sides and its seconds
 are summed by kind (``msm_many``, ``fold_bv``, ...).  Prove seconds are
 those of ``range_proof.prove``; verify seconds those of ``decode_proof``
-and ``verify``.  Then one 64bit prove runs under ``torch.profiler``: the
-device time of each kernel, their sum, and the device's idle share
-against the wall time of the same prove without the profiler.
+and ``verify``.  Then one prove of each runs under ``torch.profiler``: the
+device time of each kernel, their sum, the device time and launches of
+each wrapper of ``ops.kernels`` (``by_wrapper``), and the device's idle
+share against the wall time of the same prove without the profiler.
 
 ``--batch N`` instead proves N distinct proofs of examples/64bit (amount
 10^9 + i, seed ``bench<i>``, as the JAX package's ``bench.py`` batch) through the
@@ -23,7 +24,7 @@ points and lane bucket.
 ``--plain NAME`` swaps kernel NAME's wrapper (``ops.kernels``) for its
 plain PyTorch version for the whole run, to see what the kernel saves end
 to end.  Output: the card's ``nvidia-smi`` line, then one JSON object per
-run and one for the profile.  Needs a CUDA card; imports no JAX.
+run and one per profile.  Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import argparse
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -188,9 +190,35 @@ def profile_prove(name, eng):
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _prove(case, eng)
-    device_s, top = device_time(prof)
+    device_s, every = device_time(prof, top=None)
+    top = dict(list(every.items())[:8])
     return {"profile": name, "prove_wall_s": wall, "device_s": device_s,
-            "device_idle_share": 1 - device_s / wall, "top_kernels_ms_launches": top}
+            "device_idle_share": 1 - device_s / wall, "top_kernels_ms_launches": top,
+            "by_wrapper": by_wrapper(every)}
+
+
+def wrappers_of(key: str) -> dict:
+    """A kernel as ``device_time`` keys it (``"padd_kernel<128>"``) ->
+    {wrapper of ``ops.kernels``: the entry of its ``device_kernels`` that
+    names the kernel's ``__global__`` function}; a function two wrappers
+    run (``horner_warp_kernel``) gives both, a library kernel none."""
+    name = re.search(r"\b(\w+_kernel)\b", key)
+    if not name:
+        return {}
+    return {wrapper: g for wrapper, k in kernels.KERNELS.items() for g in k.device_kernels
+            if name.group(1) in g.split("|")}
+
+
+def by_wrapper(by_kernel: dict) -> dict:
+    """{kernel: [ms, launches]} (``device_time``'s keys) -> {wrapper of
+    ``ops.kernels``: [ms, launches]} (``wrappers_of``)."""
+    out = {}
+    for key, (ms, n) in by_kernel.items():
+        for wrapper in wrappers_of(key):
+            acc = out.setdefault(wrapper, [0.0, 0])
+            acc[0] = round(acc[0] + ms, 4)
+            acc[1] += n
+    return out
 
 
 def device_time(prof, top: int | None = 8):
@@ -236,7 +264,8 @@ def main(argv=None) -> int:
     for case in ("64bit", "128by64"):
         for row in run_case(case, eng, args.repeat):
             print(json.dumps({"run": tag, **row}), flush=True)
-    print(json.dumps({"run": tag, **profile_prove("64bit", TorchEngine("cuda"))}), flush=True)
+    for case in ("64bit", "128by64"):
+        print(json.dumps({"run": tag, **profile_prove(case, TorchEngine("cuda"))}), flush=True)
     return 0
 
 

@@ -15,7 +15,8 @@ multiple tables are flat, entry e and limb i of lane j at row 16 e + i
 of a (16 E, N) plane.  Sources: one library per entry file of
 ``SOURCES`` (``csrc/*.cu``), all including ``csrc/curve.cuh`` and
 ``csrc/field.cuh`` (device functions); ``kernels.cu`` also
-``csrc/curve_warp.cuh`` (a warp's cooperative addition and doubling), and
+``csrc/curve_warp.cuh`` (the cooperative addition and doubling of a warp
+or of a group of threads in one), and
 ``kernels.cu`` and ``select_reduce_fused.cu`` ``csrc/select_reduce.cuh``
 (the staged row phase they share).
 
@@ -30,7 +31,9 @@ file, all started together, into the git-ignored ``_build`` directory,
 keyed by a hash of the file and the headers, and loaded with ctypes.
 
 What bounds each kernel on the H100 and what its design does about it
-is in the header of its source file.
+is in the header of its source file.  Three have two designs, picked by
+lane count and forced through ``*_design``: select_reduce (staged or the
+gather), padd and table_flat (narrow or wide).
 """
 
 from __future__ import annotations
@@ -83,8 +86,8 @@ class Kernel:
 KERNELS = {
     k.name: k
     for k in (
-        Kernel("padd", "kernels.cu", "bppp_padd", [_P] * 9 + [_I64, _I32, _P],
-               "bulletproofspp_tpu/ops/pallas_field.py:759", ("padd_kernel",)),
+        Kernel("padd", "kernels.cu", "bppp_padd", [_P] * 9 + [_I64, _I32, _I32, _P],
+               "bulletproofspp_tpu/ops/pallas_field.py:759", ("padd_kernel|padd_narrow_kernel",)),
         Kernel("horner", "kernels.cu", "bppp_horner", [_P] * 6 + [_I64, _I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:446", ("horner_warp_kernel",)),
         Kernel("reduce_block", "kernels.cu", "bppp_reduce_block", [_P] * 6 + [_I64, _I32, _P],
@@ -92,8 +95,9 @@ KERNELS = {
         Kernel("tail_horner", "kernels.cu", "bppp_tail_horner", [_P] * 9 + [_I64, _I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:742",
                ("tail_rows_kernel", "horner_warp_kernel")),
-        Kernel("table_flat", "kernels.cu", "bppp_table_flat", [_P] * 6 + [_I64, _P],
-               "bulletproofspp_tpu/ops/pallas_field.py:538", ("table_flat_kernel",)),
+        Kernel("table_flat", "kernels.cu", "bppp_table_flat", [_P] * 6 + [_I64, _I32, _P],
+               "bulletproofspp_tpu/ops/pallas_field.py:538",
+               ("table_flat_kernel|table_flat_narrow_kernel",)),
         Kernel("select_reduce", "kernels.cu", "bppp_select_reduce",
                [_P] * 8 + [_I64, _I64, _I64, _I32, _P], "bulletproofspp_tpu/ops/pallas_field.py:679",
                ("select_reduce_kernel|select_reduce_rows_kernel",)),
@@ -245,6 +249,18 @@ def _empty(shape, like):
     return tuple(torch.empty(shape, dtype=torch.int64, device=like.device) for _ in range(3))
 
 
+# padd and table_flat have two designs (``csrc/kernels.cu``): wide, one
+# thread per lane, and narrow, one lane per group of 8 threads that runs
+# each addition in 2 rounds of 6 field products (``csrc/curve_warp.cuh``).
+# Each wrapper takes narrow under a lane count; ``*_design(..., narrow)``
+# forces one.
+
+
+def _design(narrow: bool) -> str:
+    """The design's name in the shape counts."""
+    return "narrow" if narrow else "wide"
+
+
 # ---------------------------------------------------------------------------
 # 1. padd: lane-wise complete addition
 # ---------------------------------------------------------------------------
@@ -257,10 +273,28 @@ def padd_plain(p, q):
 
 PADD_THREADS = (128, 256, 512, 1024)
 
+# Lanes a call (the product of the batch shape) from which padd runs its
+# wide design.  On the H100 (chip_smoke.py phase 2, both designs in turns
+# at PADD_WIDTHS) the narrow design took 0.70-0.78 of the wide one's time
+# from 16 to 3,168 lanes (the halving trees and complete_square), 1.00 at
+# 8,192, and 1.55-1.72 from 16,384 to 65,536.
+PADD_WIDE_LANES = 8192
+# the widths both designs are held and timed at: the halving trees' (B x 33
+# x L/2 lanes) and complete_square's, then up to the measurement path's
+PADD_WIDTHS = (16, 66, 264, 1056, 3168, 8192, 16384, 32768, 65536)
+
 
 def padd(p, q, threads: int = 128):
-    """P + Q over (16, *batch) strict planes; ``threads`` a block (one of
-    ``PADD_THREADS``) on the card."""
+    """P + Q over (16, *batch) strict planes.  On the card the narrow
+    design under PADD_WIDE_LANES lanes, the wide one with ``threads`` a
+    block (one of ``PADD_THREADS``) from there."""
+    return padd_design(p, q, p[0].numel() // limb.NLIMB < PADD_WIDE_LANES, threads)
+
+
+def padd_design(p, q, narrow: bool, threads: int = 128):
+    """``padd`` through one of its two designs: ``narrow``, or the wide one
+    with ``threads`` a block (unused by the narrow one).  ``padd`` picks by
+    lane count; the smoke picks."""
     if threads not in PADD_THREADS:
         raise ValueError(f"padd: threads must be one of {PADD_THREADS}")
     if p[0].device.type == "cpu":
@@ -270,7 +304,8 @@ def padd(p, q, threads: int = 128):
     dev = _check(*flat)
     n = flat[0].shape[1]
     out = _empty((limb.NLIMB, n), flat[0])
-    _launch("padd", f"L={n}", dev, *_ptrs(*flat, *out), n, threads)
+    _launch("padd", f"L={n} {_design(narrow)}", dev, *_ptrs(*flat, *out), n, threads,
+            int(narrow))
     return tuple(t.reshape(shape) for t in out)
 
 
@@ -389,7 +424,27 @@ def table_flat_plain(p):
             torch.cat([e[2] for e in entries]))
 
 
+# Lanes a call from which table_flat runs its wide design.  On the H100
+# (chip_smoke.py phase 2, both designs in turns at TABLE_FLAT_WIDTHS) the
+# narrow design took 0.37-0.47 of the wide one's time from 16 to 4,096
+# lanes and 0.81 at 8,192; 1.34 at 16,384, 1.17 at 34,816 and 1.54 at
+# 65,536, where the wide design's one thread a lane fills the card.
+TABLE_FLAT_WIDE_LANES = 16384
+# the widths both designs are held and timed at: fold's and the small
+# MSMs' tables, cli test's msm_many stack (34 x 1,024) and the bench's
+# untabled 65,536
+TABLE_FLAT_WIDTHS = (16, 64, 512, 2048, 4096, 8192, 16384, 34816, 65536)
+
+
 def table_flat(p):
+    """Flat tables of (16, N) strict lanes; on the card the narrow design
+    under TABLE_FLAT_WIDE_LANES lanes, the wide one from there."""
+    return table_flat_design(p, p[0].shape[1] < TABLE_FLAT_WIDE_LANES)
+
+
+def table_flat_design(p, narrow: bool):
+    """``table_flat`` through one of its two designs: ``narrow`` or the
+    wide one.  ``table_flat`` picks by lane count; the smoke picks."""
     if p[0].device.type == "cpu":
         return table_flat_plain(p)
     p = tuple(t.contiguous() for t in p)
@@ -398,7 +453,8 @@ def table_flat(p):
     tx, tz = (torch.empty((limb.NLIMB * TABLE, n), dtype=torch.int64, device=p[0].device)
               for _ in range(2))
     ty2 = torch.empty((2 * limb.NLIMB * TABLE, n), dtype=torch.int64, device=p[0].device)
-    _launch("table_flat", f"L={n}", dev, *_ptrs(*p, tx, ty2, tz), n)
+    _launch("table_flat", f"L={n} {_design(narrow)}", dev, *_ptrs(*p, tx, ty2, tz), n,
+            int(narrow))
     return tx, ty2, tz
 
 

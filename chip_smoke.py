@@ -11,8 +11,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      sr_variant, grid_copy, chain) against its plain PyTorch version on
      the card, at the shapes the main paths give it, on numpy-seeded
      inputs (identity lanes, P + P, P + (-P) and non-residue x's
-     included; padd also at the measurement path's 65,536 lanes in
-     each of its threads-a-block instantiations; horner at 1, 2 and 130
+     included; padd and table_flat at 16 to 65,536 lanes
+     (``kernels.PADD_WIDTHS``, ``kernels.TABLE_FLAT_WIDTHS``), each launch
+     checked to take the design its lane count picks and to equal the
+     other design word for word, both designs timed in turns, the narrow /
+     wide ratio logged, and where the wrapper takes narrow, narrow no
+     slower than wide; padd's wide design at 65,536 lanes also
+     in each of its threads-a-block instantiations, and a launch's floor
+     logged (one field addition at 16 lanes); horner at 1, 2 and 130
      MSMs with an all-identity row and a row that cancels or doubles the
      accumulator, word for word; tail_horner at 1, 3 and
      130 MSMs with an all-identity and a cancelling row; select_reduce at
@@ -67,17 +73,21 @@ The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
 design, and 65,536, its staged design; horner at 130 MSMs and at 1, the
 main paths' shape; select_reduce_fused at 4,096 lanes and at 2^21, its
-route), the kernel's launch count (summed
+route; padd at 1,056 lanes, the halving trees' commonest, and 65,536;
+table_flat at 16, fold's, and 4,096), the kernel's launch count (summed
 over the main-path runs of phases 3, 6, 7 and 8, each counted from 0) in
 all, by path (``launches_by_path``: cli_test, msm_2_21, batch_verify,
-measurement) and by shape, largest normalized difference, times, bound (``bounds``:
+measurement), by design and path for padd, table_flat and select_reduce
+(``launches_by_design``) and by shape, largest normalized difference,
+times (for padd and table_flat the design the wrapper takes, from the
+in-turns timings), bound (``bounds``:
 the larger of its 32-bit multiplies over the card's rate and its bytes
 over 3.35 TB/s; for chain's ten launches the sum of theirs) and, for grid_copy, the time of one PyTorch call that
 computes the same function (``library_ms``; null where there is none).
 The kernel lines of phase 2, and the JSON line (``chain``), also give, for
-tail_horner, horner, fold and select_reduce_fused, the time per point
-operation and per product round of the kernel's longest dependent chain
-(``bounds.*_chain``);
+tail_horner, horner, fold, select_reduce_fused, padd and table_flat, the
+time per point operation and per product round of the kernel's longest
+dependent chain (``bounds.*_chain``; padd's and table_flat's by design);
 the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 CUDA is not available.
 """
@@ -279,6 +289,41 @@ def compare(name, kernel_out, plain_out):
     return err
 
 
+def same_raw(name, a, b):
+    """Raises unless the two outputs are equal word for word."""
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: the outputs differ word for word")
+
+
+def designs_in_turns(name, L, by_design, picked, reps):
+    """padd or table_flat at L lanes: both designs (``by_design(narrow)``)
+    equal raw to the wrapper's output; the wrapper's launch named by the
+    design its lane count picks; then both designs timed in turns.  Logs
+    the times, the narrow / wide ratio and the pick; raises where the
+    wrapper takes narrow and narrow was the slower (a wide pick that loses
+    is only logged: the thresholds sit where the two are close).  Returns
+    (picked design, its mean ms)."""
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    kernels.reset_counts()
+    want = picked()
+    (shape, n), = kernels.shape_counts()[name].items()
+    design = shape.split()[-1]
+    if shape != f"L={L} {design}" or n != 1 or design not in ("narrow", "wide"):
+        raise AssertionError(f"{name} L={L}: the wrapper launched {kernels.shape_counts()[name]}")
+    fns = {"narrow": lambda: by_design(True), "wide": lambda: by_design(False)}
+    for d, fn in fns.items():
+        same_raw(f"{name} L={L} {d} against the wrapper's {design}", fn(), want)
+    means, both = in_turns(fns, reps)
+    faster = min(fns, key=means.get)
+    log(f"{name} L={L}: both designs equal raw; in turns (ms) {json.dumps(both)}; narrow / "
+        f"wide {means['narrow'] / means['wide']:.4f}; the wrapper takes {design}"
+        + ("" if design == faster else f" (NOT the faster here: {faster})"))
+    if design == "narrow" != faster:
+        raise AssertionError(f"{name} L={L}: the wrapper takes the narrow design, the slower")
+    return design, means[design]
+
+
 def select_reduce_plain_by_msm(tables, absd, sgn, chunk: int = 26):
     """``select_reduce_plain`` run ``chunk`` MSMs at a time (the MSMs are
     independent: the same function), so that its memory stays bounded."""
@@ -293,30 +338,74 @@ def select_reduce_plain_by_msm(tables, absd, sgn, chunk: int = 26):
     return tuple(torch.cat(c, 1) for c in zip(*outs))
 
 
-def check_kernels(dev):
-    """Phase 2: each kernel against its plain version at the main path's shapes."""
+def check_padd(dev, rng):
+    """Phase 2, padd: both designs at kernels.PADD_WIDTHS with
+    P + Q, P + P and P + (-P) lanes and identity lanes, and every
+    threads-a-block instantiation of the wide design at 65,536 lanes.
+    Returns the rows at 1,056 lanes (the halving trees' commonest) and
+    65,536 (the measurement path's)."""
     from bulletproofspp_tpu_torch import bounds
-    from bulletproofspp_tpu_torch.ops import kernels, limb
+    from bulletproofspp_tpu_torch.ops import kernels
 
-    rng = np.random.default_rng(SEED)
     rows = []
-
-    # padd: table builds and lane trees, L = 128 ... 4096; the measurement
-    # path's chains at L = 65,536, every threads-a-block instantiation
-    for L in (128, 1024, 4096, MEASURE_L):
+    for L in kernels.PADD_WIDTHS:
         p, _ = random_points(L, rng, dev)
         mode = rng.integers(0, 3, size=L)  # 0: P + Q, 1: P + P, 2: P + (-P)
         q_other, _ = random_points(L, rng, dev)
         q_same = rescale_and_negate(p, rng, mode == 2)
         sel = torch.as_tensor(mode == 0, device=dev)
         q = tuple(torch.where(sel, a, b) for a, b in zip(q_other, q_same))
-        want = kernels.padd_plain(p, q)
-        for threads in kernels.PADD_THREADS if L == MEASURE_L else (128,):
-            err = compare(f"padd L={L} threads={threads}", kernels.padd(p, q, threads), want)
-    log(f"padd L={MEASURE_L}: threads {kernels.PADD_THREADS} equal to the plain version")
-    rows.append(("padd", err, time_ms(lambda: kernels.padd(p, q), 20),
-                 time_ms(lambda: kernels.padd_plain(p, q), 3, paced=True),
-                 f"L={L} threads=128", bounds.padd(L)))
+        err = compare(f"padd L={L}", kernels.padd(p, q), kernels.padd_plain(p, q))
+        if L == MEASURE_L:
+            for threads in kernels.PADD_THREADS:
+                same_raw(f"padd L={L} threads={threads}", kernels.padd(p, q),
+                         kernels.padd_design(p, q, False, threads))
+        design, ms = designs_in_turns(
+            "padd", L, lambda narrow: kernels.padd_design(p, q, narrow), lambda: kernels.padd(p, q),
+            20 if L < MEASURE_L else 10)
+        if L in (1056, MEASURE_L):
+            rows.append(("padd", err, ms, time_ms(lambda: kernels.padd_plain(p, q), 3, paced=True),
+                         f"L={L} {design}", bounds.padd(L), {"chain": bounds.padd_chain(design)}))
+    log(f"padd L={MEASURE_L}: threads {kernels.PADD_THREADS} of the wide design equal raw")
+    # what a launch costs with next to no work in it: the chain kernel's
+    # one field addition a lane, at 16 lanes, back to back
+    a, b = ([torch.as_tensor(rng.integers(0, 1 << 16, size=(16, 16)), device=dev)] * k
+            for k in (1, 3))
+    floor = time_ms(lambda: kernels.chain("add", a, b, 1), 20)
+    log(f"launch floor: chain add, 1 step, L=16: {floor:.4f} ms a launch back to back")
+    return rows
+
+
+def check_table_flat(dev, rng):
+    """Phase 2, table_flat: both designs at kernels.TABLE_FLAT_WIDTHS,
+    about 1/8 identity lanes.  Returns the rows at 16 lanes (fold's tables,
+    the main paths' commonest) and 4,096 (128by64's widest MSM)."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    rows = []
+    for L in kernels.TABLE_FLAT_WIDTHS:
+        p = random_points(L, rng, dev)[0] if L <= 4096 else wide_points(L, rng, dev)
+        tabs = kernels.table_flat(p)
+        err = compare(f"table_flat L={L}", tabs, kernels.table_flat_plain(p))
+        design, ms = designs_in_turns(
+            "table_flat", L, lambda narrow: kernels.table_flat_design(p, narrow),
+            lambda: kernels.table_flat(p), 20 if L <= 4096 else 10)
+        if L in (16, 4096):
+            rows.append(("table_flat", err, ms,
+                         time_ms(lambda: kernels.table_flat_plain(p), 2, paced=True),
+                         f"L={L} {design}", bounds.table_flat(L),
+                         {"chain": bounds.table_flat_chain(design)}))
+    return rows
+
+
+def check_kernels(dev):
+    """Phase 2: each kernel against its plain version at the main path's shapes."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import glv, kernels, limb
+
+    rng = np.random.default_rng(SEED)
+    rows = check_padd(dev, rng)
 
     # horner: (16, K, 33) row sums for K stacked MSMs (msm_many: K up to 130),
     # with edge rows; word for word
@@ -357,16 +446,12 @@ def check_kernels(dev):
                  time_ms(lambda: kernels.tail_horner_plain(p1, ROWS), 1, paced=True),
                  f"K=1 rows={ROWS}",
                  bounds.tail_horner(1, ROWS)))
-    # table_flat and select_reduce: a 4,096-lane MSM (128by64's widest), 33 rows
-    from bulletproofspp_tpu_torch.ops import glv
+    rows += check_table_flat(dev, rng)
 
+    # select_reduce: a 4,096-lane MSM (128by64's widest), 33 rows
     L = 4096
     p, _ = random_points(L, rng, dev)
     tabs = kernels.table_flat(p)
-    err = compare(f"table_flat L={L}", tabs, kernels.table_flat_plain(p))
-    rows.append(("table_flat", err, time_ms(lambda: kernels.table_flat(p), 20),
-                 time_ms(lambda: kernels.table_flat_plain(p), 2, paced=True), f"L={L}",
-                 bounds.table_flat(L)))
     # select_reduce (also timed at L = 65,536 with the measurement kernels):
     # msm_many's 130 MSMs of 4,096 lanes (the staged design), three and one
     # (the gather), row 0 all zero digits with sign 1; each call must take
@@ -440,15 +525,16 @@ def check_kernels(dev):
               "fold": bounds.fold_chain(ROWS),
               "select_reduce_fused": bounds.select_reduce_fused_chain(ROWS)}
     out = collections.defaultdict(list)
-    for name, err, ms, plain_ms, shape, work, *lib in rows:
+    for name, err, ms, plain_ms, shape, work, *extra in rows:
+        extra = extra[0] if extra else {}
         bound_ms, bound_by = bounds.bound_sum(work if isinstance(work, list) else [work], mhz)
-        library_ms = lib[0] if lib else None
+        library_ms = extra.get("library_ms")
         row = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         lib_s = f"  library {library_ms:.4f} ms" if library_ms is not None else ""
         chain_s = ""
-        if name in chains:
-            ops, rounds = chains[name]
+        if name in chains or "chain" in extra:
+            ops, rounds = extra.get("chain") or chains[name]
             row["chain"] = {"ops": ops, "rounds": rounds, "us_per_op": ms * 1e3 / ops,
                             "us_per_round": ms * 1e3 / rounds}
             chain_s = (f"  chain {ops} point ops ({ms * 1e3 / ops:.3f} us each), {rounds} product "
@@ -518,7 +604,7 @@ def check_measurement_kernels(dev, rng):
         f"{both['library']} ms")
     rows.append(("grid_copy", err, means["kernel"],
                  time_ms(lambda: kernels.grid_copy_plain(x), 5, paced=True), f"L={L} rows={ROWS}",
-                 bounds.grid_copy(L, ROWS), means["library"]))
+                 bounds.grid_copy(L, ROWS), {"library_ms": means["library"]}))
 
     ms = plain_ms = 0.0
     works = []
@@ -826,6 +912,15 @@ def measurement_path():
     return kernels.shape_counts()
 
 
+def designs(by_shape: dict) -> dict:
+    """Launches by design of a kernel that has two: the last word of its
+    shapes ("L=16 narrow", "B=1 L=4096 rows")."""
+    out = collections.Counter()
+    for shape, n in by_shape.items():
+        out[shape.split()[-1]] += n
+    return dict(out)
+
+
 def require_port_only():
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "bulletproofspp_tpu"))
     if foreign:
@@ -874,8 +969,11 @@ def main() -> int:
     launches = {k: sum(v.values()) for k, v in shapes.items()}
     require_launched("the main paths", launches, set(launches))
     by_path = {k: {path: sum(run[k].values()) for path, run in paths.items()} for k in launches}
+    by_design = {k: {path: designs(run[k]) for path, run in paths.items()}
+                 for k in ("padd", "table_flat", "select_reduce")}
     log(f"launches on the main paths by shape: {json.dumps(shapes)}")
     log(f"launches by path: {json.dumps(by_path)}")
+    log(f"launches by design and path: {json.dumps(by_design)}")
 
     report = {"kernels": [
         {
@@ -885,6 +983,7 @@ def main() -> int:
             "replaces": k.replaces,
             "launches": launches[name],
             "launches_by_path": by_path[name],
+            **({"launches_by_design": by_design[name]} if name in by_design else {}),
             "shapes": dict(shapes[name]),
             **row,
         }

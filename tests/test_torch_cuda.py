@@ -204,13 +204,18 @@ def test_cuda_fold_matches_plain_version(L):
     assert _same(got, kernels.fold_plain(e, o, digits))
 
 
+def _repeat_scaled(p, n: int, seed: int):
+    """n lanes: the lanes of p repeated, each scaled by its own random
+    factor (another projective representative of the same point)."""
+    rng = np.random.default_rng(seed)
+    k = torch.as_tensor(rng.integers(1, 1 << 16, size=(16, n)), device=p[0].device)
+    return tuple(limb.mul(c.repeat(1, -(-n // c.shape[1]))[:, :n], k) for c in p)
+
+
 def _wide_tables(n: int, seed: int, dev):
     """Flat tables of n lanes: 1,024 of ``_points``' lanes repeated, each
     scaled by its own random factor."""
-    rng = np.random.default_rng(seed)
-    k = torch.as_tensor(rng.integers(1, 1 << 16, size=(16, n)), device=dev)
-    return kernels.table_flat(tuple(limb.mul(c.repeat(1, -(-n // 1024))[:, :n], k)
-                                    for c in _points(1024, seed, dev)))
+    return kernels.table_flat(_repeat_scaled(_points(1024, seed, dev), n, seed))
 
 
 @pytest.mark.cuda
@@ -292,3 +297,67 @@ def test_cuda_select_reduce_fused_equals_the_two_kernel_route(batch, L):
     two = kernels.select_reduce(kernels.table_flat(p), absd, sgn)
     assert all(torch.equal(a, b) for a, b in zip(got, two))  # limb for limb, raw
     assert _same(got, kernels.select_reduce_fused_plain(p, absd, sgn))
+
+
+def _padd_pairs(n: int, seed: int, dev):
+    """(P, Q) of n lanes, every 7th lane of P the identity; Q by thirds
+    another point, P itself (P + P) and -P (P + (-P)), each rescaled."""
+    p = _repeat_scaled(_points(min(n, 1024), seed, dev), n, seed)
+    other = _repeat_scaled(_points(min(n, 1024), seed + 1, dev), n, seed + 1)
+    same = _repeat_scaled(p, n, seed + 2)
+    neg = _repeat_scaled((p[0], limb.neg(p[1]), p[2]), n, seed + 3)
+    mode = torch.arange(n, device=dev) % 3
+    q = tuple(torch.where(mode == 0, a, torch.where(mode == 1, b, c))
+              for a, b, c in zip(other, same, neg))
+    return p, q
+
+
+def _designs_under_sync_check(run, picked):
+    """Both designs' outputs (``run(narrow)``) and the wrapper's, launched
+    while a synchronization would raise."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = {narrow: run(narrow) for narrow in (False, True)}
+        want = picked()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for narrow, out in outs.items():
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), narrow  # word for word
+    return want
+
+
+def _design_counts(L: int, picked: str):
+    return {f"L={L} {d}": 1 + (d == picked) for d in ("narrow", "wide")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [16, 1056, 65536])  # fold's; the halving trees'; the bench's
+def test_cuda_padd_designs_equal_raw_and_the_plain_version(L):
+    dev = _card()
+    p, q = _padd_pairs(L, 90, dev)
+    kernels.padd(p, q)  # builds the library
+    kernels.reset_counts()
+    got = _designs_under_sync_check(lambda narrow: kernels.padd_design(p, q, narrow),
+                                    lambda: kernels.padd(p, q))
+    picked = "wide" if L >= kernels.PADD_WIDE_LANES else "narrow"
+    assert kernels.shape_counts()["padd"] == _design_counts(L, picked)
+    assert _same(got, kernels.padd_plain(p, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [16, 512, 4096])  # fold's tables; a small MSM's; 128by64's widest
+def test_cuda_table_flat_designs_equal_raw_and_the_plain_version(L):
+    """Identity lanes (every 7th), and P + P in every lane (entry 2); a
+    point of this group is never the negation of its own multiple 2..7."""
+    dev = _card()
+    p = _points(L, 91, dev)
+    kernels.table_flat(p)  # builds the library
+    kernels.reset_counts()
+    got = _designs_under_sync_check(lambda narrow: kernels.table_flat_design(p, narrow),
+                                    lambda: kernels.table_flat(p))
+    picked = "wide" if L >= kernels.TABLE_FLAT_WIDE_LANES else "narrow"
+    assert kernels.shape_counts()["table_flat"] == _design_counts(L, picked)
+    for a, b in zip(got, kernels.table_flat_plain(p)):
+        a, b = (limb.normalize(t.view(-1, 16, L).transpose(0, 1)) for t in (a, b))
+        assert torch.equal(a, b)

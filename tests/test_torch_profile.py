@@ -12,7 +12,7 @@ import types
 import pytest
 
 from bulletproofspp_tpu_torch import bench
-from bulletproofspp_tpu_torch.engine_profile import device_time
+from bulletproofspp_tpu_torch.engine_profile import by_wrapper, device_time, wrappers_of
 from bulletproofspp_tpu_torch.ops import kernels
 
 
@@ -42,6 +42,10 @@ _HORNER = "(anonymous namespace)::horner_warp_kernel(long const*, long const*, l
 _REDUCE = "void (anonymous namespace)::reduce_block_kernel<8>(long const*, long const*, long)"
 _STAGED = "(anonymous namespace)::select_reduce_kernel(long const*, long, long, long)"
 _ROWS = "(anonymous namespace)::select_reduce_rows_kernel(long const*, long, long, long)"
+_TF_WIDE = "(anonymous namespace)::table_flat_kernel(long const*, long*, long)"
+_TF_NARROW = "(anonymous namespace)::table_flat_narrow_kernel(long const*, long*, long)"
+_PADD_WIDE = "void (anonymous namespace)::padd_kernel<128>(long const*, long*, long)"
+_PADD_NARROW = "(anonymous namespace)::padd_narrow_kernel(long const*, long*, long)"
 _TORCH = "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<long>>(int)"
 _COPY = "Memcpy HtoD (Pageable -> Device)"
 
@@ -59,6 +63,11 @@ CASES = {
     # select_reduce runs one of its two designs a launch
     "both select_reduce designs": ({"select_reduce": 3}, [(_STAGED, 2), (_ROWS, 1)], True),
     "a missing select_reduce": ({"select_reduce": 3}, [(_STAGED, 2)], False),
+    # padd and table_flat run one of their two designs a launch
+    "both designs of padd and table_flat": ({"padd": 5, "table_flat": 4},
+                                            [(_PADD_WIDE, 1), (_PADD_NARROW, 4), (_TF_WIDE, 1),
+                                             (_TF_NARROW, 3)], True),
+    "a missing narrow table_flat": ({"table_flat": 4}, [(_TF_WIDE, 1), (_TF_NARROW, 2)], False),
     "no port kernel in the profile": ({"reduce_block": 1}, [(_TORCH, 1)], False),
 }
 
@@ -68,3 +77,29 @@ def test_profile_complete_matches_launches_by_device_kernel(case):
     launched, events, want = CASES[case]
     _, by_kernel = device_time(_prof(*events), top=None)
     assert bench.profile_complete(launched, by_kernel) is want
+
+
+def test_device_time_by_wrapper_sums_both_designs():
+    """engine_profile's by_wrapper: a wrapper's time and launches summed over
+    its device kernels (both designs); a kernel two wrappers run counts for
+    both; library kernels and copies for none."""
+    _, by_kernel = device_time(_prof((_TF_WIDE, 1), (_TF_NARROW, 3), (_PADD_NARROW, 2),
+                                     (_HORNER, 4), (_TAIL, 1), (_TORCH, 9), (_COPY, 3)), top=None)
+    assert by_wrapper(by_kernel) == {"table_flat": [40.0 / 1e3, 4], "padd": [20.0 / 1e3, 2],
+                                     "horner": [40.0 / 1e3, 4], "tail_horner": [50.0 / 1e3, 5]}
+
+
+@pytest.mark.parametrize("event, want", [
+    (_PADD_WIDE, {"padd": "padd_kernel|padd_narrow_kernel"}),
+    (_PADD_NARROW, {"padd": "padd_kernel|padd_narrow_kernel"}),
+    (_TF_NARROW, {"table_flat": "table_flat_kernel|table_flat_narrow_kernel"}),
+    (_REDUCE, {"reduce_block": "reduce_block_kernel"}),
+    (_HORNER, {"horner": "horner_warp_kernel", "tail_horner": "horner_warp_kernel"}),
+    (_TORCH, {}),
+    (_COPY, {}),
+])
+def test_wrappers_of_a_profiled_kernel(event, want):
+    """The one rule that ties a profiled kernel to the wrappers whose launch
+    runs it, for both ``profile_complete`` and ``by_wrapper``."""
+    (key,) = device_time(_prof((event, 1)), top=None)[1]
+    assert wrappers_of(key) == want

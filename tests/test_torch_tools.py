@@ -269,6 +269,20 @@ def test_dependent_chain_lengths(kernel, chain):
             [14, 14, 21, 21, 28]
 
 
+@pytest.mark.parametrize("name,design,chain", [
+    # 7 additions of 12 products one after another on one thread, or of 2
+    # rounds of 6 products on a group
+    ("table_flat", "wide", (7, 84)),
+    ("table_flat", "narrow", (7, 14)),
+    ("padd", "wide", (1, 12)),
+    ("padd", "narrow", (1, 2)),
+])
+def test_table_flat_and_padd_chains_by_design(name, design, chain):
+    """The chain of a lane: the wide design's one thread, or the narrow
+    design's group of threads."""
+    assert getattr(bounds, f"{name}_chain")(design) == chain
+
+
 def test_ptxas_usage_parses_the_verbose_log():
     from bulletproofspp_tpu_torch.tools import ptxas_usage
 
