@@ -21,8 +21,10 @@ A kernel's bound is the larger of two times:
 
 Counts per function, from the sources: ``fe_mul`` 64 word products of
 the schoolbook, 8 of the 977 H fold and 1 of ``fe_fold``: 146 multiplies;
-``fe_mul_small`` 9 products: 18; ``fe_add`` one ``c * 977``: 2; ``fe_sub``
-two ``o * 977``: 2.  ``pt_add`` is 12 ``fe_mul``, 3 ``fe_mul_small``, 12
+``fe_sqr`` 36 word products, the 977 H fold of 8 64-bit columns (3
+multiplies each) and 1 of ``fe_fold``: 98; ``fe_mul_small`` 9 products:
+18; ``fe_add`` one ``c * 977``: 2; ``fe_sub`` two ``o * 977``: 2.
+``pt_add`` is 12 ``fe_mul``, 3 ``fe_mul_small``, 12
 ``fe_add`` and 5 ``fe_sub``; ``pt_dbl`` 8, 3, 3 and 1.
 
 Neither limit sees latency.  A kernel whose work is a chain of dependent
@@ -53,11 +55,27 @@ PT_ADD = 12 * FE_MUL + 3 * FE_MUL_SMALL + 12 * FE_ADD + 5 * FE_SUB
 PT_DBL = 8 * FE_MUL + 3 * FE_MUL_SMALL + 3 * FE_ADD + 1 * FE_SUB
 ADD_PRODUCTS = 12  # field products of pt_add
 
-_SQRT_EXP = ((1 << 256) - (1 << 32) - 977 + 1) // 4
-# decompress: x^3 + 7, the square-and-multiply chain below the top bit, r^2
-# and the negation
-DECOMPRESS = (2 + (_SQRT_EXP.bit_length() - 1) + (bin(_SQRT_EXP).count("1") - 1) + 1) * FE_MUL \
-    + FE_ADD + FE_SUB
+# decompress's square root a^((p+1)/4) as an addition chain (libsecp256k1's
+# secp256k1_fe_sqrt; csrc/decompress.cu: fe_sqrt_candidate runs it): from r
+# = a, each step (s, k) squares r s times, then multiplies it by a^(2^k - 1)
+# (k = 0: no product), a value an earlier step made (the chain builds a^(2^k
+# - 1) for k = 1, 2, 3, 6, 9, 11, 22, 44, 88, 176, 220, 223).  (p+1)/4 in
+# binary is three blocks of ones, of lengths 2, 22 and 223.
+SQRT_CHAIN = ((1, 1), (1, 1), (3, 3), (3, 3), (2, 2), (11, 11), (22, 22), (44, 44), (88, 88),
+              (44, 44), (3, 3), (23, 22), (6, 2), (2, 0))
+SQRT_SQUARINGS = sum(s for s, _ in SQRT_CHAIN)  # 253
+SQRT_PRODUCTS = sum(1 for _, k in SQRT_CHAIN if k)  # 13
+
+FE_SQR = 2 * 36 + 3 * 8 + 2
+# decompress: x^2 and x^3 + 7, the square-root chain, r^2 and the negation
+DECOMPRESS = (SQRT_SQUARINGS + 2) * FE_SQR + (SQRT_PRODUCTS + 1) * FE_MUL + FE_ADD + FE_SUB
+
+
+def decompress_chain() -> int:
+    """decompress's chain, one thread a lane: its dependent field products
+    (x^2, x^3, the square-root chain, r^2)."""
+    return 2 + SQRT_SQUARINGS + SQRT_PRODUCTS + 1
+
 
 # multiplies per chain step, by phase (tools.cu: chain_step)
 CHAIN_STEP = {
@@ -134,6 +152,17 @@ def horner(batch: int, rows: int):
 
 def reduce_block(w: int, factor: int):
     return (w // factor) * (factor - 1) * PT_ADD, (w + w // factor) * PT_BYTES
+
+
+def reduce_block_chain(factor: int, narrow: bool):
+    """(point operations, product rounds) of reduce_block's chain, an output
+    lane's: F - 1 additions of 12 products one after another on one thread
+    (wide), or the log2 F levels of its halving tree at 2 rounds an
+    addition (narrow)."""
+    if narrow:
+        levels = factor.bit_length() - 1
+        return levels, 2 * levels
+    return factor - 1, ADD_PRODUCTS * (factor - 1)
 
 
 def tail_horner(batch: int, rows: int):

@@ -8,11 +8,23 @@
 // defined on non-residue lanes too.  x (16, n) strict int64 planes, sign
 // (n,) int64; y (16, n) canonical, ok (n,) bool (one byte each).
 //
-// What bounds it on the H100: the exponentiation, a chain of 253 squarings
-// and 246 multiplications per lane (the plain version runs it as ~500 field
-// products of tens of PyTorch launches each).  One thread per lane with the
-// exponent's bits uniform across the warp, so there is no divergence; at
-// batch-decode widths (16,384 lanes) that is 128 blocks, about one per SM.
+// What bounds it on the H100: the latency of one lane's chain of dependent
+// field products, the exponentiation.  One thread per lane: at the batch's
+// 16,384 lanes that is about one warp per SM sub-partition, and cli test
+// decodes 16 to 64 lanes, one warp; at every width each scheduler has one
+// warp's dependent products to issue, far from both the multiply and the
+// bytes bound.  So the design shortens the chain and each link of it:
+//  * an addition chain for (p+1)/4 (libsecp256k1's secp256k1_fe_sqrt; the
+//    exponent is three blocks of ones, of lengths 2, 22 and 223): 253
+//    squarings and 13 multiplications, where square-and-multiply over its
+//    bits took 253 and 246.  The steps are bounds.py: SQRT_CHAIN, which a
+//    test evaluates on integers;
+//  * each squaring through field.cuh: fe_sqr, 36 word products summed by
+//    columns, so that they issue together, where fe_mul forms 64 with one
+//    carry through each row.
+// The exponent's steps are the same for every lane: no divergence.
+// decompress emits only the canonical y and ok (fe_eq canonicalises), so
+// fe_sqr's representatives, not fe_mul's, give the same bytes.
 
 #include <cuda_runtime.h>
 
@@ -26,18 +38,30 @@ namespace {
 
 constexpr int kThreads = 128;
 
-// (p + 1) / 4 = 2^254 - 2^30 - 244, little-endian words; bit 253 is its top
-__constant__ u32 kSqrtExp[8] = {0xbfffff0cu, 0xffffffffu, 0xffffffffu, 0xffffffffu,
-                                0xffffffffu, 0xffffffffu, 0xffffffffu, 0x3fffffffu};
+// a^(2^n) by n squarings
+__device__ __forceinline__ Fe fe_sqr_n(Fe a, int n) {
+#pragma unroll 1
+  for (int i = 0; i < n; i++) a = fe_sqr(a);
+  return a;
+}
 
-// a^((p+1)/4) by square-and-multiply from the top bit down
+// a^((p+1)/4).  xk = a^(2^k - 1); each step squares the last result s times
+// and multiplies by xk: bounds.py SQRT_CHAIN's (s, k), in its order.
 __device__ Fe fe_sqrt_candidate(const Fe& a) {
-  Fe r = a;
-  for (int bit = 252; bit >= 0; bit--) {
-    r = fe_mul(r, r);
-    if ((kSqrtExp[bit >> 5] >> (bit & 31)) & 1u) r = fe_mul(r, a);
-  }
-  return r;
+  const Fe x2 = fe_mul(fe_sqr(a), a);                  // (1, 1)
+  const Fe x3 = fe_mul(fe_sqr(x2), a);                 // (1, 1)
+  const Fe x6 = fe_mul(fe_sqr_n(x3, 3), x3);           // (3, 3)
+  const Fe x9 = fe_mul(fe_sqr_n(x6, 3), x3);           // (3, 3)
+  const Fe x11 = fe_mul(fe_sqr_n(x9, 2), x2);          // (2, 2)
+  const Fe x22 = fe_mul(fe_sqr_n(x11, 11), x11);       // (11, 11)
+  const Fe x44 = fe_mul(fe_sqr_n(x22, 22), x22);       // (22, 22)
+  const Fe x88 = fe_mul(fe_sqr_n(x44, 44), x44);       // (44, 44)
+  const Fe x176 = fe_mul(fe_sqr_n(x88, 88), x88);      // (88, 88)
+  const Fe x220 = fe_mul(fe_sqr_n(x176, 44), x44);     // (44, 44)
+  const Fe x223 = fe_mul(fe_sqr_n(x220, 3), x3);       // (3, 3)
+  Fe t = fe_mul(fe_sqr_n(x223, 23), x22);              // (23, 22)
+  t = fe_mul(fe_sqr_n(t, 6), x2);                      // (6, 2)
+  return fe_sqr_n(t, 2);                               // (2, 0)
 }
 
 __global__ void decompress_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ sign,
@@ -47,9 +71,9 @@ __global__ void decompress_kernel(const int64_t* __restrict__ x, const int64_t* 
     const Fe xv = fe_load(x, n, j);
     Fe seven = fe_zero();
     seven.w[0] = 7;
-    const Fe v = fe_add(fe_mul(fe_mul(xv, xv), xv), seven);
+    const Fe v = fe_add(fe_mul(fe_sqr(xv), xv), seven);
     const Fe r = fe_sqrt_candidate(v);
-    ok[j] = fe_eq(fe_mul(r, r), v) ? 1 : 0;
+    ok[j] = fe_eq(fe_sqr(r), v) ? 1 : 0;
     const Fe rn = fe_canon(r), nn = fe_canon(fe_neg(r));
     const bool big = fe_gt(rn, nn);
     fe_store(y, n, j, big == (sign[j] > 0) ? rn : nn);

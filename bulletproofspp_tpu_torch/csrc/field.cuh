@@ -180,6 +180,49 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
   return fe_reduce512(t);
 }
 
+// a^2 mod p, strict, for decompress's square-root chain.  36 word products
+// (each cross product a_i a_j, i < j, once, then doubled, and the 8 squares)
+// against fe_mul's 64, summed by columns: column k holds the low words of
+// the products of weight k and the high words of those of weight k - 1, as
+// a 64-bit sum of 32-bit halves.  No product waits on another, and a
+// column's sum waits only on its own (at most 8 halves), where fe_mul's
+// schoolbook runs one carry through every product of a row.  Each column
+// is < 2^37 (at most 8 halves, doubled, plus a square's half), so the
+// columns go into the reduction without a carry pass of their own:
+// T = L + 977 H + 2^32 H (mod p), as in fe_reduce512.  Equal to fe_mul(a,
+// a) mod p (not necessarily the same representative).
+__device__ __forceinline__ Fe fe_sqr(const Fe& a) {
+  u64 col[16];
+#pragma unroll
+  for (int k = 0; k < 16; k++) col[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+#pragma unroll
+    for (int j = i + 1; j < 8; j++) {
+      const u64 p = (u64)a.w[i] * a.w[j];
+      col[i + j] += (u32)p;
+      col[i + j + 1] += p >> 32;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    const u64 s = (u64)a.w[i] * a.w[i];
+    col[2 * i] = 2 * col[2 * i] + (u32)s;
+    col[2 * i + 1] = 2 * col[2 * i + 1] + (s >> 32);
+  }
+  Fe r;
+  u64 acc = 0;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    // one addition waits on the carry; the column sum beside it does not
+    acc += col[k] + col[8 + k] * 977u + (k > 0 ? col[7 + k] : 0);  // < 2^47
+    r.w[k] = (u32)acc;
+    acc >>= 32;
+  }
+  fe_fold(r, acc + col[15]);  // col[15] is the high word of a_7^2: < 2^15 + 2^32
+  return r;
+}
+
 __device__ __forceinline__ Fe fe_mul_small(const Fe& a, u32 k) {
   Fe r;
   u64 acc = 0;

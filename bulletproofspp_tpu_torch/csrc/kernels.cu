@@ -18,16 +18,18 @@
 // design is the simple one: one thread per independent lane, coalesced
 // limb-plane loads (neighbouring threads read neighbouring lanes), 8 x 32-bit
 // words in registers with 64-bit carry chains.  Making them fast (fewer
-// carries, madc chains, more lanes per SM) is later work.  Six are
+// carries, madc chains, more lanes per SM) is later work.  Seven are
 // designed for this card instead: horner, tail_horner and fold, whose work
 // is one chain of dependent point operations per MSM or lane, bound by its
-// latency (they run it on a warp: curve_warp.cuh); padd and table_flat,
-// which at the narrow widths most of their calls have (16 to a few
-// thousand lanes) fill few SMs and wait on one thread's additions, so below
-// a lane count they run each lane's additions on a group of kNarrowGroup
-// threads (curve_warp.cuh) and keep the one-thread body for wide calls; and
-// select_reduce, whose digit-chosen reads cost more than its adds until its
-// lanes' tables stay close for all rows: in shared memory, or in L2 (below).
+// latency (they run it on a warp: curve_warp.cuh); padd, table_flat and
+// reduce_block, which at the narrow widths most of their calls have (16 to
+// a few thousand lanes) fill few SMs and wait on one thread's additions, so
+// below a lane count they run each addition on a group of kNarrowGroup
+// threads (curve_warp.cuh; reduce_block by the levels of its halving tree,
+// so an output lane waits on log2 F additions, not F - 1) and keep the
+// one-thread body for wide calls; and select_reduce, whose digit-chosen
+// reads cost more than its adds until its lanes' tables stay close for all
+// rows: in shared memory, or in L2 (below).
 
 #include <cuda_runtime.h>
 
@@ -115,8 +117,19 @@ __device__ __forceinline__ void halve(Pt* v) {
 // --- reduce_block: replaces reduce_block_pallas / _reduce_block_kernel -----
 // (:490, :474).  Narrows (16, W) by F within blocks of 128 * F lanes: output
 // lane t of block k sums input lanes k*128F + t + m*128, m < F, in the Pallas
-// kernel's halving order, so the projective outputs match it limb for limb.
-// One thread per output lane.
+// kernel's halving order (at level h = F/2, F/4, ..., 1 pair m with m + h),
+// so the projective outputs match it limb for limb.  Two designs, the same
+// words (the wrapper, ops/kernels.py: reduce_block, picks by output lanes a
+// call):
+//  * reduce_block_kernel, wide: one thread per output lane, its F - 1
+//    additions one after another (12 (F - 1) dependent products: 84 at F =
+//    8).  For the wide calls, where one thread a lane fills the card.
+//  * reduce_block_narrow_kernel, narrow: the tree by levels, each addition
+//    of a level on one group of kNarrowGroup threads (pt_add_warp<8>: 2
+//    rounds of 6 products), so an output lane waits on log2 F additions, 2
+//    log2 F rounds.  For the narrow calls (a few thousand output lanes:
+//    cli test's MSMs, the bench's second launch), where the wide design
+//    fills a few dozen blocks and waits on its chain.
 template <int F>
 __global__ void reduce_block_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
                                     const int64_t* __restrict__ z, int64_t* __restrict__ ox,
@@ -131,6 +144,55 @@ __global__ void reduce_block_kernel(const int64_t* __restrict__ x, const int64_t
     for (int m = 0; m < F; m++) v[m] = pt_load(x, y, z, w, base + m * 128);
     halve<F>(v);
     pt_store(ox, oy, oz, n_out, j, v[0]);
+  }
+}
+
+// Output lanes a block of the narrow design carries: its kNarrowLanes
+// groups hold the first level's F / 2 additions of each.
+template <int F>
+constexpr int kReduceOuts = kNarrowLanes / (F / 2);
+
+// Group g of a block runs addition g of each level: pair m = g / outs of
+// output lane i = g % outs (outs = kReduceOuts<F>), so a level's outs * h
+// additions sit on the first groups (a multiple of a warp's 4: a warp has
+// all or none of them, and one without skips the level on a uniform
+// branch), and a warp's groups hold neighbouring output lanes: its loads
+// and stores touch 4 neighbouring lanes of a limb row, one 32-byte sector.
+// The first level reads its operands from device memory; each level leaves
+// addition g's sum in slot g of shared memory, where addition g of level h
+// finds its two operands (slots g and g + outs * h); the last level's
+// groups store the output lanes (fe_store_group).  n_out = W / F is
+// a multiple of 128, so every block is whole.
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    reduce_block_narrow_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
+                               const int64_t* __restrict__ z, int64_t* __restrict__ ox,
+                               int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t w) {
+  constexpr int outs = kReduceOuts<F>;
+  constexpr int groups_a_warp = 32 / kNarrowGroup;
+  __shared__ Pt sums[kNarrowLanes];
+  const int g = threadIdx.x / kNarrowGroup, first = threadIdx.x / 32 * groups_a_warp;
+  const int i = g % outs, m = g / outs;
+  const int64_t n_out = w / F;
+  for (int64_t j0 = blockIdx.x * (int64_t)outs; j0 < n_out; j0 += (int64_t)gridDim.x * outs) {
+    const int64_t j = j0 + i, base = (j / 128) * (128 * F) + j % 128;
+    Pt s = pt_add_warp<kNarrowGroup>(pt_load(x, y, z, w, base + m * 128),
+                                     pt_load(x, y, z, w, base + (m + F / 2) * 128));
+#pragma unroll
+    for (int h = F / 4; h >= 1; h /= 2) {
+      sums[g] = s;  // the 8 threads of a group write the same words
+      __syncthreads();
+      if (first < outs * h) {
+        const Pt a = sums[g], b = sums[g + outs * h];
+        s = pt_add_warp<kNarrowGroup>(a, b);
+      }
+      __syncthreads();  // every read of this level before the next writes
+    }
+    if (g < outs) {
+      int64_t* const dst[3] = {ox, oy, oz};
+      const Fe v[3] = {s.x, s.y, s.z};
+      fe_store_group<kNarrowGroup>(dst, v, n_out, j);
+    }
   }
 }
 
@@ -366,6 +428,19 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
   }
 }
 
+template <int F>
+int reduce_block_launch(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* ox,
+                        int64_t* oy, int64_t* oz, int64_t w, int narrow, cudaStream_t s) {
+  const int64_t n_out = w / F;
+  if (n_out > 0 && narrow) {
+    reduce_block_narrow_kernel<F><<<blocks_for(n_out, kReduceOuts<F>), kThreads, 0, s>>>(
+        x, y, z, ox, oy, oz, w);
+  } else if (n_out > 0) {
+    reduce_block_kernel<F><<<blocks_for(n_out), kThreads, 0, s>>>(x, y, z, ox, oy, oz, w);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -409,27 +484,20 @@ int bppp_horner(const int64_t* rx, const int64_t* ry, const int64_t* rz, int64_t
   return (int)cudaGetLastError();
 }
 
+// narrow: 1 runs the narrow design, 0 the wide one.
 int bppp_reduce_block(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* ox,
-                      int64_t* oy, int64_t* oz, int64_t w, int factor, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int64_t n_out = w / factor;
-  if (n_out > 0) {
-    int blocks = blocks_for(n_out);
-    switch (factor) {
-      case 2:
-        reduce_block_kernel<2><<<blocks, kThreads, 0, s>>>(x, y, z, ox, oy, oz, w);
-        break;
-      case 4:
-        reduce_block_kernel<4><<<blocks, kThreads, 0, s>>>(x, y, z, ox, oy, oz, w);
-        break;
-      case 8:
-        reduce_block_kernel<8><<<blocks, kThreads, 0, s>>>(x, y, z, ox, oy, oz, w);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+                      int64_t* oy, int64_t* oz, int64_t w, int factor, int narrow,
+                      void* stream) {
+  switch (factor) {
+    case 2:
+      return reduce_block_launch<2>(x, y, z, ox, oy, oz, w, narrow, (cudaStream_t)stream);
+    case 4:
+      return reduce_block_launch<4>(x, y, z, ox, oy, oz, w, narrow, (cudaStream_t)stream);
+    case 8:
+      return reduce_block_launch<8>(x, y, z, ox, oy, oz, w, narrow, (cudaStream_t)stream);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 int bppp_tail_horner(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* rx,

@@ -31,9 +31,9 @@ file, all started together, into the git-ignored ``_build`` directory,
 keyed by a hash of the file and the headers, and loaded with ctypes.
 
 What bounds each kernel on the H100 and what its design does about it
-is in the header of its source file.  Three have two designs, picked by
+is in the header of its source file.  Four have two designs, picked by
 lane count and forced through ``*_design``: select_reduce (staged or the
-gather), padd and table_flat (narrow or wide).
+gather), padd, table_flat and reduce_block (narrow or wide).
 """
 
 from __future__ import annotations
@@ -90,8 +90,9 @@ KERNELS = {
                "bulletproofspp_tpu/ops/pallas_field.py:759", ("padd_kernel|padd_narrow_kernel",)),
         Kernel("horner", "kernels.cu", "bppp_horner", [_P] * 6 + [_I64, _I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:446", ("horner_warp_kernel",)),
-        Kernel("reduce_block", "kernels.cu", "bppp_reduce_block", [_P] * 6 + [_I64, _I32, _P],
-               "bulletproofspp_tpu/ops/pallas_field.py:490", ("reduce_block_kernel",)),
+        Kernel("reduce_block", "kernels.cu", "bppp_reduce_block", [_P] * 6 + [_I64, _I32, _I32, _P],
+               "bulletproofspp_tpu/ops/pallas_field.py:490",
+               ("reduce_block_kernel|reduce_block_narrow_kernel",)),
         Kernel("tail_horner", "kernels.cu", "bppp_tail_horner", [_P] * 9 + [_I64, _I64, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:742",
                ("tail_rows_kernel", "horner_warp_kernel")),
@@ -249,9 +250,9 @@ def _empty(shape, like):
     return tuple(torch.empty(shape, dtype=torch.int64, device=like.device) for _ in range(3))
 
 
-# padd and table_flat have two designs (``csrc/kernels.cu``): wide, one
-# thread per lane, and narrow, one lane per group of 8 threads that runs
-# each addition in 2 rounds of 6 field products (``csrc/curve_warp.cuh``).
+# padd, table_flat and reduce_block have two designs (``csrc/kernels.cu``):
+# wide, one thread per (output) lane, and narrow, each addition on a group
+# of 8 threads in 2 rounds of 6 field products (``csrc/curve_warp.cuh``).
 # Each wrapper takes narrow under a lane count; ``*_design(..., narrow)``
 # forces one.
 
@@ -356,7 +357,32 @@ def reduce_block_plain(p, factor: int):
     return tuple(t.reshape(limb.NLIMB, w // factor) for t in curve.tighten3(p))
 
 
+# Output lanes a call (W / factor) from which reduce_block runs its wide
+# design (one thread per output lane); under it the narrow one runs the
+# halving tree by levels, each addition on a group of 8 threads.  On the
+# H100 (chip_smoke.py phase 2, both designs in turns at
+# REDUCE_BLOCK_WIDTHS) the narrow design took 0.75 (f = 2), 0.68 (f = 4)
+# and 0.81 (f = 8) of the wide one's time at 4,224 output lanes; 0.99 (f =
+# 2) and 1.22 (f = 4) at 8,448; 1.41-2.89 from 16,896, where the wide
+# design's one thread a lane keeps the SMs busy.
+REDUCE_BLOCK_WIDE_LANES = 8448
+# the (W, factor) pairs both designs are held and timed at: the main
+# paths' launches (cli test's MSMs of 256 to 4,096 lanes, one to 130 at a
+# time; the bench's, the batch's and the 2^21-lane MSM's)
+REDUCE_BLOCK_WIDTHS = ((8448, 2), (16896, 2), (16896, 4), (33792, 2), (33792, 4), (33792, 8),
+                       (42240, 2), (135168, 8), (270336, 8), (557568, 2), (1081344, 8),
+                       (1655808, 4), (2196480, 4), (8650752, 8))
+
+
 def reduce_block(p, factor: int):
+    """``reduce_block_plain`` on the card: the narrow design under
+    REDUCE_BLOCK_WIDE_LANES output lanes, the wide one from there."""
+    return reduce_block_design(p, factor, p[0].shape[1] // factor < REDUCE_BLOCK_WIDE_LANES)
+
+
+def reduce_block_design(p, factor: int, narrow: bool):
+    """``reduce_block`` through one of its two designs: ``narrow`` or the
+    wide one.  ``reduce_block`` picks by output lanes; the smoke picks."""
     w = p[0].shape[1]
     if factor not in (2, 4, 8) or w % (128 * factor):
         raise ValueError(f"reduce_block: W={w} must be a multiple of 128 * factor, factor in 2/4/8")
@@ -365,7 +391,8 @@ def reduce_block(p, factor: int):
     p = tuple(t.contiguous() for t in p)
     dev = _check(*p)
     out = _empty((limb.NLIMB, w // factor), p[0])
-    _launch("reduce_block", f"W={w} f={factor}", dev, *_ptrs(*p, *out), w, factor)
+    _launch("reduce_block", f"W={w} f={factor} {_design(narrow)}", dev, *_ptrs(*p, *out), w,
+            factor, int(narrow))
     return out
 
 

@@ -12,11 +12,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the card, at the shapes the main paths give it, on numpy-seeded
      inputs (identity lanes, P + P, P + (-P) and non-residue x's
      included; padd and table_flat at 16 to 65,536 lanes
-     (``kernels.PADD_WIDTHS``, ``kernels.TABLE_FLAT_WIDTHS``), each launch
+     (``kernels.PADD_WIDTHS``, ``kernels.TABLE_FLAT_WIDTHS``) and
+     reduce_block at the main paths' (W, factor) launches
+     (``kernels.REDUCE_BLOCK_WIDTHS``), each launch
      checked to take the design its lane count picks and to equal the
      other design word for word, both designs timed in turns, the narrow /
      wide ratio logged, and where the wrapper takes narrow, narrow no
-     slower than wide; padd's wide design at 65,536 lanes also
+     slower than wide; decompress at 16, 64 and 16,384 lanes, y and ok
+     on every lane; padd's wide design at 65,536 lanes also
      in each of its threads-a-block instantiations, and a launch's floor
      logged (one field addition at 16 lanes); horner at 1, 2 and 130
      MSMs with an all-identity row and a row that cancels or doubles the
@@ -74,20 +77,24 @@ each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
 design, and 65,536, its staged design; horner at 130 MSMs and at 1, the
 main paths' shape; select_reduce_fused at 4,096 lanes and at 2^21, its
 route; padd at 1,056 lanes, the halving trees' commonest, and 65,536;
-table_flat at 16, fold's, and 4,096), the kernel's launch count (summed
-over the main-path runs of phases 3, 6, 7 and 8, each counted from 0) in
-all, by path (``launches_by_path``: cli_test, msm_2_21, batch_verify,
-measurement), by design and path for padd, table_flat and select_reduce
-(``launches_by_design``) and by shape, largest normalized difference,
-times (for padd and table_flat the design the wrapper takes, from the
-in-turns timings), bound (``bounds``:
+table_flat at 16, fold's, and 4,096; reduce_block at W = 33,792, f = 8,
+the bench's second launch, and W = 16,896, f = 4, cli test's commonest;
+decompress at 16 lanes, cli test's smallest, and 16,384), the kernel's
+launch count (summed over the main-path runs of phases 3, 6, 7 and 8,
+each counted from 0) in all, by path (``launches_by_path``: cli_test, msm_2_21, batch_verify,
+measurement), by design and path for padd, table_flat, reduce_block and
+select_reduce (``launches_by_design``) and by shape, largest normalized
+difference, times (for padd, table_flat and reduce_block the design the
+wrapper takes, from the in-turns timings), bound (``bounds``:
 the larger of its 32-bit multiplies over the card's rate and its bytes
 over 3.35 TB/s; for chain's ten launches the sum of theirs) and, for grid_copy, the time of one PyTorch call that
 computes the same function (``library_ms``; null where there is none).
 The kernel lines of phase 2, and the JSON line (``chain``), also give, for
-tail_horner, horner, fold, select_reduce_fused, padd and table_flat, the
-time per point operation and per product round of the kernel's longest
-dependent chain (``bounds.*_chain``; padd's and table_flat's by design);
+tail_horner, horner, fold, select_reduce_fused, padd, table_flat and
+reduce_block, the time per point operation and per product round of the
+kernel's longest dependent chain (``bounds.*_chain``; padd's, table_flat's
+and reduce_block's by design), and for decompress the time per dependent
+field product of its chain;
 the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 CUDA is not available.
 """
@@ -209,16 +216,21 @@ def rescale_and_negate(p, rng, negate_mask):
     return tuple(limb.from_ints(v, p[0].device) for v in out)
 
 
-def wide_points(n: int, rng, dev):
+def wide_points(n: int, rng, dev, chunk: int = 1 << 21):
     """n projective lanes on ``dev``: 4,096 lanes of ``random_points``
-    repeated, each lane scaled by its own random Z on the device, so no two
-    lanes carry the same coordinates."""
+    repeated, each lane scaled by its own random Z on the device (``chunk``
+    lanes at a time), so no two lanes carry the same coordinates."""
     from bulletproofspp_tpu_torch.ops import limb
 
     k = min(n, 4096)
     p, _ = random_points(k, rng, dev)
     z = torch.as_tensor(rng.integers(0, 1 << 16, size=(limb.NLIMB, n)), device=dev)
-    return tuple(limb.mul(c.repeat(1, -(-n // k))[:, :n], z) for c in p)
+    out = []
+    for c in p:
+        c = c.repeat(1, -(-n // k))[:, :n]
+        out.append(torch.cat([limb.mul(c[:, a:a + chunk], z[:, a:a + chunk])
+                              for a in range(0, n, chunk)], 1))
+    return tuple(out)
 
 
 def tail_lanes(K: int, rng, dev):
@@ -295,32 +307,33 @@ def same_raw(name, a, b):
         raise AssertionError(f"{name}: the outputs differ word for word")
 
 
-def designs_in_turns(name, L, by_design, picked, reps):
-    """padd or table_flat at L lanes: both designs (``by_design(narrow)``)
-    equal raw to the wrapper's output; the wrapper's launch named by the
-    design its lane count picks; then both designs timed in turns.  Logs
-    the times, the narrow / wide ratio and the pick; raises where the
-    wrapper takes narrow and narrow was the slower (a wide pick that loses
-    is only logged: the thresholds sit where the two are close).  Returns
-    (picked design, its mean ms)."""
+def designs_in_turns(name, label, by_design, picked, reps):
+    """padd, table_flat or reduce_block at one shape (``label``: "L=16",
+    "W=33792 f=8"): both designs (``by_design(narrow)``) equal raw to the
+    wrapper's output; the wrapper's launch named by the design its lane
+    count picks; then both designs timed in turns.  Logs the times, the
+    narrow / wide ratio and the pick; raises where the wrapper takes narrow
+    and narrow was the slower (a wide pick that loses is only logged: the
+    thresholds sit where the two are close).  Returns (picked design, its
+    mean ms)."""
     from bulletproofspp_tpu_torch.ops import kernels
 
     kernels.reset_counts()
     want = picked()
     (shape, n), = kernels.shape_counts()[name].items()
     design = shape.split()[-1]
-    if shape != f"L={L} {design}" or n != 1 or design not in ("narrow", "wide"):
-        raise AssertionError(f"{name} L={L}: the wrapper launched {kernels.shape_counts()[name]}")
+    if shape != f"{label} {design}" or n != 1 or design not in ("narrow", "wide"):
+        raise AssertionError(f"{name} {label}: the wrapper launched {kernels.shape_counts()[name]}")
     fns = {"narrow": lambda: by_design(True), "wide": lambda: by_design(False)}
     for d, fn in fns.items():
-        same_raw(f"{name} L={L} {d} against the wrapper's {design}", fn(), want)
+        same_raw(f"{name} {label} {d} against the wrapper's {design}", fn(), want)
     means, both = in_turns(fns, reps)
     faster = min(fns, key=means.get)
-    log(f"{name} L={L}: both designs equal raw; in turns (ms) {json.dumps(both)}; narrow / "
+    log(f"{name} {label}: both designs equal raw; in turns (ms) {json.dumps(both)}; narrow / "
         f"wide {means['narrow'] / means['wide']:.4f}; the wrapper takes {design}"
         + ("" if design == faster else f" (NOT the faster here: {faster})"))
     if design == "narrow" != faster:
-        raise AssertionError(f"{name} L={L}: the wrapper takes the narrow design, the slower")
+        raise AssertionError(f"{name} {label}: the wrapper takes the narrow design, the slower")
     return design, means[design]
 
 
@@ -361,8 +374,8 @@ def check_padd(dev, rng):
                 same_raw(f"padd L={L} threads={threads}", kernels.padd(p, q),
                          kernels.padd_design(p, q, False, threads))
         design, ms = designs_in_turns(
-            "padd", L, lambda narrow: kernels.padd_design(p, q, narrow), lambda: kernels.padd(p, q),
-            20 if L < MEASURE_L else 10)
+            "padd", f"L={L}", lambda narrow: kernels.padd_design(p, q, narrow),
+            lambda: kernels.padd(p, q), 20 if L < MEASURE_L else 10)
         if L in (1056, MEASURE_L):
             rows.append(("padd", err, ms, time_ms(lambda: kernels.padd_plain(p, q), 3, paced=True),
                          f"L={L} {design}", bounds.padd(L), {"chain": bounds.padd_chain(design)}))
@@ -389,13 +402,83 @@ def check_table_flat(dev, rng):
         tabs = kernels.table_flat(p)
         err = compare(f"table_flat L={L}", tabs, kernels.table_flat_plain(p))
         design, ms = designs_in_turns(
-            "table_flat", L, lambda narrow: kernels.table_flat_design(p, narrow),
+            "table_flat", f"L={L}", lambda narrow: kernels.table_flat_design(p, narrow),
             lambda: kernels.table_flat(p), 20 if L <= 4096 else 10)
         if L in (16, 4096):
             rows.append(("table_flat", err, ms,
                          time_ms(lambda: kernels.table_flat_plain(p), 2, paced=True),
                          f"L={L} {design}", bounds.table_flat(L),
                          {"chain": bounds.table_flat_chain(design)}))
+    return rows
+
+
+def reduce_block_plain_by_blocks(p, factor: int, chunk: int = 1 << 20):
+    """``reduce_block_plain`` on ``chunk`` input lanes at a time (whole
+    blocks of 128 * factor lanes, each narrowed on its own: the same
+    function), so that its memory stays bounded at millions of lanes."""
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    parts = [kernels.reduce_block_plain(tuple(t[:, a:a + chunk] for t in p), factor)
+             for a in range(0, p[0].shape[1], chunk)]
+    return tuple(torch.cat(c, 1) for c in zip(*parts))
+
+
+def check_reduce_block(dev, rng):
+    """Phase 2, reduce_block: both designs at kernels.REDUCE_BLOCK_WIDTHS
+    (the main paths' (W, factor) launches), about 1/8 identity lanes, and in
+    the first block P + P and P + (-P) at the first level.  Returns the rows
+    at W = 33,792, f = 8 (the bench's second launch) and W = 16,896, f = 4
+    (cli test's commonest)."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    rows = []
+    for w, f in kernels.REDUCE_BLOCK_WIDTHS:
+        p = wide_points(w, rng, dev)
+        half = 64 * f  # the first block's second half pairs with its first at level one
+        twin = rescale_and_negate(tuple(c[:, :half] for c in p), rng, np.arange(half) % 2 == 1)
+        for c, t in zip(p, twin):
+            c[:, half:2 * half] = t
+        err = compare(f"reduce_block W={w} f={f}", kernels.reduce_block(p, f),
+                      reduce_block_plain_by_blocks(p, f))
+        design, ms = designs_in_turns(
+            "reduce_block", f"W={w} f={f}",
+            lambda narrow: kernels.reduce_block_design(p, f, narrow),
+            lambda: kernels.reduce_block(p, f), 10 if w < (1 << 20) else 4)
+        if (w, f) in ((33792, 8), (16896, 4)):
+            rows.append(("reduce_block", err, ms,
+                         time_ms(lambda: kernels.reduce_block_plain(p, f), 2, paced=True),
+                         f"W={w} f={f} {design}", bounds.reduce_block(w, f),
+                         {"chain": bounds.reduce_block_chain(f, design == "narrow")}))
+    return rows
+
+
+def check_decompress(dev, rng):
+    """Phase 2, decompress at 16 lanes (cli test's 32bit and 64bit), 64 and 16,384
+    (the 1,024-proof batch's bucket): about 1/8 non-residue x's, random sign
+    bits, and x = 0, 1 and p - 1 at 64; y and ok equal to the plain
+    version's on every lane.  Returns the rows at 16 and 16,384 lanes."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.core.fields import Q
+    from bulletproofspp_tpu_torch.ops import kernels, limb
+
+    rows = []
+    for L in (16, 64, DECOMPRESS_L):
+        xs = residue_mix(L, rng)
+        if L == 64:
+            xs[:3] = [0, 1, Q - 1]
+        x = limb.from_ints(xs, dev)
+        sign = torch.as_tensor(rng.integers(0, 2, size=L), device=dev)
+        (y, ok), (py, pok) = kernels.decompress(x, sign), kernels.decompress_plain(x, sign)
+        err = max(int((y - py).abs().max().item()), int((ok != pok).sum().item()))
+        if err != 0:
+            raise AssertionError(f"kernel decompress L={L} disagrees with its plain version: {err}")
+        log(f"decompress L={L}: {L - int(ok.sum().item())} non-residue lanes, y and ok equal to "
+            "the plain version's")
+        if L != 64:
+            rows.append(("decompress", err, time_ms(lambda: kernels.decompress(x, sign), 10),
+                         time_ms(lambda: kernels.decompress_plain(x, sign), 1, paced=True),
+                         f"L={L}", bounds.decompress(L), {"products": bounds.decompress_chain()}))
     return rows
 
 
@@ -423,15 +506,7 @@ def check_kernels(dev):
                      time_ms(lambda: kernels.horner_plain(*r), 1, paced=True),
                      f"K={K} rows={ROWS}", bounds.horner(K, ROWS)))
 
-    # reduce_block: factors 2/4/8 at W = 33 * 1024 (a 1,024-lane MSM's rows)
-    w = ROWS * 1024
-    p, _ = random_points(w, rng, dev)
-    for f in (2, 4, 8):
-        err = compare(f"reduce_block f={f}", kernels.reduce_block(p, f),
-                      kernels.reduce_block_plain(p, f))
-    rows.append(("reduce_block", err, time_ms(lambda: kernels.reduce_block(p, 8), 10),
-                 time_ms(lambda: kernels.reduce_block_plain(p, 8), 2, paced=True), f"W={w} f=8",
-                 bounds.reduce_block(w, 8)))
+    rows += check_reduce_block(dev, rng)
 
     # tail_horner: (16, K, 33 * 128), K = 1, 3 and msm_many's 130, with an
     # all-identity row and a cancelling row in every MSM
@@ -505,18 +580,7 @@ def check_kernels(dev):
                  bounds.fold(512, digits)))
     rows += check_fused(dev, rng)
 
-    # decompress: the 1,024-proof batch's bucket, about 1/8 non-residue x's
-    L = DECOMPRESS_L
-    x = limb.from_ints(residue_mix(L, rng), dev)
-    sign = torch.as_tensor(rng.integers(0, 2, size=L), device=dev)
-    (y, ok), (py, pok) = kernels.decompress(x, sign), kernels.decompress_plain(x, sign)
-    err = max(int((y - py).abs().max().item()), int((ok != pok).sum().item()))
-    if err != 0:
-        raise AssertionError(f"kernel decompress disagrees with its plain version: {err}")
-    log(f"decompress L={L}: {L - int(ok.sum().item())} non-residue lanes")
-    rows.append(("decompress", err, time_ms(lambda: kernels.decompress(x, sign), 10),
-                 time_ms(lambda: kernels.decompress_plain(x, sign), 1, paced=True), f"L={L}",
-                 bounds.decompress(L)))
+    rows += check_decompress(dev, rng)
     rows += check_measurement_kernels(dev, rng)
     torch.cuda.synchronize()
     mhz = bounds.card()["sm_clock_max_mhz"]
@@ -533,7 +597,11 @@ def check_kernels(dev):
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         lib_s = f"  library {library_ms:.4f} ms" if library_ms is not None else ""
         chain_s = ""
-        if name in chains or "chain" in extra:
+        if "products" in extra:
+            n = extra["products"]
+            row["chain"] = {"products": n, "us_per_product": ms * 1e3 / n}
+            chain_s = f"  chain {n} dependent field products ({ms * 1e3 / n:.3f} us each)"
+        elif name in chains or "chain" in extra:
             ops, rounds = extra.get("chain") or chains[name]
             row["chain"] = {"ops": ops, "rounds": rounds, "us_per_op": ms * 1e3 / ops,
                             "us_per_round": ms * 1e3 / rounds}
@@ -970,7 +1038,7 @@ def main() -> int:
     require_launched("the main paths", launches, set(launches))
     by_path = {k: {path: sum(run[k].values()) for path, run in paths.items()} for k in launches}
     by_design = {k: {path: designs(run[k]) for path, run in paths.items()}
-                 for k in ("padd", "table_flat", "select_reduce")}
+                 for k in ("padd", "table_flat", "reduce_block", "select_reduce")}
     log(f"launches on the main paths by shape: {json.dumps(shapes)}")
     log(f"launches by path: {json.dumps(by_path)}")
     log(f"launches by design and path: {json.dumps(by_design)}")

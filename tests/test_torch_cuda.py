@@ -361,3 +361,42 @@ def test_cuda_table_flat_designs_equal_raw_and_the_plain_version(L):
     for a, b in zip(got, kernels.table_flat_plain(p)):
         a, b = (limb.normalize(t.view(-1, 16, L).transpose(0, 1)) for t in (a, b))
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [2, 4, 8])
+@pytest.mark.parametrize("n_out", [4224, 0])  # cli test's commonest; 0: the threshold (wide)
+def test_cuda_reduce_block_designs_equal_raw_and_the_plain_version(f, n_out):
+    """Every factor at a narrow and a wide width: P + P and P + (-P) pairs
+    at the first level (every third pair each), identity lanes (every 7th
+    of the first half)."""
+    dev = _card()
+    n_out = n_out or kernels.REDUCE_BLOCK_WIDE_LANES
+    w = n_out * f
+    p, q = _padd_pairs(w // 2, 92 + f, dev)
+    # lane m * 128 + t of a block pairs with lane (m + f/2) * 128 + t first
+    blocks = [c.view(16, -1, 64 * f) for c in p], [c.view(16, -1, 64 * f) for c in q]
+    pts = tuple(torch.cat([a, b], 2).reshape(16, w).contiguous() for a, b in zip(*blocks))
+    kernels.reduce_block(pts, f)  # builds the library
+    kernels.reset_counts()
+    got = _designs_under_sync_check(lambda narrow: kernels.reduce_block_design(pts, f, narrow),
+                                    lambda: kernels.reduce_block(pts, f))
+    picked = "wide" if n_out >= kernels.REDUCE_BLOCK_WIDE_LANES else "narrow"
+    assert kernels.shape_counts()["reduce_block"] == {
+        f"W={w} f={f} {d}": 1 + (d == picked) for d in ("narrow", "wide")}
+    assert _same(got, kernels.reduce_block_plain(pts, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [16, 64, 16384])  # cli test's; 32by64's; the batch's bucket
+def test_cuda_decompress_matches_plain_version_on_every_lane(L):
+    """Random x's (about half non-residues), x = 0, 1 and p - 1, both sign
+    bits: y and ok equal to the plain version's on every lane."""
+    dev = _card()
+    rng = np.random.default_rng(L)
+    xs = [int.from_bytes(rng.bytes(32), "little") % Q for _ in range(L - 3)] + [0, 1, Q - 1]
+    x = limb.from_ints(xs, dev)
+    sign = torch.as_tensor(np.arange(L) % 2, device=dev)
+    (y, ok), (py, pok) = kernels.decompress(x, sign), kernels.decompress_plain(x, sign)
+    assert torch.equal(y, py) and torch.equal(ok, pok)
+    assert 0 < int(ok.sum()) < L

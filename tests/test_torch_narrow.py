@@ -1,11 +1,13 @@
-"""padd and table_flat take their narrow design (one lane per group of 8
-threads) below their thresholds and their wide design (one thread per
-lane) from there.  On the CPU: the kernel library and the torch.cuda calls
-are stubbed, every wrapper runs on meta tensors placed on cuda:0, and the
-entries record the arguments they were given."""
+"""padd, table_flat and reduce_block take their narrow design (each
+addition on a group of 8 threads) below their thresholds and their wide
+design (one thread per (output) lane) from there.  On the CPU: the kernel
+library and the torch.cuda calls are stubbed, every wrapper runs on meta
+tensors placed on cuda:0, and the entries record the arguments they were
+given."""
 
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -144,3 +146,77 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_design():
                    zip(kernels.table_flat_design(p, narrow), kernels.table_flat_plain(p)))
         assert all(torch.equal(a, b) for a, b in
                    zip(kernels.padd_design(p, p, narrow), kernels.padd_plain(p, p)))
+
+
+def _rb_want(w, f):
+    return _want(w // f, kernels.REDUCE_BLOCK_WIDE_LANES)
+
+
+@pytest.mark.parametrize("w,f", kernels.REDUCE_BLOCK_WIDTHS)
+def test_reduce_block_takes_the_design_of_its_output_lanes(entries, w, f):
+    kernels.reduce_block(_pt(w), f)
+    narrow, design = _rb_want(w, f)
+    (name, args), = entries
+    # ..., w, factor, narrow, stream
+    assert name == "bppp_reduce_block" and args[-4:-1] == (w, f, narrow)
+    assert kernels.shape_counts()["reduce_block"] == {f"W={w} f={f} {design}": 1}
+
+
+@pytest.mark.parametrize("f", [2, 4, 8])
+def test_reduce_block_threshold_is_the_first_wide_output_lane_count(entries, f):
+    """One block of output lanes (128) under the threshold runs narrow, the
+    threshold wide, whatever the factor."""
+    wide_from = kernels.REDUCE_BLOCK_WIDE_LANES
+    for n_out, design in ((wide_from - 128, "narrow"), (wide_from, "wide"), (128, "narrow")):
+        kernels.reset_counts()
+        kernels.reduce_block(_pt(n_out * f), f)
+        assert kernels.shape_counts()["reduce_block"] == {f"W={n_out * f} f={f} {design}": 1}
+
+
+def test_reduce_block_threshold_lies_between_measured_widths():
+    """The threshold in output lanes lies between two of the widths the
+    smoke times both designs at, one of which is the threshold: a width
+    under it and one from it, so that both picks are measured."""
+    outs = sorted({w // f for w, f in kernels.REDUCE_BLOCK_WIDTHS})
+    wide_from = kernels.REDUCE_BLOCK_WIDE_LANES
+    assert wide_from % 128 == 0 and outs[0] < wide_from <= outs[-1]
+    below = max(n for n in outs if n < wide_from)
+    above = min(n for n in outs if n >= wide_from)
+    assert below < wide_from <= above
+    assert list(kernels.REDUCE_BLOCK_WIDTHS) == sorted(set(kernels.REDUCE_BLOCK_WIDTHS))
+    assert all(f in (2, 4, 8) and w % (128 * f) == 0 for w, f in kernels.REDUCE_BLOCK_WIDTHS)
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("f", [2, 4, 8])
+def test_reduce_block_design_passes_the_design(entries, narrow, f):
+    kernels.reduce_block_design(_pt(1024 * f), f, narrow)
+    (name, args), = entries
+    assert name == "bppp_reduce_block" and args[-4:-1] == (1024 * f, f, int(narrow))
+    design = "narrow" if narrow else "wide"
+    assert kernels.shape_counts()["reduce_block"] == {f"W={1024 * f} f={f} {design}": 1}
+
+
+@pytest.mark.parametrize("w,f", [(1000, 2), (1024, 3), (1536, 8)])
+def test_reduce_block_design_refuses_widths_off_its_blocks(entries, w, f):
+    for narrow in (False, True):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            kernels.reduce_block_design(_pt(w), f, narrow)
+    assert entries == []
+
+
+@pytest.mark.parametrize("f", [2, 4, 8])
+def test_reduce_block_cpu_tensors_take_the_plain_version_whatever_the_design(f):
+    """Seeded projective lanes: both design entries give the plain
+    version's words."""
+    from bulletproofspp_tpu_torch.ops import limb
+
+    rng = np.random.default_rng(f)
+    p = tuple(torch.as_tensor(rng.integers(0, 1 << 16, size=(16, 128 * f))) for _ in range(3))
+    want = kernels.reduce_block_plain(p, f)
+    launched = kernels.counts()["reduce_block"]
+    for narrow in (False, True):
+        got = kernels.reduce_block_design(p, f, narrow)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(g.shape == (limb.NLIMB, 128) for g in want)
+    assert kernels.counts()["reduce_block"] == launched  # nothing launched

@@ -40,6 +40,7 @@ def _prof(*events):
 _TAIL = "(anonymous namespace)::tail_rows_kernel(long const*, long const*, long)"
 _HORNER = "(anonymous namespace)::horner_warp_kernel(long const*, long const*, long, long)"
 _REDUCE = "void (anonymous namespace)::reduce_block_kernel<8>(long const*, long const*, long)"
+_REDUCE_NARROW = _REDUCE.replace("reduce_block_kernel<8>", "reduce_block_narrow_kernel<2>")
 _STAGED = "(anonymous namespace)::select_reduce_kernel(long const*, long, long, long)"
 _ROWS = "(anonymous namespace)::select_reduce_rows_kernel(long const*, long, long, long)"
 _TF_WIDE = "(anonymous namespace)::table_flat_kernel(long const*, long*, long)"
@@ -67,6 +68,9 @@ CASES = {
     "both designs of padd and table_flat": ({"padd": 5, "table_flat": 4},
                                             [(_PADD_WIDE, 1), (_PADD_NARROW, 4), (_TF_WIDE, 1),
                                              (_TF_NARROW, 3)], True),
+    # reduce_block runs one of its two designs a launch, each a template
+    "both designs of reduce_block": ({"reduce_block": 4}, [(_REDUCE, 1), (_REDUCE_NARROW, 3)],
+                                     True),
     "a missing narrow table_flat": ({"table_flat": 4}, [(_TF_WIDE, 1), (_TF_NARROW, 2)], False),
     "no port kernel in the profile": ({"reduce_block": 1}, [(_TORCH, 1)], False),
 }
@@ -93,7 +97,8 @@ def test_device_time_by_wrapper_sums_both_designs():
     (_PADD_WIDE, {"padd": "padd_kernel|padd_narrow_kernel"}),
     (_PADD_NARROW, {"padd": "padd_kernel|padd_narrow_kernel"}),
     (_TF_NARROW, {"table_flat": "table_flat_kernel|table_flat_narrow_kernel"}),
-    (_REDUCE, {"reduce_block": "reduce_block_kernel"}),
+    (_REDUCE, {"reduce_block": "reduce_block_kernel|reduce_block_narrow_kernel"}),
+    (_REDUCE_NARROW, {"reduce_block": "reduce_block_kernel|reduce_block_narrow_kernel"}),
     (_HORNER, {"horner": "horner_warp_kernel", "tail_horner": "horner_warp_kernel"}),
     (_TORCH, {}),
     (_COPY, {}),
