@@ -239,6 +239,14 @@ def fold(n: int, digits):
     return ops, n * (entries * FE_BYTES + PT_BYTES)
 
 
+def fold_many(n: int, digits):
+    """B provers' folds of n / B lanes each in one launch: the sum of their
+    ``fold`` bounds' work (digits: (B, 4, rows)); the chain is one fold's
+    (``fold_chain``)."""
+    works = [fold(n // len(digits), d) for d in digits]
+    return sum(w[0] for w in works), sum(w[1] for w in works)
+
+
 def select_reduce_fused(absd, sgn):
     batch, rows, L = absd.shape
     n = absd.numel()

@@ -1,16 +1,25 @@
-"""Command-line interface of the PyTorch port: prove / verify / test / batch-verify.
+"""Command-line interface of the PyTorch port: prove / verify / test /
+batch-verify / prove-batch / serve.
 
 Usage:
   python -m bulletproofspp_tpu_torch.cli prove  [spec] [witness] [commits] [proof] [--device cuda|cpu]
   python -m bulletproofspp_tpu_torch.cli verify [spec] [commits] [proof] [--device cuda|cpu]
   python -m bulletproofspp_tpu_torch.cli test   [spec] [witness] [commits] [proof] [--device cuda|cpu]
   python -m bulletproofspp_tpu_torch.cli batch-verify spec coms1 proof1 [coms2 proof2 ...] [--device cuda|cpu]
+  python -m bulletproofspp_tpu_torch.cli prove-batch spec1 wit1 [spec2 wit2 ...] [--out-dir DIR] [--device cuda|cpu]
+  python -m bulletproofspp_tpu_torch.cli serve [--host H] [--port P] [--linger-ms MS] [--max-batch N]
+      [--max-verify-fuse N] [--warm SPEC=WITNESS ...] [--warm-sizes 1,2,4,8,16] [--device cuda|cpu]
 
 Defaults mirror the reference (app/Main.hs): schema.json witness.json
 commits.bin proof.bin.  ``batch-verify`` decodes N same-schema proofs
 (one batched device decompress) and checks them as one merged zero-check
 MSM (``core.batch.batch_verify_encoded``); it prints ``Batch of N:
-True|False`` and exits 0 or 1.
+True|False`` and exits 0 or 1.  ``prove-batch`` proves N (spec, witness)
+pairs, mixed schemas welcome, through ``core.lockstep.prove_many`` (pair i
+with seed ``<randomSeed>#i``) and writes ``commits_i.bin`` and
+``proof_i.bin`` into ``--out-dir``.  ``serve`` runs the proof service
+(``serve.py``) until interrupted and prints ``serving on host:port`` once
+it is bound.
 
 Installs ``TorchEngine(device)`` as the process's engine and runs the
 command on the port's own protocol layer (``core``, ``io_``).  The
@@ -34,7 +43,7 @@ from .core.transcript import decode_scalar, default_blinds, encode_scalar, take_
 from .io_ import schema as schema_mod
 from .ops.engine import TorchEngine
 
-COMMANDS = ("prove", "verify", "test", "batch-verify")
+COMMANDS = ("prove", "verify", "test", "batch-verify", "prove-batch", "serve")
 
 
 def load_points(spec, count: int):
@@ -152,6 +161,96 @@ def _batch_verify_cmd(args) -> int:
     return 0 if ok else 1
 
 
+def _prove_batch_cmd(args) -> int:
+    """Prove N (spec, witness) pairs, mixed schemas welcome, through
+    core.lockstep.prove_many (bucketed by fusion signature, one fused
+    launch sequence per phase per bucket) and write proof_i.bin /
+    commits_i.bin into --out-dir (``bulletproofspp_tpu/cli.py:151-192``)."""
+    import os
+
+    from .core.lockstep import prove_many
+
+    if len(args.files) % 2 != 0:
+        print("prove-batch needs alternating spec/witness file pairs", file=sys.stderr)
+        return 2
+    engine = default_engine()
+    setups = {}  # spec path -> (spec, setup); reuse across repeated specs
+    items = []
+    for i in range(0, len(args.files), 2):
+        spec_path = args.files[i]
+        if spec_path not in setups:
+            with open(spec_path) as f:
+                spec = schema_mod.parse_spec(json.load(f))
+            points = load_points(spec, schema_mod.points_needed(spec))
+            setups[spec_path] = (spec, schema_mod.build_setup(spec, points))
+        spec, setup = setups[spec_path]
+        with open(args.files[i + 1]) as f:
+            wobjs = schema_mod.parse_witness(json.load(f))
+        if len(wobjs) != len(spec.ranges):
+            print(f"{args.files[i + 1]}: different number of values and ranges", file=sys.stderr)
+            return 2
+        values = _resolve_values(spec, wobjs)
+        items.append((setup, values, f"{spec.random_seed}#{i // 2}".encode()))
+    try:
+        proofs = prove_many(items, engine)
+    except ValueError as e:
+        print(f"prove-batch failed: {e}", file=sys.stderr)
+        return 2
+    os.makedirs(args.out_dir, exist_ok=True)
+    for i, ((setup, _v, _s), proof) in enumerate(zip(items, proofs)):
+        coms_bytes, proof_bytes = rpm.encode_proof(setup, proof)
+        with open(os.path.join(args.out_dir, f"commits_{i}.bin"), "wb") as f:
+            f.write(coms_bytes)
+        with open(os.path.join(args.out_dir, f"proof_{i}.bin"), "wb") as f:
+            f.write(proof_bytes)
+    print(f"Wrote {len(proofs)} proofs to {args.out_dir}")
+    return 0
+
+
+def warm_sizes(sizes: str, max_verify_fuse: int) -> tuple:
+    """The batch sizes ``serve`` warms: those of ``--warm-sizes`` (comma
+    separated), and every power of two up to ``max_verify_fuse`` floored to
+    one that is not among them (the verify chunk sizes live traffic can
+    emit)."""
+    out = {int(s) for s in sizes.split(",") if s}
+    fuse_pow2 = 1 << (max_verify_fuse.bit_length() - 1)
+    return tuple(sorted(out | {1 << k for k in range(fuse_pow2.bit_length())}))
+
+
+def _serve_cmd(args) -> int:
+    """Run the dynamic-batching proof service until interrupted."""
+    import threading
+
+    from .serve import ProofServer
+
+    warm_pairs = []
+    for item in args.warm:
+        spec_path, _, wit_path = item.partition("=")
+        if not wit_path:
+            print("--warm needs SPEC.json=WITNESS.json", file=sys.stderr)
+            return 2
+        with open(spec_path) as f:
+            schema_obj = json.load(f)
+        with open(wit_path) as f:
+            witness_list = json.load(f)
+        warm_pairs.append((schema_obj, witness_list))
+    if args.max_verify_fuse < 1:
+        print("--max-verify-fuse must be >= 1", file=sys.stderr)
+        return 2
+    sizes = warm_sizes(args.warm_sizes, args.max_verify_fuse)
+    with ProofServer(args.host, args.port, linger_ms=args.linger_ms, max_batch=args.max_batch,
+                     max_verify_fuse=args.max_verify_fuse) as srv:
+        if warm_pairs:
+            print(f"warming {len(warm_pairs)} schema(s) at sizes {sizes}...", flush=True)
+            srv.service.warm(warm_pairs, sizes)
+        print(f"serving on {args.host}:{srv.port}", flush=True)
+        try:
+            threading.Event().wait()
+        except KeyboardInterrupt:
+            pass
+    return 0
+
+
 def _parser():
     ap = argparse.ArgumentParser(prog="bulletproofspp-tpu-torch",
                                  description="Prove and Verify Bulletproof++ Zero Knowledge Proofs")
@@ -168,12 +267,35 @@ def _parser():
     bp = sub.add_parser("batch-verify", help="verify N same-schema proofs as one merged MSM")
     bp.add_argument("spec")
     bp.add_argument("files", nargs="+", help="alternating coms/proof file pairs")
+    pb = sub.add_parser("prove-batch",
+                        help="prove N (possibly mixed-schema) proofs, bucketed-lockstep fused")
+    pb.add_argument("files", nargs="+", help="alternating spec/witness file pairs")
+    pb.add_argument("--out-dir", default=".")
+    sv = sub.add_parser("serve", help="proof service: TCP newline-JSON server that batches "
+                        "concurrent prove requests into lockstep groups and verify requests "
+                        "into merged zero-check MSMs (serve.py)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=0)
+    sv.add_argument("--linger-ms", type=float, default=5.0)
+    sv.add_argument("--max-batch", type=int, default=64)
+    sv.add_argument("--max-verify-fuse", type=int, default=16,
+                    help="verify chunk cap (per-signature power-of-two chunks)")
+    sv.add_argument("--warm", action="append", default=[], metavar="SPEC.json=WITNESS.json",
+                    help="run the fused shapes of this schema before serving (repeatable; "
+                    "needs a valid witness)")
+    sv.add_argument("--warm-sizes", default="1,2,4,8,16",
+                    help="comma-separated lockstep batch sizes to warm; every power of two up "
+                    "to --max-verify-fuse is added")
     return ap
 
 
 def _run(args) -> int:
     if args.cmd == "batch-verify":
         return _batch_verify_cmd(args)
+    if args.cmd == "prove-batch":
+        return _prove_batch_cmd(args)
+    if args.cmd == "serve":
+        return _serve_cmd(args)
     with open(args.spec) as f:
         spec = schema_mod.parse_spec(json.load(f))
     engine = default_engine()

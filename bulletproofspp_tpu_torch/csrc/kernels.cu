@@ -2,7 +2,8 @@
 //
 // padd, horner, reduce_block, tail_horner, table_flat and select_reduce
 // each replace one Pallas TPU kernel of bulletproofspp_tpu/ops/pallas_field.py;
-// fold replaces the XLA fold_mul_kernel of bulletproofspp_tpu/ops/msm.py.
+// fold replaces the XLA fold_mul_kernel of bulletproofspp_tpu/ops/msm.py, and
+// fold_many its vmap over the provers of a lockstep batch.
 // All keep the contract: (16, N) int64 planes of 16-bit limbs, strict limbs
 // in and out, projective (X:Y:Z) with identity (0:1:0).  Built by
 // ops/kernels.py with nvcc into a shared library with a plain C interface;
@@ -406,6 +407,30 @@ struct FoldDigits {
   uint8_t d[4][kFoldRows];  // de, se, do, so
 };
 
+// One lane's chain on the calling warp: b E_j + a O_j with the digits of
+// ``dig``, stored by lane 0 of the warp (fold and fold_many share it).
+__device__ __forceinline__ void fold_lane_warp(const int64_t* __restrict__ ex,
+                                               const int64_t* __restrict__ ey2,
+                                               const int64_t* __restrict__ ez,
+                                               const int64_t* __restrict__ ox,
+                                               const int64_t* __restrict__ oy2,
+                                               const int64_t* __restrict__ oz,
+                                               const FoldDigits& dig, int64_t* __restrict__ rx,
+                                               int64_t* __restrict__ ry, int64_t* __restrict__ rz,
+                                               int64_t n, int64_t j) {
+  Pt acc = pt_identity();
+#pragma unroll 1
+  for (int r = 0; r < kFoldRows; r++) {
+    const Pt e = table_entry(ex, ey2, ez, n, j, dig.d[0][r], dig.d[1][r]);
+    const Pt o = table_entry(ox, oy2, oz, n, j, dig.d[2][r], dig.d[3][r]);
+#pragma unroll 1
+    for (int k = 0; k < 4; k++) acc = pt_dbl_warp(acc);
+    acc = pt_add_warp(acc, e);
+    acc = pt_add_warp(acc, o);
+  }
+  if ((threadIdx.x & 31) == 0) pt_store(rx, ry, rz, n, j, acc);
+}
+
 __global__ void __launch_bounds__(32 * kFoldWarps)
     fold_kernel(const int64_t* __restrict__ ex, const int64_t* __restrict__ ey2,
                 const int64_t* __restrict__ ez, const int64_t* __restrict__ ox,
@@ -414,18 +439,49 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
                 int64_t* __restrict__ ry, int64_t* __restrict__ rz, int64_t n) {
   for (int64_t j = blockIdx.x * (int64_t)kFoldWarps + threadIdx.x / 32; j < n;
        j += (int64_t)gridDim.x * kFoldWarps) {  // uniform over the warp
-    Pt acc = pt_identity();
-#pragma unroll 1
-    for (int r = 0; r < kFoldRows; r++) {
-      const Pt e = table_entry(ex, ey2, ez, n, j, dig.d[0][r], dig.d[1][r]);
-      const Pt o = table_entry(ox, oy2, oz, n, j, dig.d[2][r], dig.d[3][r]);
-#pragma unroll 1
-      for (int k = 0; k < 4; k++) acc = pt_dbl_warp(acc);
-      acc = pt_add_warp(acc, e);
-      acc = pt_add_warp(acc, o);
-    }
-    if ((threadIdx.x & 31) == 0) pt_store(rx, ry, rz, n, j, acc);
+    fold_lane_warp(ex, ey2, ez, ox, oy2, oz, dig, rx, ry, rz, n, j);
   }
+}
+
+// --- fold_many: jax.vmap(fold_mul_kernel) (bulletproofspp_tpu/ops/msm.py:297,
+// :306): fold over B provers at once, each with its own digit streams, for
+// the lockstep prover (one launch where B provers' folds would take B).
+// The provers' L lanes lie end to end in (16, B L) planes and tables
+// (prover b's lane j at b L + j), so the work and its design are fold's:
+// one warp a lane; warp w runs lane w of the launch, of prover w / L, whose
+// digits are uniform over the warp.  Up to kFoldMaxProvers provers' digits
+// travel by value in the launch, as fold's do (no upload, no
+// synchronization); the wrapper splits a call of more provers into
+// launches of at most that many, each over its provers' lanes.
+constexpr int kFoldMaxProvers = 16;  // ops/kernels.py: FOLD_MAX_PROVERS
+
+struct FoldDigitsMany {
+  FoldDigits p[kFoldMaxProvers];
+};
+
+// a kernel's parameters may take 4 KB: the digits, fold_many's nine
+// pointers and its four int64s
+static_assert(sizeof(FoldDigitsMany) == kFoldMaxProvers * 4 * kFoldRows,
+              "FoldDigitsMany must be 16 provers' 132 bytes, packed");
+static_assert(sizeof(FoldDigitsMany) + 13 * sizeof(int64_t) <= 4096,
+              "fold_many's parameters must fit in 4 KB");
+
+__global__ void __launch_bounds__(32 * kFoldWarps)
+    fold_many_kernel(const int64_t* __restrict__ ex, const int64_t* __restrict__ ey2,
+                     const int64_t* __restrict__ ez, const int64_t* __restrict__ ox,
+                     const int64_t* __restrict__ oy2, const int64_t* __restrict__ oz,
+                     const __grid_constant__ FoldDigitsMany dig, int64_t* __restrict__ rx,
+                     int64_t* __restrict__ ry, int64_t* __restrict__ rz, int64_t n,
+                     int64_t lanes, int64_t first, int64_t count) {
+  for (int64_t w = blockIdx.x * (int64_t)kFoldWarps + threadIdx.x / 32; w < count;
+       w += (int64_t)gridDim.x * kFoldWarps) {  // uniform over the warp
+    fold_lane_warp(ex, ey2, ez, ox, oy2, oz, dig.p[w / lanes], rx, ry, rz, n, first + w);
+  }
+}
+
+inline int fold_blocks(int64_t lanes) {
+  const int64_t b = (lanes + kFoldWarps - 1) / kFoldWarps;
+  return (int)(b > 65535 * 16 ? 65535 * 16 : b);
 }
 
 template <int F>
@@ -551,11 +607,26 @@ int bppp_fold(const int64_t* ex, const int64_t* ey2, const int64_t* ez, const in
               const int64_t* oy2, const int64_t* oz, const void* digits, int64_t* rx,
               int64_t* ry, int64_t* rz, int64_t n, void* stream) {
   if (n > 0) {
-    int64_t b = (n + kFoldWarps - 1) / kFoldWarps;
-    const int blocks = (int)(b > 65535 * 16 ? 65535 * 16 : b);
-    fold_kernel<<<blocks, 32 * kFoldWarps, 0, (cudaStream_t)stream>>>(
+    fold_kernel<<<fold_blocks(n), 32 * kFoldWarps, 0, (cudaStream_t)stream>>>(
         ex, ey2, ez, ox, oy2, oz, *static_cast<const FoldDigits*>(digits), rx, ry, rz, n);
   }
+  return (int)cudaGetLastError();
+}
+
+// digits: kFoldMaxProvers FoldDigits (those past the launch's provers
+// unused); the launch folds lanes [first, first + provers * lanes) of the
+// (16, n) planes.
+int bppp_fold_many(const int64_t* ex, const int64_t* ey2, const int64_t* ez, const int64_t* ox,
+                   const int64_t* oy2, const int64_t* oz, const void* digits, int64_t* rx,
+                   int64_t* ry, int64_t* rz, int64_t n, int64_t lanes, int64_t first,
+                   int64_t provers, void* stream) {
+  if (provers < 1 || provers > kFoldMaxProvers || lanes < 1 || first < 0 ||
+      first + provers * lanes > n) {
+    return (int)cudaErrorInvalidValue;
+  }
+  fold_many_kernel<<<fold_blocks(provers * lanes), 32 * kFoldWarps, 0, (cudaStream_t)stream>>>(
+      ex, ey2, ez, ox, oy2, oz, *static_cast<const FoldDigitsMany*>(digits), rx, ry, rz, n,
+      lanes, first, provers * lanes);
   return (int)cudaGetLastError();
 }
 

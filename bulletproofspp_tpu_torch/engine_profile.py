@@ -2,6 +2,7 @@
 
     python -m bulletproofspp_tpu_torch.engine_profile [--repeat 2] [--plain fold]
     python -m bulletproofspp_tpu_torch.engine_profile --batch 1024 [--repeat 2]
+    python -m bulletproofspp_tpu_torch.engine_profile --lockstep 16
 
 For examples/64bit and examples/128by64: one warm-up prove and verify,
 then ``--repeat`` timed runs of each.  Every ``TorchEngine`` call is
@@ -20,6 +21,15 @@ engine, then times ``core.batch.batch_verify_encoded`` over all of them
 (``decompress``, ``msm``), the rest as host seconds (parsing, transcript
 replay, merging), the number of decompressed points and the merged MSM's
 points and lane bucket.
+
+``--lockstep N`` proves one bucket of N distinct examples/64bit proofs
+(amount 10^9 + i, seed ``lockstep<i>``) through ``core.lockstep.prove_many``
+and the same N one at a time through ``range_proof.prove``, each once to
+warm up, once timed and once under ``torch.profiler``: wall seconds, device
+seconds and the device's idle share, device ms and launches by wrapper,
+and the fold launches of each route (``fold`` one prover a launch,
+``fold_many`` all of a lockstep bucket's); the two routes' proofs must be
+equal byte for byte.
 
 ``--plain NAME`` swaps kernel NAME's wrapper (``ops.kernels``) for its
 plain PyTorch version for the whole run, to see what the kernel saves end
@@ -43,6 +53,7 @@ import torch
 from . import cli
 from .core import range_proof as rpm
 from .core.batch import batch_verify_encoded
+from .core.lockstep import prove_many
 from .io_ import schema as schema_mod
 from .ops import kernels
 from .ops.engine import TorchEngine, _bucket
@@ -178,6 +189,48 @@ def run_batch(setup, blobs, eng, repeat):
                "msm_points": eng.sizes["msm"], "msm_lanes": _bucket(2 * eng.sizes["msm"])}
 
 
+def lockstep_items(n: int):
+    """N examples/64bit items (setup, values, seed): amount 10^9 + i, seed
+    lockstep<i>."""
+    spec, setup, _ = _load("64bit")
+    return [(setup, cli._resolve_values(spec, schema_mod.parse_witness([{"amount": 10**9 + i}])),
+             f"lockstep{i}".encode()) for i in range(n)]
+
+
+def profile_lockstep(n: int, eng):
+    """One lockstep bucket of ``n`` 64bit proofs (``prove_many``) against the
+    same proofs one at a time: for each route, the wall seconds of one run,
+    the device seconds and idle share of another under the profiler, device
+    ms and launches by wrapper, and the fold launches (counted as the
+    difference of ``kernels.counts()``, which are not reset)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    items = lockstep_items(n)
+    routes = {"lockstep": lambda: prove_many(items, eng),
+              "one_at_a_time": lambda: [rpm.prove(s, v, seed, eng) for s, v, seed in items]}
+    out, encoded = {"profile": f"lockstep {n} x 64bit"}, {}
+    for name, fn in routes.items():
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proofs = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        encoded[name] = [rpm.encode_proof(s, p) for (s, _v, _s), p in zip(items, proofs)]
+        before = kernels.counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        after = kernels.counts()
+        device_s, every = device_time(prof, top=None)
+        out[name] = {"wall_s": wall, "device_s": device_s,
+                     "device_idle_share": 1 - device_s / wall, "by_wrapper": by_wrapper(every),
+                     "fold_launches": {k: after[k] - before[k] for k in ("fold", "fold_many")}}
+    if encoded["lockstep"] != encoded["one_at_a_time"]:
+        raise AssertionError("lockstep proofs differ from the ones proved one at a time")
+    return out
+
+
 def profile_prove(name, eng):
     """Device time per kernel over one prove, and the idle share against
     the wall time of one prove without the profiler."""
@@ -244,6 +297,8 @@ def main(argv=None) -> int:
     ap.add_argument("--repeat", type=int, default=2)
     ap.add_argument("--plain", action="append", default=[], choices=sorted(kernels.KERNELS))
     ap.add_argument("--batch", type=int, default=0, help="time a batch verify of N proofs")
+    ap.add_argument("--lockstep", type=int, default=0,
+                    help="profile a lockstep bucket of N 64bit proofs against one at a time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("engine_profile needs a CUDA card")
@@ -251,8 +306,12 @@ def main(argv=None) -> int:
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     for name in args.plain:
         setattr(kernels, name, getattr(kernels, f"{name}_plain"))
-    eng = TimedEngine("cuda")
     tag = "plain " + ",".join(args.plain) if args.plain else "kernels"
+    if args.lockstep:
+        print(json.dumps({"run": tag, **profile_lockstep(args.lockstep, TorchEngine("cuda"))}),
+              flush=True)
+        return 0
+    eng = TimedEngine("cuda")
     if args.batch:
         t0 = time.perf_counter()
         setup, blobs = batch_proofs(range(args.batch), eng)

@@ -17,6 +17,7 @@ Results equal ``HostEngine``'s exactly.
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -76,6 +77,16 @@ def _dp_slice(dp: DevicePoints, n: int) -> DevicePoints:
     return DevicePoints(*(c[:, :n] for c in dp.coords()))
 
 
+def _dp_stack(parts, L: int):
+    """Each DevicePoints padded to L lanes, end to end: (16, B L) coords."""
+    return _dp_cat([_dp_pad(p, L) for p in parts]).coords()
+
+
+def _dp_unstack(coords, count: int, L: int, n: int):
+    """(16, B L) coords -> B DevicePoints, the first n of each L lanes."""
+    return [DevicePoints(*(c[:, i * L:i * L + n] for c in coords)) for i in range(count)]
+
+
 def _interleave_endo(x, y, z):
     """(16, ..., n) lanes -> (16, ..., 2n) [P_i, phi(P_i)] interleaved lanes."""
     e = curve.endo((x, y, z))
@@ -92,6 +103,8 @@ class TorchEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"TorchEngine({device!r}): CUDA is not available")
         self._bv_cache: OrderedDict = OrderedDict()
+        # the lockstep prover's threads share the engine, and with it the cache
+        self._bv_lock = threading.Lock()
 
     # -- point decompression -------------------------------------------------
     def decompress(self, xs, signs):
@@ -120,14 +133,17 @@ class TorchEngine:
             key, pts = points, [points]
         else:
             key, pts = id(points), points
-        hit = self._bv_cache.get(key)
-        if hit is not None and hit[0] is points:
+        with self._bv_lock:
+            hit = self._bv_cache.get(key)
+            if hit is not None and hit[0] is points:
+                self._bv_cache.move_to_end(key)
+                return hit[1]
+        bv = self.basevec(pts)  # outside the lock: two misses of one key both pack it
+        with self._bv_lock:
+            self._bv_cache[key] = (points, bv)
             self._bv_cache.move_to_end(key)
-            return hit[1]
-        bv = self.basevec(pts)
-        self._bv_cache[key] = (points, bv)
-        while len(self._bv_cache) > BV_CACHE_MAX:
-            self._bv_cache.popitem(last=False)
+            while len(self._bv_cache) > BV_CACHE_MAX:
+                self._bv_cache.popitem(last=False)
         return bv
 
     def basevec(self, points) -> DevicePoints:
@@ -236,3 +252,46 @@ class TorchEngine:
             _dp_pad(g0, L).coords(), _dp_pad(g1, L).coords(), de, se, do, so
         )
         return _dp_slice(DevicePoints(*gx), n), _dp_slice(DevicePoints(*hy), n)
+
+    # -- the same for N lockstep provers at once -------------------------------
+    def fold_bv_many(self, calls):
+        """``fold_bv`` for N lockstep provers: calls is a list of (b, a, even,
+        odd) with identical shapes; one table_flat launch a basis and one
+        batched fold launch for all of them
+        (``bulletproofspp_tpu/ops/engine.py:511``)."""
+        if len(calls) == 1:
+            return [self.fold_bv(*calls[0])]
+        evens, odds, digits = [], [], []
+        for b, a, even, odd in calls:
+            even, odd = self.basevec(even), self.basevec(odd)
+            if evens and len(even) != len(evens[0]):
+                raise ValueError("lockstep fold requires identical shapes across provers")
+            evens.append(even)
+            odds.append(odd)
+            digits.append(np.stack([*native.recode_signed(int(b)), *native.recode_signed(int(a))]))
+        n = len(evens[0])
+        L = _bucket(n)
+        out = msm.fold_mul_many(_dp_stack(evens, L), _dp_stack(odds, L), np.stack(digits))
+        return _dp_unstack(out, len(calls), L, n)
+
+    def complete_square_many(self, calls):
+        """``complete_square`` for N lockstep provers: calls is a list of (r,
+        g0s, g1s) with identical shapes; one endomorphism, one batched fold
+        and two padd launches for all of them
+        (``bulletproofspp_tpu/ops/engine.py:477``)."""
+        if len(calls) == 1:
+            return [self.complete_square(*calls[0])]
+        g0s, g1s, digits = [], [], []
+        for r, g0, g1 in calls:
+            g0 = self.basevec(g0)
+            g1 = self.bv_pad(self.basevec(g1), len(g0))
+            if g0s and (len(g0) != len(g0s[0]) or len(g1) != len(g1s[0])):
+                raise ValueError("lockstep complete_square requires identical shapes")
+            g0s.append(g0)
+            g1s.append(g1)
+            k1, k2 = glv.split(int(r) % R)
+            digits.append(np.stack([*native.recode_signed(k1), *native.recode_signed(k2)]))
+        n = len(g0s[0])
+        L = _bucket(n)
+        gx, hy = msm.complete_square_many(_dp_stack(g0s, L), _dp_stack(g1s, L), np.stack(digits))
+        return list(zip(_dp_unstack(gx, len(calls), L, n), _dp_unstack(hy, len(calls), L, n)))

@@ -1,15 +1,17 @@
 """The port's hand-written CUDA kernels, their plain versions and launch counts.
 
-Twelve kernels.  Seven replace Pallas TPU kernels of
+Thirteen kernels.  Seven replace Pallas TPU kernels of
 ``bulletproofspp_tpu/ops/pallas_field.py`` (padd, horner, reduce_block,
 tail_horner, table_flat, select_reduce, and select_reduce_fused for MSMs
 of 2^21 lanes and more); three replace the Pallas kernels of the JAX
 package's measurement tools (sr_variant and grid_copy of
-``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); two
+``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); three
 replace XLA-only functions that as plain PyTorch dominated the card's
 time: fold (``fold_mul_kernel`` of ``bulletproofspp_tpu/ops/msm.py``,
-basis folding in prove) and decompress (``decompress_kernel`` of
-``bulletproofspp_tpu/ops/curve.py``, proof decoding in verify).  Each keeps the contract at the boundary:
+basis folding in prove), fold_many (its vmap over the provers of a
+lockstep batch) and decompress (``decompress_kernel`` of
+``bulletproofspp_tpu/ops/curve.py``, proof decoding in verify).  Each
+keeps the contract at the boundary:
 (16, N) int64 planes of 16-bit limbs, strict in and out (``ops.limb``);
 multiple tables are flat, entry e and limb i of lane j at row 16 e + i
 of a (16 E, N) plane.  Sources: one library per entry file of
@@ -104,6 +106,8 @@ KERNELS = {
                ("select_reduce_kernel|select_reduce_rows_kernel",)),
         Kernel("fold", "kernels.cu", "bppp_fold", [_P] * 10 + [_I64, _P],
                "bulletproofspp_tpu/ops/msm.py:247", ("fold_kernel",)),
+        Kernel("fold_many", "kernels.cu", "bppp_fold_many", [_P] * 10 + [_I64] * 4 + [_P],
+               "bulletproofspp_tpu/ops/msm.py:297", ("fold_many_kernel",)),
         Kernel("select_reduce_fused", "select_reduce_fused.cu", "bppp_select_reduce_fused",
                [_P] * 8 + [_I64, _I64, _I64, _P], "bulletproofspp_tpu/ops/pallas_field.py:615",
                ("select_reduce_fused_kernel",)),
@@ -119,19 +123,27 @@ KERNELS = {
 }
 
 
+# the launch counts are bumped by every thread that launches (the lockstep
+# prover's threads share one engine), so they change under this lock
+_count_lock = threading.Lock()
+
+
 def reset_counts():
-    for k in KERNELS.values():
-        k.launches = 0
-        k.shapes.clear()
+    with _count_lock:
+        for k in KERNELS.values():
+            k.launches = 0
+            k.shapes.clear()
 
 
 def counts() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
+    with _count_lock:
+        return {name: k.launches for name, k in KERNELS.items()}
 
 
 def shape_counts() -> dict:
     """{kernel: {shape: launches}} since the last ``reset_counts``."""
-    return {name: dict(k.shapes) for name, k in KERNELS.items()}
+    with _count_lock:
+        return {name: dict(k.shapes) for name, k in KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -238,8 +250,9 @@ def _launch(name: str, shape: str, dev: torch.device, *args):
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-    k.launches += 1
-    k.shapes[shape] += 1
+    with _count_lock:
+        k.launches += 1
+        k.shapes[shape] += 1
 
 
 def _ptrs(*ts):
@@ -594,6 +607,56 @@ def fold(te, to, digits):
     dev = _check(*(t.view(-1, limb.NLIMB, n)[0] for t in tabs))
     out = _empty((limb.NLIMB, n), tabs[0])
     _launch("fold", f"L={n}", dev, *_ptrs(*tabs), ctypes.addressof(packed), *_ptrs(*out), n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7b. fold_many: fold over B provers at once, each with its own digit streams
+# (``jax.vmap(fold_mul_kernel)``, bulletproofspp_tpu/ops/msm.py:297 and :306)
+# ---------------------------------------------------------------------------
+
+FOLD_MAX_PROVERS = 16  # provers' digits a launch carries (csrc/kernels.cu)
+
+
+def _prover_lanes(te, digits) -> tuple:
+    """(B, L): the provers and the lanes of each, whose L-lane tables lie
+    end to end in ``te``; raises unless digits is (B, 4, ROWS)."""
+    d = np.asarray(digits)
+    n = te[0].shape[1]
+    if d.ndim != 3 or len(d) < 1 or n % len(d):
+        raise ValueError(f"fold_many: digits must be (B, 4, {glv.ROWS}) for B provers of equal "
+                         f"lane counts, got {d.shape} for {n} lanes")
+    return len(d), n // len(d)
+
+
+def fold_many_plain(te, to, digits):
+    """te, to: the flat tables of B provers' L lanes each, end to end ((16
+    E, B L)); digits: (B, 4, ROWS) host ints.  ``fold_plain`` per prover on
+    its lanes; returns (16, B L)."""
+    B, L = _prover_lanes(te, digits)
+    outs = [fold_plain(tuple(t[:, b * L:(b + 1) * L] for t in te),
+                       tuple(t[:, b * L:(b + 1) * L] for t in to), digits[b]) for b in range(B)]
+    return tuple(torch.cat(c, 1) for c in zip(*outs))
+
+
+def fold_many(te, to, digits):
+    """``fold_many_plain`` on the card: one launch per FOLD_MAX_PROVERS
+    provers, each prover's digits packed by value (``fold_digits``) into
+    the launch."""
+    B, L = _prover_lanes(te, digits)
+    packed = [fold_digits(d) for d in digits]
+    if te[0].device.type == "cpu":
+        return fold_many_plain(te, to, digits)
+    tabs = [t.contiguous() for t in (*te, *to)]
+    n = tabs[0].shape[1]
+    dev = _check(*(t.view(-1, limb.NLIMB, n)[0] for t in tabs))
+    out = _empty((limb.NLIMB, n), tabs[0])
+    size = FOLD_MAX_PROVERS * 4 * glv.ROWS
+    for p0 in range(0, B, FOLD_MAX_PROVERS):
+        chunk = packed[p0:p0 + FOLD_MAX_PROVERS]
+        buf = ctypes.create_string_buffer(b"".join(chunk), size)
+        _launch("fold_many", f"B={len(chunk)} L={L}", dev, *_ptrs(*tabs), ctypes.addressof(buf),
+                *_ptrs(*out), n, L, p0 * L, len(chunk))
     return out
 
 

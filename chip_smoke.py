@@ -29,8 +29,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      sign 1, each launch checked to take the design its lane count picks
      and to equal the other design, and at 65,536 lanes; fold at 16, 520
      and 512 lanes, zero digits
-     with sign 1 in both streams at 16 and 520): the normalized outputs
-     must be equal limb for limb.  Time both: a kernel's launches back to
+     with sign 1 in both streams at 16 and 520; fold_many, the batched
+     fold of the lockstep prover, at B = 2 and 16 provers of L = 16 and 512
+     lanes, each prover with its own digits and prover 0's streams with
+     zero digits and sign 1, timed in turns with the B single-prover fold
+     launches on the same lanes, and at B = 1 equal word for word to
+     fold): the normalized outputs must be equal limb for limb.  Time both: a kernel's launches back to
      back (enqueued while the stream sleeps), a plain version's as the host
      sends them.  select_reduce is timed in turns with its yardsticks on
      the same inputs: at 4,096 lanes (its gather design) with sr_variant
@@ -70,7 +74,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      then, counted
      from 0, the port's bench in-process at 32,768 points (tabled =
      untabled = the host answer, every IQR under 10%) and the mains of
-     tools.r5_experiments and tools.phase_bench once each.
+     tools.r5_experiments and tools.phase_bench once each;
+  9. the batch prover: counted from 0, the port's CLI ``prove-batch`` over
+     32 items of examples/ (16 x 64bit, a full lockstep chunk; 4 each of
+     32bit, rec_test and bin_test; 2 each of 64by64 and 128by64): every
+     proof and commitment equal byte for byte to ``range_proof.prove``
+     through ``TorchEngine`` one at a time with the same setup, values and
+     seed (``<randomSeed>#i``), two of them also to ``HostEngine``'s, every
+     proof verifies, and fold_many launched with a 16-prover shape among
+     its launches; logged: the CLI's wall seconds, and in this process the
+     seconds of the same proofs through ``prove_many`` and one at a time,
+     and the fold launches of both routes; then ``engine_profile``'s
+     lockstep profile (16 64bit proofs in one bucket against one at a
+     time);
+  10. the proof service: ``serve.ProofServer`` in this process on
+     ``TorchEngine``, warmed with 64bit at sizes 1 to 16; counted from 0,
+     over one pipelined connection 16 64bit and 2 128by64 prove requests
+     with phase 9's seeds (answers equal to phase 9's bytes), 8 verifies
+     of phase 9's proofs (valid) and one with a flipped byte (not valid),
+     and a malformed request (ok false, its batchmates unharmed); then
+     ``stats`` (18 proved, 9 verified); then the CLI's ``serve`` as a
+     subprocess, which must print ``serving on host:port`` and answer one
+     verify request before it is terminated.
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
@@ -79,10 +104,11 @@ main paths' shape; select_reduce_fused at 4,096 lanes and at 2^21, its
 route; padd at 1,056 lanes, the halving trees' commonest, and 65,536;
 table_flat at 16, fold's, and 4,096; reduce_block at W = 33,792, f = 8,
 the bench's second launch, and W = 16,896, f = 4, cli test's commonest;
-decompress at 16 lanes, cli test's smallest, and 16,384), the kernel's
-launch count (summed over the main-path runs of phases 3, 6, 7 and 8,
-each counted from 0) in all, by path (``launches_by_path``: cli_test, msm_2_21, batch_verify,
-measurement), by design and path for padd, table_flat, reduce_block and
+decompress at 16 lanes, cli test's smallest, and 16,384; fold_many at B =
+2 and 16 of L = 16 and 512), the kernel's
+launch count (summed over the main-path runs of phases 3, 6, 7, 8, 9 and
+10, each counted from 0) in all, by path (``launches_by_path``: cli_test,
+msm_2_21, batch_verify, measurement, prove_batch, serve), by design and path for padd, table_flat, reduce_block and
 select_reduce (``launches_by_design``) and by shape, largest normalized
 difference, times (for padd, table_flat and reduce_block the design the
 wrapper takes, from the in-turns timings), bound (``bounds``:
@@ -90,7 +116,7 @@ the larger of its 32-bit multiplies over the card's rate and its bytes
 over 3.35 TB/s; for chain's ten launches the sum of theirs) and, for grid_copy, the time of one PyTorch call that
 computes the same function (``library_ms``; null where there is none).
 The kernel lines of phase 2, and the JSON line (``chain``), also give, for
-tail_horner, horner, fold, select_reduce_fused, padd, table_flat and
+tail_horner, horner, fold, fold_many, select_reduce_fused, padd, table_flat and
 reduce_block, the time per point operation and per product round of the
 kernel's longest dependent chain (``bounds.*_chain``; padd's, table_flat's
 and reduce_block's by design), and for decompress the time per dependent
@@ -121,6 +147,10 @@ ROWS = 33
 WIDE_LANES = 1 << 21  # msm.SCRATCH_TABLE_MIN_L: the fused kernel's route
 BATCH_N, BATCH_BAD = 1024, 517
 DECOMPRESS_L = 16384  # the 1,024-proof batch's decompress bucket
+# phase 9's items: (example, count); 16 64bit proofs fill one lockstep chunk
+PROVE_BATCH = (("64bit", 16), ("32bit", 4), ("rec_test", 4), ("bin_test", 4), ("64by64", 2),
+               ("128by64", 2))
+FOLD_MANY_CASES = ((2, 16), (16, 16), (2, 512), (16, 512))  # (provers, lanes of each)
 
 MEASURE_L = 65536  # the measurement tools' width (32,768 points)
 SR_CASES = ((1024, 128, False), (1024, 128, True), (512, 128, False), (512, 256, False),
@@ -578,6 +608,7 @@ def check_kernels(dev):
     rows.append(("fold", err, time_ms(lambda: kernels.fold(e, o, digits), 10),
                  time_ms(lambda: kernels.fold_plain(e, o, digits), 1, paced=True), "L=512 rows=33",
                  bounds.fold(512, digits)))
+    rows += check_fold_many(dev, rng)
     rows += check_fused(dev, rng)
 
     rows += check_decompress(dev, rng)
@@ -586,7 +617,7 @@ def check_kernels(dev):
     mhz = bounds.card()["sm_clock_max_mhz"]
     # longest dependent chains (point ops, product rounds) at the rows' shapes
     chains = {"tail_horner": bounds.tail_horner_chain(ROWS), "horner": bounds.horner_chain(ROWS),
-              "fold": bounds.fold_chain(ROWS),
+              "fold": bounds.fold_chain(ROWS), "fold_many": bounds.fold_chain(ROWS),
               "select_reduce_fused": bounds.select_reduce_fused_chain(ROWS)}
     out = collections.defaultdict(list)
     for name, err, ms, plain_ms, shape, work, *extra in rows:
@@ -612,6 +643,65 @@ def check_kernels(dev):
             f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}){lib_s}{chain_s}")
     log(f"bounds at the maximum SM clock of {mhz} MHz (nvidia-smi clocks.max.sm)")
     return out
+
+
+def prover_digits(B: int, rng):
+    """(B, 4, ROWS) fold digits, each prover's own scalars; prover 0's
+    streams have rows of zero digits with sign 1."""
+    from bulletproofspp_tpu_torch.ops import glv
+
+    out = []
+    for _ in range(B):
+        b, a = (int(v) << 64 for v in rng.integers(1, 2**62, size=2))
+        out.append(np.stack([*glv.recode_signed(-b), *glv.recode_signed(a)]))
+    out[0][0, :3], out[0][1, :3] = 0, 1
+    out[0][2, 5:9], out[0][3, 5:9] = 0, 1
+    return np.stack(out)
+
+
+def plain_once(fn):
+    """One call of a plain version between two CUDA events: (ms, its output)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def check_fold_many(dev, rng):
+    """Phase 2, fold_many at FOLD_MANY_CASES: B provers' L lanes end to end
+    (about 1/8 identity lanes), digits per prover (``prover_digits``), equal
+    to its plain version; at B = 1 (each case's first prover) equal word for
+    word to fold; timed in turns with the B single-prover fold launches on
+    the same lanes (the per-proof route of the lockstep prover), the ratio
+    and B x one fold logged.  Returns a row for each case."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    rows = []
+    for B, L in FOLD_MANY_CASES:
+        e = kernels.table_flat(random_points(B * L, rng, dev)[0])
+        o = kernels.table_flat(random_points(B * L, rng, dev)[0])
+        digits = prover_digits(B, rng)
+        got = kernels.fold_many(e, o, digits)
+        plain_ms, want = plain_once(lambda: kernels.fold_many_plain(e, o, digits))
+        err = compare(f"fold_many B={B} L={L}", got, want)
+        per = [(tuple(t[:, b * L:(b + 1) * L].contiguous() for t in e),
+                tuple(t[:, b * L:(b + 1) * L].contiguous() for t in o)) for b in range(B)]
+        same_raw(f"fold_many B=1 L={L} against fold", kernels.fold_many(*per[0], digits[:1]),
+                 kernels.fold(*per[0], digits[0]))
+        means, both = in_turns({
+            "fold_many": lambda: kernels.fold_many(e, o, digits),
+            "B folds": lambda: [kernels.fold(pe, po, d) for (pe, po), d in zip(per, digits)]}, 5)
+        one = time_ms(lambda: kernels.fold(*per[0], digits[0]), 5)
+        log(f"fold_many B={B} L={L}: equal to its plain version, and at B = 1 to fold word for "
+            f"word; in turns (ms) {json.dumps(both)}; fold_many / B folds "
+            f"{means['fold_many'] / means['B folds']:.4f}; B x one fold {B * one:.4f} ms")
+        rows.append(("fold_many", err, means["fold_many"], plain_ms, f"B={B} L={L} rows={ROWS}",
+                     bounds.fold_many(B * L, digits), {"chain": bounds.fold_chain(ROWS)}))
+    return rows
 
 
 def check_measurement_kernels(dev, rng):
@@ -950,6 +1040,166 @@ def batch_1024(dev, work):
     return shapes
 
 
+def example_files(name):
+    return tuple(os.path.join(HERE, "examples", name, f) for f in ("schema.json", "witness.json"))
+
+
+def prove_batch_phase(dev, work):
+    """Phase 9: the CLI's prove-batch over PROVE_BATCH, against proving one
+    at a time.  Returns the launches by shape of the CLI run and {item:
+    (name, seed, commitment bytes, proof bytes)}."""
+    from bulletproofspp_tpu_torch import cli, engine_profile
+    from bulletproofspp_tpu_torch.core import range_proof as rpm
+    from bulletproofspp_tpu_torch.core.engine import HostEngine
+    from bulletproofspp_tpu_torch.core.lockstep import prove_many
+    from bulletproofspp_tpu_torch.io_ import schema as schema_mod
+    from bulletproofspp_tpu_torch.ops import kernels
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    names = [name for name, k in PROVE_BATCH for _ in range(k)]
+    out = os.path.join(work, "prove_batch")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = run_cli(["prove-batch", *(f for n in names for f in example_files(n)), "--out-dir", out])
+    batch_s = time.perf_counter() - t0
+    launches, shapes = kernels.counts(), kernels.shape_counts()
+    if rc != 0:
+        raise AssertionError(f"prove-batch rc {rc}")
+    if not any(s.startswith("B=16 ") for s in shapes["fold_many"]):
+        raise AssertionError(f"prove-batch launched no 16-prover fold_many: {shapes['fold_many']}")
+    setups = {}
+    for name in set(names):
+        spec_path, wit_path = example_files(name)
+        with open(spec_path) as f:
+            spec = schema_mod.parse_spec(json.load(f))
+        setup = schema_mod.build_setup(spec, cli.load_points(spec, schema_mod.points_needed(spec)))
+        with open(wit_path) as f:
+            values = cli._resolve_values(spec, schema_mod.parse_witness(json.load(f)))
+        setups[name] = (spec, setup, values)
+    eng = TorchEngine(dev)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    items = {}
+    for i, name in enumerate(names):
+        spec, setup, values = setups[name]
+        seed = f"{spec.random_seed}#{i}".encode()
+        blobs = rpm.encode_proof(setup, rpm.prove(setup, values, seed, eng))
+        torch.cuda.synchronize()
+        with open(os.path.join(out, f"commits_{i}.bin"), "rb") as f, \
+                open(os.path.join(out, f"proof_{i}.bin"), "rb") as g:
+            if (f.read(), g.read()) != blobs:
+                raise AssertionError(f"prove-batch item {i} ({name}) differs from proving it alone")
+        items[i] = (name, seed, *blobs)
+    seq_s = time.perf_counter() - t0
+    seq = kernels.counts()
+    # the same proofs through prove_many in this process, setups built (the
+    # CLI's wall time above also holds its setups, file reads and writes)
+    triples = [(setups[name][1], setups[name][2], seed) for name, seed, *_ in items.values()]
+    t0 = time.perf_counter()
+    fused = prove_many(triples, eng)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    if [rpm.encode_proof(s, p) for (s, _v, _s), p in zip(triples, fused)] != \
+            [tuple(item[2:]) for item in items.values()]:
+        raise AssertionError("prove_many's proofs differ from the CLI's")
+    for i in (0, 16):  # a 64bit and a 32bit proof
+        name, seed, coms_b, proof_b = items[i]
+        _, setup, values = setups[name]
+        if rpm.encode_proof(setup, rpm.prove(setup, values, seed, HostEngine())) != (coms_b, proof_b):
+            raise AssertionError(f"prove-batch item {i} ({name}) differs from HostEngine's bytes")
+    for i, (name, _seed, coms_b, proof_b) in items.items():
+        setup = setups[name][1]
+        if not rpm.verify(setup, rpm.decode_proof(setup, coms_b, proof_b, engine=eng), eng):
+            raise AssertionError(f"prove-batch item {i} ({name}) does not verify")
+    log(f"prove-batch of {len(names)} ({', '.join(f'{k} x {n}' for n, k in PROVE_BATCH)}): equal "
+        f"byte for byte to proving one at a time (items 0 and 16 also to HostEngine's), every "
+        f"proof verifies; wall {batch_s:.3f} s (the CLI, setups and files included); the same "
+        f"proofs in this process {fused_s:.3f} s through prove_many, {seq_s:.3f} s one at a time; fold "
+        f"launches: prove-batch fold {launches['fold']}, fold_many {launches['fold_many']} "
+        f"{json.dumps(shapes['fold_many'])}; one at a time fold {seq['fold']}, fold_many "
+        f"{seq['fold_many']}")
+    log(f"lockstep profile: {json.dumps(engine_profile.profile_lockstep(16, TorchEngine(dev)))}")
+    return shapes, items
+
+
+def serve_phase(dev, items):
+    """Phase 10: the proof service in this process, then the CLI's serve as
+    a subprocess.  Returns the launches by shape of the served requests."""
+    from bulletproofspp_tpu_torch import serve
+    from bulletproofspp_tpu_torch.ops import kernels
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    objs = {}
+    for name in ("64bit", "128by64"):
+        objs[name] = []
+        for path in example_files(name):
+            with open(path) as f:
+                objs[name].append(json.load(f))
+    proves = [i for i, (name, *_) in items.items() if name in objs]
+    flipped = bytearray(items[8][3])
+    flipped[31] ^= 1
+    reqs = [{"id": i, "op": "prove", "schema": objs[items[i][0]][0],
+             "witness": objs[items[i][0]][1], "seed": items[i][1].hex()} for i in proves]
+    reqs += [{"id": f"v{i}", "op": "verify", "schema": objs["64bit"][0],
+              "commits": items[i][2].hex(), "proof": items[i][3].hex()} for i in range(8)]
+    reqs += [{"id": "flipped", "op": "verify", "schema": objs["64bit"][0],
+              "commits": items[8][2].hex(), "proof": bytes(flipped).hex()},
+             {"id": "malformed", "op": "prove", "schema": objs["64bit"][0], "witness": []}]
+    with serve.ProofServer(port=0, engine=TorchEngine(dev), linger_ms=500) as srv:
+        t0 = time.perf_counter()
+        srv.service.warm([tuple(objs["64bit"])], sizes=(1, 2, 4, 8, 16))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        resps = serve.request("127.0.0.1", srv.port, reqs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        shapes = kernels.shape_counts()
+        stats = serve.request("127.0.0.1", srv.port, [{"op": "stats"}])[0]
+    got = {r["id"]: r for r in resps}
+    for i in proves:
+        r = got[i]
+        if not r["ok"] or (bytes.fromhex(r["commits"]), bytes.fromhex(r["proof"])) != items[i][2:]:
+            raise AssertionError(f"served proof {i} ({items[i][0]}) differs from phase 9's bytes")
+    if [got[f"v{i}"].get("valid") for i in range(8)] != [True] * 8:
+        raise AssertionError(f"a served verify of a valid proof failed: {resps}")
+    if got["flipped"] != {"id": "flipped", "ok": True, "valid": False}:
+        raise AssertionError(f"the flipped proof answered {got['flipped']}")
+    if got["malformed"]["ok"] is not False:
+        raise AssertionError(f"the malformed request answered {got['malformed']}")
+    if (stats["proved"], stats["verified"]) != (len(proves), 9):
+        raise AssertionError(f"stats: {stats}")
+    if not any(s.startswith("B=16 ") for s in shapes["fold_many"]):
+        raise AssertionError(f"the service launched no 16-prover fold_many: {shapes['fold_many']}")
+    log(f"serve: warm (64bit, sizes 1-16) {warm_s:.3f} s; {len(reqs)} pipelined requests "
+        f"answered in {secs:.3f} s ({len(proves)} proves equal to phase 9's bytes, 8 valid, the "
+        f"flipped one not, the malformed one ok false); stats {json.dumps(stats)}; fold_many "
+        f"{json.dumps(shapes['fold_many'])}")
+
+    proc = subprocess.Popen([sys.executable, "-m", "bulletproofspp_tpu_torch.cli", "serve",
+                             "--port", "0", "--device", "cuda"], cwd=HERE,
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        if not line.startswith("serving on "):
+            raise AssertionError(f"cli serve printed {line!r}")
+        host, port = line.split()[-1].rsplit(":", 1)
+        [r] = serve.request(host, int(port), [reqs[len(proves)]])
+        if r != {"id": "v0", "ok": True, "valid": True}:
+            raise AssertionError(f"cli serve answered {r}")
+        log(f"cli serve: {line.strip()}, answered a verify, {time.perf_counter() - t0:.3f} s")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return shapes
+
+
 def measurement_path():
     """Phase 8: counted from 0, the port's bench at 32,768 points and the
     two tools' mains, all in this process."""
@@ -1017,19 +1267,27 @@ def main() -> int:
         main_path(work)
         launches, cli_shapes = kernels.counts(), kernels.shape_counts()
         log(f"launches on the main path: {launches}")
-        require_launched("cli test", launches,
-                         set(launches) - {"select_reduce_fused", "sr_variant", "grid_copy", "chain"})
+        require_launched("cli test", launches, set(launches) - {
+            "select_reduce_fused", "sr_variant", "grid_copy", "chain", "fold_many"})
         require_port_only()
         prove_verify_times(work)
         measured = measurement_path()  # before any other torch.profiler session
         wide = msm_wide(dev)
         batch = batch_1024(dev, work)
+        prove_batch, batch_items = prove_batch_phase(dev, work)
+        require_launched("prove-batch", {k: sum(v.values()) for k, v in prove_batch.items()},
+                         {"padd", "horner", "tail_horner", "table_flat", "fold_many"})
+        require_port_only()
+        served = serve_phase(dev, batch_items)
+        require_launched("serve", {k: sum(v.values()) for k, v in served.items()},
+                         {"padd", "table_flat", "fold_many", "decompress"})
+        require_port_only()
     finally:
         os.chdir(HERE)
         shutil.rmtree(work, ignore_errors=True)
     require_port_only()
     paths = {"cli_test": cli_shapes, "msm_2_21": wide, "batch_verify": batch,
-             "measurement": measured}
+             "measurement": measured, "prove_batch": prove_batch, "serve": served}
     shapes = {k: collections.Counter() for k in launches}
     for run in paths.values():
         for k, by_shape in run.items():

@@ -1,0 +1,153 @@
+"""The batched fold of the lockstep prover on the CPU: ``msm.fold_mul_many``
+and ``msm.complete_square_many`` (the plain versions of the fold_many
+kernel, B provers' lanes end to end) against the JAX package's vmapped
+kernels (``jax.vmap(fold_mul_kernel)`` and ``jax.vmap(_csq_with_endo)``,
+``bulletproofspp_tpu/ops/msm.py:297`` and ``:306``) on the same numpy-seeded
+planes and digits, limb for limb after normalization (tolerance 0: they are
+integers); the wrapper's checks, its launches split by FOLD_MAX_PROVERS,
+and its bound."""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from bulletproofspp_tpu.core import ec  # noqa: E402
+from bulletproofspp_tpu.core.fields import R  # noqa: E402
+from bulletproofspp_tpu.ops import limb as jlimb  # noqa: E402
+from bulletproofspp_tpu.ops import msm as jmsm  # noqa: E402
+from bulletproofspp_tpu_torch import bounds  # noqa: E402
+from bulletproofspp_tpu_torch.ops import curve, glv, kernels, limb, msm  # noqa: E402
+
+B, L = 3, 16
+
+
+def _planes(pts):
+    cols = [[], [], []]
+    for p in pts:
+        for c, v in zip(cols, (0, 1, 0) if p is None else (p[0], p[1], 1)):
+            c.append(v)
+    return np.stack([jlimb.pack_ints(c) for c in cols])
+
+
+def _lanes(rng):
+    """(B, 3, 16, L) uint32 planes: random multiples of G, a few identities."""
+    out = []
+    for _ in range(B):
+        pts = [ec.scalar_mul(int(k), ec.G) for k in rng.integers(1, 2**62, size=L)]
+        pts[int(rng.integers(0, L))] = None
+        out.append(_planes(pts))
+    return np.stack(out)
+
+
+def _digits(rng, split=False):
+    """(B, 4, 33): each prover's own scalars; prover 1's E stream has zero
+    digits with sign 1 (they select (0 : -1 : 0))."""
+    rows = []
+    for _ in range(B):
+        if split:
+            k1, k2 = glv.split(int(rng.integers(1, 2**62)) ** 4 % R)
+        else:
+            k1 = -int(rng.integers(1, 2**62)) << 64
+            k2 = int(rng.integers(1, 2**62)) << 60
+        rows.append(np.stack([*glv.recode_signed(k1), *glv.recode_signed(k2)]))
+    d = np.stack(rows).astype(np.uint32)
+    d[1, 0, :3], d[1, 1, :3] = 0, 1
+    assert len({d[b].tobytes() for b in range(B)}) == B
+    return d
+
+
+def _stacked_port(arr):
+    """(B, 3, 16, L) numpy planes -> port (16, B L) planes, prover b at b L."""
+    return tuple(limb.planes_from_numpy(np.concatenate(list(arr[:, c]), -1), "cpu")
+                 for c in range(3))
+
+
+def _canon_port(p):
+    return limb.planes_to_numpy(curve.normalize3(*p))
+
+
+def _canon_jax(p):
+    """(B, 16, L) vmapped outputs -> (3, 16, B L) normalized planes."""
+    return np.stack([np.asarray(jlimb.normalize(jnp.moveaxis(c, 0, 1))).reshape(16, -1) for c in p])
+
+
+def test_fold_mul_many_matches_the_vmapped_jax_kernel():
+    rng = np.random.default_rng(90)
+    e, o, d = _lanes(rng), _lanes(rng), _digits(rng)
+    got = msm.fold_mul_many(_stacked_port(e), _stacked_port(o), d)
+    want = jmsm._fold_many_compiled(*(jnp.asarray(e[:, c]) for c in range(3)),
+                                    *(jnp.asarray(o[:, c]) for c in range(3)),
+                                    *(jnp.asarray(d[:, q]) for q in range(4)))
+    assert np.array_equal(_canon_port(got), _canon_jax(want))
+    for b in range(B):  # and per prover, the single fold on its lanes
+        one = msm.fold_mul(_stacked_port(e[b:b + 1]), _stacked_port(o[b:b + 1]), *d[b])
+        assert np.array_equal(_canon_port(one), _canon_port(got)[:, :, b * L:(b + 1) * L])
+
+
+def test_complete_square_many_matches_the_vmapped_jax_kernel():
+    rng = np.random.default_rng(91)
+    g0, g1, d = _lanes(rng), _lanes(rng), _digits(rng, split=True)
+    gx, hy = msm.complete_square_many(_stacked_port(g0), _stacked_port(g1), d)
+    want = jmsm._csq_many_compiled(*(jnp.asarray(g0[:, c]) for c in range(3)),
+                                   *(jnp.asarray(g1[:, c]) for c in range(3)),
+                                   *(jnp.asarray(d[:, q]) for q in range(4)))
+    assert np.array_equal(_canon_port(gx), _canon_jax(want[:3]))
+    assert np.array_equal(_canon_port(hy), _canon_jax(want[3:]))
+
+
+def test_fold_many_wrapper_on_cpu_takes_the_plain_version_and_checks_digits():
+    rng = np.random.default_rng(92)
+    te = kernels.table_flat_plain(_stacked_port(_lanes(rng)))
+    to = kernels.table_flat_plain(_stacked_port(_lanes(rng)))
+    d = _digits(rng)
+    kernels.reset_counts()
+    got = kernels.fold_many(te, to, d)
+    assert kernels.counts()["fold_many"] == 0
+    assert torch.equal(curve.normalize3(*got), curve.normalize3(*kernels.fold_many_plain(te, to, d)))
+    with pytest.raises(ValueError, match="fold_many: digits must be"):
+        kernels.fold_many(te, to, d[0])  # one prover's (4, 33): not (B, 4, 33)
+    with pytest.raises(ValueError, match="fold_many: digits must be"):
+        kernels.fold_many(te, to, np.concatenate([d, d[:2]]))  # 5 provers of 48 lanes
+    bad = d.copy()
+    bad[2, 0, 5] = 9
+    with pytest.raises(ValueError, match="fold digits"):
+        kernels.fold_many(te, to, bad)
+
+
+def test_fold_many_splits_into_launches_of_at_most_16_provers(monkeypatch):
+    """On a CUDA tensor (stubbed here) 20 provers take two launches, of 16
+    and 4, over lanes [0, 16 L) and [16 L, 20 L) of the same planes, each
+    with its provers' digits packed by value."""
+    seen = []
+
+    def launch(name, shape, dev, *args):
+        packed = ctypes.string_at(args[6], kernels.FOLD_MAX_PROVERS * 132)
+        seen.append((name, shape, args[-4:], packed))
+
+    monkeypatch.setattr(kernels, "_launch", launch)
+    monkeypatch.setattr(kernels, "_check", lambda *planes: torch.device("cuda", 0))
+    monkeypatch.setattr(kernels, "_empty", lambda shape, like: tuple(
+        torch.zeros(shape, dtype=torch.int64, device="meta") for _ in range(3)))
+    n = 20 * L
+    meta = [torch.zeros((16 * e, n), dtype=torch.int64, device="meta") for e in (9, 18, 9)]
+    rng = np.random.default_rng(93)
+    d = np.stack([_digits(rng)[b % B] for b in range(20)])
+    kernels.fold_many(meta, meta, d)
+    assert [(s[0], s[1], s[2]) for s in seen] == [
+        ("fold_many", f"B=16 L={L}", (n, L, 0, 16)), ("fold_many", f"B=4 L={L}", (n, L, 16 * L, 4))]
+    assert seen[0][3] == b"".join(kernels.fold_digits(x) for x in d[:16])
+    assert seen[1][3] == b"".join(kernels.fold_digits(x) for x in d[16:]) + bytes(12 * 132)
+
+
+def test_fold_many_bound_is_the_sum_of_the_provers_folds():
+    rng = np.random.default_rng(94)
+    d = _digits(rng)
+    ops, nbytes = bounds.fold_many(B * L, d)
+    parts = [bounds.fold(L, x) for x in d]
+    assert (ops, nbytes) == (sum(p[0] for p in parts), sum(p[1] for p in parts))
+    assert ops == B * bounds.fold(L, d[0])[0]  # the multiplies do not depend on the digits

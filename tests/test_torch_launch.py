@@ -94,6 +94,7 @@ CALLS = {
     "select_reduce": lambda: kernels.select_reduce(_tables(1024), _meta(1, 3, 1024),
                                                    _meta(1, 3, 1024)),
     "fold": lambda: kernels.fold(_tables(16), _tables(16), _DIGITS),
+    "fold_many": lambda: kernels.fold_many(_tables(32), _tables(32), np.stack([_DIGITS] * 2)),
     "select_reduce_fused": lambda: kernels.select_reduce_fused(_pt(1024), _meta(1, 3, 1024),
                                                                _meta(1, 3, 1024)),
     "decompress": lambda: kernels.decompress(_meta(16, 64), _meta(64)),
