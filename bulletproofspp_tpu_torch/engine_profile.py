@@ -3,6 +3,7 @@
     python -m bulletproofspp_tpu_torch.engine_profile [--repeat 2] [--plain fold]
     python -m bulletproofspp_tpu_torch.engine_profile --batch 1024 [--repeat 2]
     python -m bulletproofspp_tpu_torch.engine_profile --lockstep 16
+    python -m bulletproofspp_tpu_torch.engine_profile --mp 4
 
 For examples/64bit and examples/128by64: one warm-up prove and verify,
 then ``--repeat`` timed runs of each.  Every ``TorchEngine`` call is
@@ -31,6 +32,16 @@ and the fold launches of each route (``fold`` one prover a launch,
 ``fold_many`` all of a lockstep bucket's); the two routes' proofs must be
 equal byte for byte.
 
+``--mp P`` proves examples/128by64 with P parties (contiguous slices of its
+ranges, seeds ``mp party <k>``) on threads and the dealer on another, all
+on one ``TorchEngine`` (``mp-prove --local``'s route), and the same schema
+once by one prover (``range_proof.prove``), each once to warm up, once
+timed and once under ``torch.profiler``: wall and device seconds, the
+idle share, device ms and launches by wrapper, and the fold, table_flat
+and select_reduce launches, for the multiparty route split at the moment
+the dealer holds every party's final share (before it: the parties'
+phase commitments; after it: the dealer's argument rounds).
+
 ``--plain NAME`` swaps kernel NAME's wrapper (``ops.kernels``) for its
 plain PyTorch version for the whole run, to see what the kernel saves end
 to end.  Output: the card's ``nvidia-smi`` line, then one JSON object per
@@ -54,6 +65,7 @@ from . import cli
 from .core import range_proof as rpm
 from .core.batch import batch_verify_encoded
 from .core.lockstep import prove_many
+from .core.multiparty import LocalChannel
 from .io_ import schema as schema_mod
 from .ops import kernels
 from .ops.engine import TorchEngine, _bucket
@@ -231,6 +243,86 @@ def profile_lockstep(n: int, eng):
     return out
 
 
+MP_CASE = "128by64"
+MP_COUNTED = ("fold", "table_flat", "select_reduce")
+
+
+class _ShareClock:
+    """A party's in-process channel that notes, on the dealer's side, the
+    clock and the launch counts when the party's final share arrives."""
+
+    def __init__(self):
+        self.inner = LocalChannel()
+        self.at = None
+
+    def send(self, msg):
+        self.inner.send(msg)
+
+    def recv(self):
+        return self.inner.recv()
+
+    def dealer_send(self, msg):
+        self.inner.dealer_send(msg)
+
+    def dealer_recv(self):
+        msg = self.inner.dealer_recv()
+        if msg[0] == "done":
+            self.at = (time.perf_counter(), kernels.counts())
+        return msg
+
+
+def run_multiparty(setup, values, seeds, eng, party_eng=None):
+    """``cli.mp_prove_local`` (the dealer on ``eng``, ``len(seeds)`` parties
+    on ``party_eng``, default ``eng``, each on a thread): (proof, (clock,
+    launch counts) when the dealer held every party's final share)."""
+    chans = [_ShareClock() for _ in seeds]
+    proof = cli.mp_prove_local(setup, values, seeds, eng, party_eng or eng, chans)
+    return proof, max(ch.at for ch in chans)
+
+
+def profile_multiparty(parties: int, eng, case: str = MP_CASE):
+    """Example ``case`` by ``parties`` parties and the dealer on threads over
+    one engine, against one prover: for each route the wall seconds of one run
+    and its fold, table_flat and select_reduce launches (the multiparty
+    route's split into the parties' and the dealer's), then the device
+    seconds, idle share and device ms by wrapper of another run under the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spec, setup, values = _load(case)
+    seeds = [f"mp party {k}".encode() for k in range(parties)]
+    routes = {"multiparty": lambda: run_multiparty(setup, values, seeds, eng),
+              "one_prover": lambda: (rpm.prove(setup, values, spec.random_seed.encode(), eng),
+                                     None)}
+    out = {"profile": f"multiparty {parties} x {case}"}
+    for name, fn in routes.items():
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        before = kernels.counts()
+        t0 = time.perf_counter()
+        proof, shares_in = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = kernels.counts()
+        if not rpm.verify(setup, proof, eng):
+            raise AssertionError(f"the {name} proof of {case} does not verify")
+        row = {"wall_s": wall, "launches": {k: after[k] - before[k] for k in MP_COUNTED}}
+        if shares_in is not None:
+            t_shares, at = shares_in
+            row["parties"] = {"s": t_shares - t0,
+                              "launches": {k: at[k] - before[k] for k in MP_COUNTED}}
+            row["dealer"] = {"s": wall - (t_shares - t0),
+                             "launches": {k: after[k] - at[k] for k in MP_COUNTED}}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device_s, every = device_time(prof, top=None)
+        row.update(device_s=device_s, device_idle_share=1 - device_s / wall,
+                   by_wrapper=by_wrapper(every))
+        out[name] = row
+    return out
+
+
 def profile_prove(name, eng):
     """Device time per kernel over one prove, and the idle share against
     the wall time of one prove without the profiler."""
@@ -299,6 +391,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=0, help="time a batch verify of N proofs")
     ap.add_argument("--lockstep", type=int, default=0,
                     help="profile a lockstep bucket of N 64bit proofs against one at a time")
+    ap.add_argument("--mp", type=int, default=0,
+                    help=f"profile {MP_CASE} by P parties in threads against one prover")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("engine_profile needs a CUDA card")
@@ -309,6 +403,10 @@ def main(argv=None) -> int:
     tag = "plain " + ",".join(args.plain) if args.plain else "kernels"
     if args.lockstep:
         print(json.dumps({"run": tag, **profile_lockstep(args.lockstep, TorchEngine("cuda"))}),
+              flush=True)
+        return 0
+    if args.mp:
+        print(json.dumps({"run": tag, **profile_multiparty(args.mp, TorchEngine("cuda"))}),
               flush=True)
         return 0
     eng = TimedEngine("cuda")

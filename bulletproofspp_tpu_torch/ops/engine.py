@@ -253,6 +253,26 @@ class TorchEngine:
         )
         return _dp_slice(DevicePoints(*gx), n), _dp_slice(DevicePoints(*hy), n)
 
+    # -- the same on host affine lists (``bulletproofspp_tpu/ops/engine.py:547-587``)
+    def fold_bases(self, b: int, a: int, g_even, g_odd):
+        """b E_i + a O_i lanes as host affine points / None (None lanes are
+        the identity): one fold on the device, then one copy."""
+        if len(g_even) == 0:
+            return []
+        return self.fold_bv(b, a, g_even, g_odd).to_host()
+
+    def shared_mul(self, k: int, pts):
+        """k P_i lanes as host affine points / None: k split into its GLV
+        halves (k1, k2) and one fold of (P_i, phi(P_i)) with them."""
+        if len(pts) == 0:
+            return []
+        p = self.basevec(pts)
+        n = len(p)
+        pe = _dp_pad(p, _bucket(n)).coords()
+        k1, k2 = glv.split(int(k) % R)
+        out = msm.fold_mul(pe, curve.endo(pe), *native.recode_signed(k1), *native.recode_signed(k2))
+        return _dp_slice(DevicePoints(*out), n).to_host()
+
     # -- the same for N lockstep provers at once -------------------------------
     def fold_bv_many(self, calls):
         """``fold_bv`` for N lockstep provers: calls is a list of (b, a, even,

@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify, measure.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify, multiparty, measure.
 
     python3 chip_smoke.py
 
@@ -95,7 +95,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and a malformed request (ok false, its batchmates unharmed); then
      ``stats`` (18 proved, 9 verified); then the CLI's ``serve`` as a
      subprocess, which must print ``serving on host:port`` and answer one
-     verify request before it is terminated.
+     verify request before it is terminated;
+  11. multiparty proving: counted from 0, the CLI's ``mp-prove`` of
+     examples/128by64 over 4 parties of 32 ranges three ways (``--local``
+     threads on the dealer's engine; 4 party processes on the card; 4 with
+     ``--party-engine host``) and of examples/bin_test over 2 party
+     processes: each rc 0 and "...: True", its files accepted by the CLI's
+     ``verify`` here and in another process, a flipped byte rejected there
+     (rc 1); every kernel that phase 3's ``cli test`` of 128by64 launched
+     must launch on this path.  Then the CLI's ``prove`` of 128by64 (the
+     wall seconds of the three mp-prove runs and of it are logged); in this
+     process one party owning all 128 ranges (seed ``randomSeed``) equal to
+     ``range_proof.prove`` and to the golden digest, and 4 seeded parties
+     on ``TorchEngine`` equal to the same run on ``HostEngine``; ``mp-demo
+     --parties 3`` over TCP and ``--local`` ("True"); ``fold_bases`` and
+     ``shared_mul`` at 16, 512 and 4,096 lanes equal to ``HostEngine``'s;
+     and ``engine_profile``'s multiparty profile (4 parties and the dealer
+     on one engine against one prover).
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
@@ -106,9 +122,9 @@ table_flat at 16, fold's, and 4,096; reduce_block at W = 33,792, f = 8,
 the bench's second launch, and W = 16,896, f = 4, cli test's commonest;
 decompress at 16 lanes, cli test's smallest, and 16,384; fold_many at B =
 2 and 16 of L = 16 and 512), the kernel's
-launch count (summed over the main-path runs of phases 3, 6, 7, 8, 9 and
-10, each counted from 0) in all, by path (``launches_by_path``: cli_test,
-msm_2_21, batch_verify, measurement, prove_batch, serve), by design and path for padd, table_flat, reduce_block and
+launch count (summed over the main-path runs of phases 3, 6, 7, 8, 9, 10
+and 11, each counted from 0) in all, by path (``launches_by_path``: cli_test,
+msm_2_21, batch_verify, measurement, prove_batch, serve, multiparty), by design and path for padd, table_flat, reduce_block and
 select_reduce (``launches_by_design``) and by shape, largest normalized
 difference, times (for padd, table_flat and reduce_block the design the
 wrapper takes, from the in-turns timings), bound (``bounds``:
@@ -129,7 +145,9 @@ from __future__ import annotations
 
 import ast
 import collections
+import contextlib
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -151,6 +169,15 @@ DECOMPRESS_L = 16384  # the 1,024-proof batch's decompress bucket
 PROVE_BATCH = (("64bit", 16), ("32bit", 4), ("rec_test", 4), ("bin_test", 4), ("64by64", 2),
                ("128by64", 2))
 FOLD_MANY_CASES = ((2, 16), (16, 16), (2, 512), (16, 512))  # (provers, lanes of each)
+
+# phase 11: mp-prove of the widest example over 4 parties of 32 ranges, the
+# binary family (an assumed range) over 2, mp-demo over 3, and the engine's
+# fold_bases / shared_mul at these widths
+MP_EXAMPLE, MP_PARTIES = "128by64", 4
+MP_BINARY, MP_BINARY_PARTIES = "bin_test", 2
+MP_DEMO_PARTIES = 3
+MP_LANES = (16, 512, 4096)
+DEVICE = "cuda"  # the CLI's --device
 
 MEASURE_L = 65536  # the measurement tools' width (32,768 points)
 SR_CASES = ((1024, 128, False), (1024, 128, True), (512, 128, False), (512, 256, False),
@@ -865,15 +892,19 @@ def sha(path) -> str:
 def run_cli(args) -> int:
     from bulletproofspp_tpu_torch import cli
 
-    rc = cli.main(list(args) + ["--device", "cuda"])
+    rc = cli.main(list(args) + ["--device", DEVICE])
     torch.cuda.synchronize()
     return rc
 
 
 def main_path(work):
-    """Phase 3: the CLI's test command on every example, golden bytes."""
-    secs = {}
+    """Phase 3: the CLI's test command on every example, golden bytes.
+    Returns each example's launches {example: {kernel: launches}}."""
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    secs, by_example = {}, {}
     for name, (want_proof, want_coms) in golden().items():
+        before = kernels.counts()
         d = os.path.join(work, name)
         os.makedirs(d)
         for f in ("schema.json", "witness.json"):
@@ -882,13 +913,14 @@ def main_path(work):
         t0 = time.perf_counter()
         rc = run_cli(["test", "schema.json", "witness.json", "commits.bin", "proof.bin"])
         secs[name] = time.perf_counter() - t0
+        by_example[name] = {k: n - before[k] for k, n in kernels.counts().items()}
         if rc != 0:
             raise AssertionError(f"{name}: cli test rc {rc}")
         if (sha("proof.bin"), sha("commits.bin")) != (want_proof, want_coms):
             raise AssertionError(f"{name}: proof/commitment bytes differ from the golden digests")
         log(f"main path {name}: cli test rc 0, golden bytes, {secs[name]:.3f} s")
     os.chdir(work)
-    return secs
+    return by_example
 
 
 def prove_verify_times(work):
@@ -1200,6 +1232,171 @@ def serve_phase(dev, items):
     return shapes
 
 
+def cli_output(args):
+    """``run_cli`` with what the CLI prints captured (and logged): (rc, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_cli(args)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    return rc, out
+
+
+def verify_elsewhere(spec, coms, proof) -> int:
+    """The port's CLI ``verify`` in a process of its own: its exit code."""
+    res = subprocess.run([sys.executable, "-m", "bulletproofspp_tpu_torch.cli", "verify", spec,
+                          coms, proof, "--device", DEVICE],
+                         cwd=HERE, capture_output=True, text=True, timeout=300)
+    if res.returncode not in (0, 1):
+        log(res.stdout + res.stderr)
+    return res.returncode
+
+
+def mp_prove_checked(name, parties, work, label, extra=()):
+    """The CLI's mp-prove of example ``name`` over ``parties`` parties (its
+    own options ``extra``): rc 0 and "...: True", the files accepted by the
+    CLI's verify in this process and in another, and with one byte of the
+    proof flipped rejected (rc 1) in another.  Returns its wall seconds."""
+    spec, wit = example_files(name)
+    coms, proof = (os.path.join(work, f"mp_{label}_{f}.bin") for f in ("commits", "proof"))
+    t0 = time.perf_counter()
+    rc, out = cli_output(["mp-prove", spec, wit, coms, proof, "--parties", str(parties), *extra])
+    secs = time.perf_counter() - t0
+    mode = "threads" if "--local" in extra else f"{parties} TCP subprocesses"
+    if rc != 0 or f"Multiparty range proof ({mode}): True" not in out:
+        raise AssertionError(f"mp-prove {name} ({label}) rc {rc}: {out!r}")
+    if run_cli(["verify", spec, coms, proof]) != 0:
+        raise AssertionError(f"mp-prove {name} ({label}): the CLI's verify rejected its files")
+    if verify_elsewhere(spec, coms, proof) != 0:
+        raise AssertionError(f"mp-prove {name} ({label}): verify in another process rejected "
+                             "its files")
+    bad = bytearray(open(proof, "rb").read())
+    bad[31] ^= 1
+    with open(proof + ".flipped", "wb") as f:
+        f.write(bytes(bad))
+    if verify_elsewhere(spec, coms, proof + ".flipped") != 1:
+        raise AssertionError(f"mp-prove {name} ({label}): a flipped byte was not rejected (rc 1)")
+    log(f"mp-prove {name} over {parties} parties ({label}): rc 0, True, {secs:.3f} s of wall; "
+        "verify accepts its files here and in another process, rejects a flipped byte (rc 1)")
+    return secs
+
+
+def affine_walk(n: int, seed: int):
+    """n distinct affine points (a random start, then a random step added
+    lane by lane), every 7th lane (from lane 3) None."""
+    from bulletproofspp_tpu_torch.core import ec
+    from bulletproofspp_tpu_torch.core.fields import R
+
+    rng = np.random.default_rng(seed)
+    p = ec.scalar_mul(int.from_bytes(rng.bytes(32), "little") % R, ec.G)
+    step = ec.scalar_mul(int.from_bytes(rng.bytes(32), "little") % R, ec.G)
+    out = []
+    for i in range(n):
+        out.append(None if i % 7 == 3 else p)
+        p = ec.add(p, step)
+    return out
+
+
+def engine_interface(dev):
+    """Phase 11 (e): fold_bases and shared_mul on the card at MP_LANES,
+    equal to HostEngine's (None lanes; zero scalars)."""
+    from bulletproofspp_tpu_torch.core.engine import HostEngine
+    from bulletproofspp_tpu_torch.core.fields import R
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    eng, host = TorchEngine(dev), HostEngine()
+    rng = np.random.default_rng(SEED + 11)
+    for n in MP_LANES:
+        even, odd = affine_walk(n, SEED + n), affine_walk(n, SEED + 2 * n)
+        b, a = (int.from_bytes(rng.bytes(16), "little") >> 1 for _ in range(2))
+        for fb, fa in ((b, -a), (0, a)):
+            if eng.fold_bases(fb, fa, even, odd) != host.fold_bases(fb, fa, even, odd):
+                raise AssertionError(f"fold_bases at {n} lanes differs from HostEngine's")
+        for k in (int.from_bytes(rng.bytes(32), "little") % R, 0):
+            if eng.shared_mul(k, even) != host.shared_mul(k, even):
+                raise AssertionError(f"shared_mul at {n} lanes (k = {k}) differs from HostEngine's")
+    log(f"fold_bases and shared_mul at {', '.join(map(str, MP_LANES))} lanes (None lanes, zero "
+        "scalars): equal to HostEngine's")
+
+
+def multiparty_phase(dev, work, required):
+    """Phase 11: multiparty proving through the CLI and in this process, the
+    engine's fold_bases / shared_mul, and the multiparty profile.  Returns
+    the launches by shape of the multiparty path: the mp-prove runs of (a)
+    and (b) (the dealer's, and the parties' that run as threads here) and
+    the CLI's verify of their files in this process, counted from 0; they
+    must include every kernel of ``required``."""
+    from bulletproofspp_tpu_torch import engine_profile
+    from bulletproofspp_tpu_torch.core import range_proof as rpm
+    from bulletproofspp_tpu_torch.core.engine import HostEngine
+    from bulletproofspp_tpu_torch.ops import kernels
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    card = card_line()
+    secs = {}
+    kernels.reset_counts()
+    # (a) the widest example over MP_PARTIES parties three ways, (b) the
+    # binary family over TCP
+    for label, extra in (("threads", ["--local"]), ("tcp", []),
+                         ("tcp-host-parties", ["--party-engine", "host"])):
+        secs[f"mp-prove {label}"] = mp_prove_checked(MP_EXAMPLE, MP_PARTIES, work, label, extra)
+    mp_prove_checked(MP_BINARY, MP_BINARY_PARTIES, work, "binary")
+    launches, shapes = kernels.counts(), kernels.shape_counts()
+    require_launched("the multiparty path", launches, required)
+    log(f"launches on the multiparty path: {launches}")
+
+    spec_path, wit_path = example_files(MP_EXAMPLE)
+    t0 = time.perf_counter()
+    if run_cli(["prove", spec_path, wit_path, os.path.join(work, "mp_solo_c.bin"),
+                os.path.join(work, "mp_solo_p.bin")]) != 0:
+        raise AssertionError(f"prove {MP_EXAMPLE} failed")
+    secs["cli prove"] = time.perf_counter() - t0
+    log(f"{card}: {MP_EXAMPLE} wall seconds, mp-prove over {MP_PARTIES} parties and the CLI's "
+        f"prove: {json.dumps(secs)}")
+
+    # (c) in this process: one party owning every range gives the single
+    # prover's (golden) bytes; MP_PARTIES seeded parties on the card give
+    # HostEngine's
+    spec, setup, values = engine_profile._load(MP_EXAMPLE)
+    seed = spec.random_seed.encode()
+    eng = TorchEngine(dev)
+    solo = rpm.encode_proof(setup, rpm.prove(setup, values, seed, eng))
+    one = rpm.encode_proof(setup, engine_profile.run_multiparty(setup, values, [seed], eng)[0])
+    want_proof, want_coms = golden()[MP_EXAMPLE]
+    digests = (hashlib.sha256(one[1]).hexdigest(), hashlib.sha256(one[0]).hexdigest())
+    if one != solo or digests != (want_proof, want_coms):
+        raise AssertionError(f"one party's {MP_EXAMPLE} proof differs from the single prover's")
+    seeds = [f"smoke party {k}".encode() for k in range(MP_PARTIES)]
+    t0 = time.perf_counter()
+    on_card = rpm.encode_proof(setup, engine_profile.run_multiparty(setup, values, seeds, eng)[0])
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_host = rpm.encode_proof(setup, engine_profile.run_multiparty(setup, values, seeds,
+                                                                    HostEngine())[0])
+    host_s = time.perf_counter() - t0
+    if on_card != on_host:
+        raise AssertionError(f"{MP_PARTIES} seeded parties on the card differ from HostEngine's")
+    if not rpm.verify(setup, rpm.decode_proof(setup, *on_card, engine=eng), eng):
+        raise AssertionError(f"the seeded {MP_PARTIES}-party proof does not verify")
+    log(f"{MP_EXAMPLE}: one party's proof equal to the single prover's and the golden digest; "
+        f"{MP_PARTIES} seeded parties on TorchEngine ({card_s:.3f} s) equal to HostEngine's "
+        f"({host_s:.3f} s) byte for byte, and it verifies")
+
+    # (d) the aggregated-opening demo, over TCP and in threads
+    for extra in ([], ["--local"]):
+        rc, out = cli_output(["mp-demo", "--parties", str(MP_DEMO_PARTIES), *extra])
+        mode = "threads" if extra else f"{MP_DEMO_PARTIES} TCP subprocesses"
+        if rc != 0 or f"Multiparty opening proof ({mode}): True" not in out:
+            raise AssertionError(f"mp-demo ({mode}) rc {rc}: {out!r}")
+
+    engine_interface(dev)  # (e)
+    # (g) the dealer and parties on one engine against one prover
+    log(f"{card}: multiparty profile: "
+        f"{json.dumps(engine_profile.profile_multiparty(MP_PARTIES, TorchEngine(dev), MP_EXAMPLE))}")
+    return shapes
+
+
 def measurement_path():
     """Phase 8: counted from 0, the port's bench at 32,768 points and the
     two tools' mains, all in this process."""
@@ -1264,7 +1461,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="bppp_smoke_")
     try:
         kernels.reset_counts()
-        main_path(work)
+        by_example = main_path(work)
         launches, cli_shapes = kernels.counts(), kernels.shape_counts()
         log(f"launches on the main path: {launches}")
         require_launched("cli test", launches, set(launches) - {
@@ -1282,12 +1479,16 @@ def main() -> int:
         require_launched("serve", {k: sum(v.values()) for k, v in served.items()},
                          {"padd", "table_flat", "fold_many", "decompress"})
         require_port_only()
+        multiparty = multiparty_phase(
+            dev, work, {k for k, n in by_example[MP_EXAMPLE].items() if n})
+        require_port_only()
     finally:
         os.chdir(HERE)
         shutil.rmtree(work, ignore_errors=True)
     require_port_only()
     paths = {"cli_test": cli_shapes, "msm_2_21": wide, "batch_verify": batch,
-             "measurement": measured, "prove_batch": prove_batch, "serve": served}
+             "measurement": measured, "prove_batch": prove_batch, "serve": served,
+             "multiparty": multiparty}
     shapes = {k: collections.Counter() for k in launches}
     for run in paths.values():
         for k, by_shape in run.items():

@@ -438,3 +438,80 @@ def test_cuda_decompress_matches_plain_version_on_every_lane(L):
     (y, ok), (py, pok) = kernels.decompress(x, sign), kernels.decompress_plain(x, sign)
     assert torch.equal(y, py) and torch.equal(ok, pok)
     assert 0 < int(ok.sum()) < L
+
+
+def _affine_lanes(n: int, seed: int):
+    """n affine points, every 5th lane (from lane 2) None."""
+    rng = np.random.default_rng(seed)
+    return [None if i % 5 == 2 else ec.scalar_mul(int(rng.integers(1, 2**62)) << 190, ec.G)
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 520])
+def test_cuda_fold_bases_and_shared_mul_equal_host_engine(n):
+    """One fold launch each on the card, equal to HostEngine's affine lists
+    (None lanes, zero scalars)."""
+    from bulletproofspp_tpu_torch.core.engine import HostEngine
+    from bulletproofspp_tpu_torch.core.fields import R
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    eng, host = TorchEngine(_card()), HostEngine()
+    even, odd = _affine_lanes(n, 1), _affine_lanes(n, 2)
+    for b, a in ((7**45, -(11**36)), (0, 3**80), (0, 0)):
+        kernels.reset_counts()
+        assert eng.fold_bases(b, a, even, odd) == host.fold_bases(b, a, even, odd)
+        assert kernels.counts()["fold"] == 1
+    for k in (R - 12345, 0):
+        kernels.reset_counts()
+        assert eng.shared_mul(k, even) == host.shared_mul(k, even)
+        assert kernels.counts()["fold"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_two_party_rec_test_equals_host_engine():
+    """rec_test over 2 parties with fixed seeds, dealer and parties on one
+    TorchEngine on the card (threads), byte-equal to the same run on
+    HostEngine."""
+    import json
+    import os
+    import threading
+
+    from bulletproofspp_tpu_torch import cli
+    from bulletproofspp_tpu_torch.core import range_proof as rpm
+    from bulletproofspp_tpu_torch.core.engine import HostEngine
+    from bulletproofspp_tpu_torch.core.mp_prove import dealer_prove, party_prove
+    from bulletproofspp_tpu_torch.core.multiparty import LocalChannel
+    from bulletproofspp_tpu_torch.io_ import schema
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    dev = _card()
+    d = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples",
+                     "rec_test")
+    with open(os.path.join(d, "schema.json")) as f:
+        spec = schema.parse_spec(json.load(f))
+    with open(os.path.join(d, "witness.json")) as f:
+        values = cli._resolve_values(spec, schema.parse_witness(json.load(f)))
+    setup = schema.build_setup(spec, cli.load_points(spec, schema.points_needed(spec)))
+    parts = cli.mp_partition(len(values), 2)
+
+    def run(eng):
+        chans = [LocalChannel() for _ in parts]
+        threads = [threading.Thread(target=party_prove, daemon=True,
+                                    args=(setup, ch, {i: values[i] for i in part},
+                                          f"party {k}".encode(), eng))
+                   for k, (ch, part) in enumerate(zip(chans, parts))]
+        for t in threads:
+            t.start()
+        proof = dealer_prove(setup, chans, eng)
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        return rpm.encode_proof(setup, proof)
+
+    eng = TorchEngine(dev)
+    kernels.reset_counts()
+    got = run(eng)
+    assert kernels.counts()["fold"] > 0
+    assert got == run(HostEngine())
+    assert rpm.verify(setup, rpm.decode_proof(setup, *got, engine=eng), eng)

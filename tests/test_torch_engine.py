@@ -119,7 +119,7 @@ def test_cli_refuses_engine_flag_and_missing_cuda(monkeypatch):
     with pytest.raises(SystemExit):
         cli.main(["test", "--engine", "host"])
     with pytest.raises(SystemExit):
-        cli.main(["mp-demo", "--device", "cpu"])  # not a command of the port
+        cli.main(["shard-msm", "--device", "cpu"])  # not a command of the port
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["test", "--device", "cuda"])
