@@ -39,7 +39,9 @@ or its bytes over 3.35 TB/s) / its time.  A share above 1 is flagged in
 against the exact answer (sum_i s_i 2^i mod R) G, one host scalar
 multiplication, and tabled must equal untabled.
 
-Prints the card's ``nvidia-smi`` line, then ONE JSON line.  Exits 0 when
+Prints the card's ``nvidia-smi`` line, then ONE JSON line, which leads
+with the reference's keys: ``metric``, ``value`` (tabled points/s),
+``unit`` and ``vs_baseline`` (the tabled bound share).  Exits 0 when
 the MSMs are right and every device time was back to back with its IQR
 under its limit, 1 otherwise, and 2 without CUDA: there is no CPU
 carry-on.  Imports no JAX.
@@ -309,13 +311,22 @@ def run() -> dict:
     return out
 
 
+def line(out: dict) -> str:
+    """The bench's JSON line: ``out`` behind the reference's headline keys
+    (``bench.py:827-838``): ``value`` the tabled MSM's points/s, ``unit``,
+    and ``vs_baseline`` its bound share, the chip-relative share nearest to
+    the reference's ``chip_util``."""
+    return json.dumps({"metric": out["metric"], "value": out["points_per_s_tabled"],
+                       "unit": "points/s", "vs_baseline": out["bound_share_tabled"], **out})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("bench: CUDA is not available; the bench runs on the card only", file=sys.stderr)
         return 2
     out = run()
     print(f"{out['card']}, {out['power_limit_w']:.2f} W", flush=True)
-    print(json.dumps(out), flush=True)
+    print(line(out), flush=True)
     return 0 if out["correct"] and out["iqr_ok"] and out["back_to_back"] else 1
 
 

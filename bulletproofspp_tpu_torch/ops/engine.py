@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import metrics, native
+from ..core import ec
 from ..core.fields import Q, R
 from . import curve, glv, limb, msm
 
@@ -315,3 +316,62 @@ class TorchEngine:
         L = _bucket(n)
         gx, hy = msm.complete_square_many(_dp_stack(g0s, L), _dp_stack(g1s, L), np.stack(digits))
         return list(zip(_dp_unstack(gx, len(calls), L, n), _dp_unstack(hy, len(calls), L, n)))
+
+
+class ShardedTorchEngine(TorchEngine):
+    """TorchEngine whose big MSMs run sharded over a mesh of devices
+    (``ops.sharded``): lanes data-parallel over the 'pts' axis, digit rows
+    over the 'win' axis.  MSMs under ``shard_above`` lanes, and every other
+    engine call, take TorchEngine's single-device path on ``device``
+    (``bulletproofspp_tpu/ops/engine.py: ShardedJaxEngine``).
+
+    ``mesh``: an ``ops.sharded.make_mesh`` mesh, or in a multi-process run
+    ``ops.dist.global_mesh``'s, which must span every process; by default
+    one entry on ``device``, or on each card for plain ``cuda``.  This is
+    the batch-verification engine: N merged proofs make one MSM over the
+    mesh."""
+
+    def __init__(self, device, mesh=None, shard_above: int = 256):
+        super().__init__(device)
+        from . import dist, sharded
+
+        if mesh is None:
+            n = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            mesh = sharded.make_mesh(sharded.device_entries(self.device, n))
+        npts = mesh.shape["pts"]
+        if npts & (npts - 1):
+            raise ValueError(f"'pts' mesh axis size {npts} must be a power of two "
+                             "(lane buckets are powers of two and must split evenly)")
+        # a multi-process mesh that leaves out a process cannot run the gather
+        # at all: refuse it here rather than at the first msm
+        if dist.is_multiprocess():
+            dist.require_global(mesh)
+        mine = mesh.held_by(sharded.own_rank())
+        if not mine:
+            raise ValueError(f"this process (rank {sharded.own_rank()}) holds no entry of the mesh")
+        self.mesh = mesh
+        self._home = mine[0][2]  # where the lanes are built and the partials folded
+        self.shard_above = shard_above
+
+    def msm(self, pairs):
+        """One MSM over host (scalar, affine point | None) pairs: sharded over
+        the mesh from ``shard_above`` lanes (2 a pair), lanes padded to
+        max(bucket, 16 x npts) with G and zero digits, rows to a multiple of
+        'win' with zero rows."""
+        flt = [(int(s) % R, p) for s, p in pairs]
+        flt = [(s, p) for s, p in flt if s != 0 and p is not None]
+        if 2 * len(flt) < max(self.shard_above, 1):
+            return super().msm(flt)
+        from . import dist, sharded
+
+        metrics.count("engine.msm.lanes", 2 * len(flt))
+        n = len(flt)
+        L = max(_bucket(2 * n), 16 * self.mesh.shape["pts"])
+        absd, sgn = native.glv_recode_batch([s for s, _ in flt])
+        digits = np.zeros((2, 1, glv.ROWS, L), np.uint8)
+        digits[0, 0, :, :2 * n], digits[1, 0, :, :2 * n] = absd, sgn
+        absd, sgn = sharded.pad_rows(*torch.from_numpy(digits), self.mesh.shape["win"])
+        pts = [p for _, p in flt] + [ec.G] * (L // 2 - n)
+        lanes = _interleave_endo(*curve.from_affine_host(pts, self._home))
+        acc = dist.sharded_msm_global(self.mesh, *(c.unsqueeze(1) for c in lanes), absd, sgn)
+        return curve.to_affine_host(acc)[0]

@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify, multiparty, measure.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify, multiparty, shard, measure.
 
     python3 chip_smoke.py
 
@@ -111,7 +111,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      --parties 3`` over TCP and ``--local`` ("True"); ``fold_bases`` and
      ``shared_mul`` at 16, 512 and 4,096 lanes equal to ``HostEngine``'s;
      and ``engine_profile``'s multiparty profile (4 parties and the dealer
-     on one engine against one prover).
+     on one engine against one prover);
+  12. the sharded MSM: (a) log ``torch.cuda.device_count()``; (b) hold the
+     kernels that take a row count at the sharded rows_local of 17 (win =
+     2) and 9 (win = 4), 4,096 lanes, MSB zero rows with sign 0 and a zero
+     row with sign 1: select_reduce (both designs, equal word for word),
+     select_reduce_fused (equal word for word to table_flat +
+     select_reduce), reduce_block and tail_horner against their plain
+     versions limb for limb, horner word for word; then, counted from 0,
+     (c) phase 6's MSM through ``ShardedTorchEngine`` on a mesh of two
+     entries in this process (two cards, or ``cuda:0`` twice) at win 1 and
+     2; (d) ``dryrun.dryrun_multiprocess`` with 2 rank processes over gloo
+     (rank r on ``cuda:r``, or both on ``cuda:0``): the same MSM at win 2
+     and 1, and phase 7's 1,024 proofs through ``ShardedTorchEngine`` on
+     the 2-rank mesh, accepted, and rejected with proof 517 flipped; (e)
+     ``dryrun.dryrun_multichip(2, "cuda")``.  Every MSM equals phase 6's
+     host answer; logged: each run's wall seconds, launches, device seconds
+     under ``torch.profiler``, peak device memory and gather seconds.
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
@@ -122,9 +138,9 @@ table_flat at 16, fold's, and 4,096; reduce_block at W = 33,792, f = 8,
 the bench's second launch, and W = 16,896, f = 4, cli test's commonest;
 decompress at 16 lanes, cli test's smallest, and 16,384; fold_many at B =
 2 and 16 of L = 16 and 512), the kernel's
-launch count (summed over the main-path runs of phases 3, 6, 7, 8, 9, 10
-and 11, each counted from 0) in all, by path (``launches_by_path``: cli_test,
-msm_2_21, batch_verify, measurement, prove_batch, serve, multiparty), by design and path for padd, table_flat, reduce_block and
+launch count (summed over the main-path runs of phases 3, 6, 7, 8, 9, 10,
+11 and 12, each counted from 0) in all, by path (``launches_by_path``: cli_test,
+msm_2_21, batch_verify, measurement, prove_batch, serve, multiparty, sharded), by design and path for padd, table_flat, reduce_block and
 select_reduce (``launches_by_design``) and by shape, largest normalized
 difference, times (for padd, table_flat and reduce_block the design the
 wrapper takes, from the in-turns timings), bound (``bounds``:
@@ -305,8 +321,8 @@ def tail_lanes(K: int, rng, dev):
     return tuple(c.reshape(16, K, ROWS * 128) for c in (x, y, z))
 
 
-def horner_rows(K: int, rng, dev):
-    """(16, K, ROWS) row sums for horner (``random_points``, each with its
+def horner_rows(K: int, rng, dev, rows: int = ROWS):
+    """(16, K, rows) row sums for horner (``random_points``, each with its
     own Z): in every MSM row 0 is all identity, row 1 a multiple P of G and
     row 2 -16 P in even MSMs (16 P + (-16 P) after the doublings) and 16 P
     in odd ones (16 P + 16 P)."""
@@ -314,7 +330,7 @@ def horner_rows(K: int, rng, dev):
     from bulletproofspp_tpu_torch.core.fields import Q
     from bulletproofspp_tpu_torch.ops import limb
 
-    x, y, z = (c.reshape(16, K, ROWS) for c in random_points(K * ROWS, rng, dev)[0])
+    x, y, z = (c.reshape(16, K, rows) for c in random_points(K * rows, rng, dev)[0])
     x[:, :, 0], z[:, :, 0] = 0, 0
     p = [ec.scalar_mul(int(k), ec.G) for k in rng.integers(1, 2**62, size=K)]
     sixteen = [ec.scalar_mul(16, q) for q in p]
@@ -956,22 +972,12 @@ def require_launched(path, launches, names):
 
 def msm_wide(dev):
     """Phase 6: one MSM of 2^20 pairs, a bucket of exactly 2^21 GLV lanes."""
-    from bulletproofspp_tpu_torch.core import ec
-    from bulletproofspp_tpu_torch.core.fields import R
+    from bulletproofspp_tpu_torch import dryrun
     from bulletproofspp_tpu_torch.ops import kernels
     from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
     n = WIDE_LANES // 2
-    rng = np.random.default_rng(SEED + 6)
-    ks = [int(k) for k in rng.integers(1, 2**62, size=64)]
-    base = [ec.scalar_mul(k, ec.G) for k in ks]
-    buf = rng.bytes(32 * n)
-    scalars = [int.from_bytes(buf[32 * i : 32 * i + 32], "little") % R for i in range(n)]
-    sums = [0] * len(ks)
-    for i, s in enumerate(scalars):
-        sums[i % len(ks)] += s
-    want = ec.scalar_mul(sum(k * s for k, s in zip(ks, sums)) % R, ec.G)
-    pairs = [(s, base[i % len(ks)]) for i, s in enumerate(scalars)]
+    pairs, want = dryrun.msm_case(n, SEED + 6)
     eng = TorchEngine(dev)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
@@ -1006,7 +1012,8 @@ def msm_wide(dev):
 
 def batch_1024(dev, work):
     """Phase 7: prove 1,024 proofs on the card, batch-verify them through the
-    port's CLI, reject a flipped byte, and find the bad proof."""
+    port's CLI, reject a flipped byte, and find the bad proof.  Returns the
+    launches by shape of the valid batch-verify and the proofs' bytes."""
     from bulletproofspp_tpu_torch import engine_profile
     from bulletproofspp_tpu_torch.core.batch import verify_many_encoded
     from bulletproofspp_tpu_torch.core.engine import HostEngine
@@ -1069,7 +1076,7 @@ def batch_1024(dev, work):
     for step, t in secs.items():
         log(f"batch step {step}: {t:.3f} s")
     log(f"batch_verify_encoded by engine call: {json.dumps(row)}")
-    return shapes
+    return shapes, blobs
 
 
 def example_files(name):
@@ -1397,6 +1404,107 @@ def multiparty_phase(dev, work, required):
     return shapes
 
 
+def check_row_counts(dev, rng):
+    """Phase 12 (b): the kernels that take a row count, at the sharded MSM's
+    rows_local = 17 (win = 2: 34 padded rows) and 9 (win = 4: 36), on one
+    MSM of 4,096 lanes whose first rows are zero padding (digit 0, sign 0:
+    1 row at 17, 3 at 9) and with a row of zero digits and sign 1.  Each
+    equals its plain version limb for limb (horner word for word);
+    select_reduce's two designs, and select_reduce_fused against
+    table_flat + select_reduce, are equal word for word."""
+    from bulletproofspp_tpu_torch.ops import kernels, limb
+
+    L = 4096
+    p, _ = random_points(L, rng, dev)
+    tabs = kernels.table_flat(p)
+    for rows in (17, 9):
+        absd = torch.as_tensor(rng.integers(0, 9, size=(1, rows, L)), device=dev)
+        sgn = torch.as_tensor(rng.integers(0, 2, size=(1, rows, L)), device=dev)
+        pad = {17: 1, 9: 3}[rows]
+        absd[:, :pad], sgn[:, :pad] = 0, 0
+        absd[:, pad + 1], sgn[:, pad + 1] = 0, 1
+        sr = kernels.select_reduce(tabs, absd, sgn)
+        same_raw(f"select_reduce rows={rows}: the gather and the staged design", sr,
+                 kernels.select_reduce_design(tabs, absd, sgn, True))
+        compare(f"select_reduce rows={rows}", sr, kernels.select_reduce_plain(tabs, absd, sgn))
+        fused = kernels.select_reduce_fused(p, absd, sgn)
+        same_raw(f"select_reduce_fused rows={rows} against table_flat + select_reduce", fused, sr)
+        compare(f"select_reduce_fused rows={rows}", fused,
+                kernels.select_reduce_fused_plain(p, absd, sgn))
+        rb = kernels.reduce_block(sr, 4)  # ops.msm._narrow: 512 lanes a row -> 128
+        compare(f"reduce_block rows={rows}", rb, kernels.reduce_block_plain(sr, 4))
+        th = tuple(t.reshape(limb.NLIMB, 1, rows * 128) for t in rb)
+        compare(f"tail_horner rows={rows}", kernels.tail_horner(th, rows),
+                kernels.tail_horner_plain(th, rows))
+        for K in (1, 2):
+            r = horner_rows(K, rng, dev, rows)
+            for c in r:  # the padding rows' sums are the identity
+                c[:, :, :pad] = limb.ones((K, pad), dev) if c is r[1] else 0
+            same_raw(f"horner K={K} rows={rows}", kernels.horner(*r), kernels.horner_plain(*r))
+    torch.cuda.synchronize()
+    log("rows 17 and 9 (MSB zero rows with sign 0, a zero row with sign 1), 4,096 lanes: "
+        "select_reduce (both designs), select_reduce_fused, reduce_block and tail_horner equal "
+        "to their plain versions limb for limb, horner (K = 1, 2) word for word")
+
+
+def sharded_phase(dev, blobs, required):
+    """Phase 12: the sharded MSM.  Returns the launches by shape of (c), (d)
+    and (e), counted from 0 (the 2-rank runs of (d) launch in their own
+    processes and report their launches), which must include every kernel
+    of ``required``."""
+    from bulletproofspp_tpu_torch import dryrun
+    from bulletproofspp_tpu_torch.ops import kernels, sharded
+    from bulletproofspp_tpu_torch.ops.engine import ShardedTorchEngine
+
+    card = card_line()
+    log(f"phase 12: torch.cuda.device_count() = {torch.cuda.device_count()}")  # (a)
+    check_row_counts(dev, np.random.default_rng(SEED + 12))  # (b)
+    pairs, want = dryrun.msm_case(WIDE_LANES // 2, SEED + 6)
+    kernels.reset_counts()
+    # (c) phase 6's MSM over a mesh of two entries in this process
+    entries = sharded.device_entries(DEVICE, 2)
+    for win in (1, 2):
+        eng = ShardedTorchEngine(entries[0], mesh=sharded.make_mesh(entries, win))
+        record = {"win": win, "entries": [str(d) for d in entries]}
+        with dryrun.measured(record, entries[0]):
+            got = eng.msm(pairs)
+        if got != want:
+            raise AssertionError(f"the sharded 2^21-lane MSM at win={win} differs from phase 6's "
+                                 "host answer")
+        log(f"{card}: sharded 2^21-lane MSM in one process, equal to the host answer: "
+            f"{json.dumps(record)}")
+    # (d) two rank processes over gloo: the same MSM at win 2 and 1, then
+    # phase 7's proofs with proof BATCH_BAD flipped
+    with open(os.path.join(HERE, "examples", "64bit", "schema.json")) as f:
+        spec_obj = json.load(f)
+    with tempfile.TemporaryDirectory(prefix="bppp_sharded_") as d:
+        corpus = dryrun.write_corpus(os.path.join(d, "corpus.pkl"), spec_obj, blobs, BATCH_BAD)
+        t0 = time.perf_counter()
+        msm_runs, batch_runs = dryrun.dryrun_multiprocess(
+            2, protocol=True, device=DEVICE, msm_pairs=WIDE_LANES // 2, msm_seed=SEED + 6,
+            corpus=corpus)
+        secs = time.perf_counter() - t0
+    for rank, runs in enumerate(msm_runs):
+        if [r["result"] for r in runs] != [[str(want[0]), str(want[1])]] * 2:
+            raise AssertionError(f"rank {rank}: the 2-process MSM differs from phase 6's answer")
+    for rank, (run,) in enumerate(batch_runs):
+        if (run["proofs"], run["bad"], run["result"]) != (BATCH_N, BATCH_BAD, [True, False]):
+            raise AssertionError(f"rank {rank}: the 2-process batch verify gave {run}")
+    for rank, runs in enumerate(zip(msm_runs, batch_runs)):
+        for run in (*runs[0], *runs[1]):
+            log(f"{card}: rank {rank} of 2: {json.dumps(run)}")
+    log(f"dryrun_multiprocess (2 ranks; 2^21-lane MSM at win 2 and 1, {BATCH_N} proofs accepted "
+        f"and rejected with proof {BATCH_BAD} flipped): {secs:.3f} s of wall")
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(2, DEVICE)  # (e)
+    torch.cuda.synchronize()
+    log(f"dryrun_multichip(2, {DEVICE}): passed, {time.perf_counter() - t0:.3f} s")
+    shapes = kernels.shape_counts()
+    require_launched("the sharded path", kernels.counts(), required)
+    log(f"launches on the sharded path: {kernels.counts()}")
+    return shapes
+
+
 def measurement_path():
     """Phase 8: counted from 0, the port's bench at 32,768 points and the
     two tools' mains, all in this process."""
@@ -1470,7 +1578,7 @@ def main() -> int:
         prove_verify_times(work)
         measured = measurement_path()  # before any other torch.profiler session
         wide = msm_wide(dev)
-        batch = batch_1024(dev, work)
+        batch, batch_blobs = batch_1024(dev, work)
         prove_batch, batch_items = prove_batch_phase(dev, work)
         require_launched("prove-batch", {k: sum(v.values()) for k, v in prove_batch.items()},
                          {"padd", "horner", "tail_horner", "table_flat", "fold_many"})
@@ -1482,13 +1590,17 @@ def main() -> int:
         multiparty = multiparty_phase(
             dev, work, {k for k, n in by_example[MP_EXAMPLE].items() if n})
         require_port_only()
+        shard = sharded_phase(dev, batch_blobs, {
+            "padd", "horner", "table_flat", "select_reduce", "select_reduce_fused",
+            "reduce_block", "tail_horner", "decompress"})
+        require_port_only()
     finally:
         os.chdir(HERE)
         shutil.rmtree(work, ignore_errors=True)
     require_port_only()
     paths = {"cli_test": cli_shapes, "msm_2_21": wide, "batch_verify": batch,
              "measurement": measured, "prove_batch": prove_batch, "serve": served,
-             "multiparty": multiparty}
+             "multiparty": multiparty, "sharded": shard}
     shapes = {k: collections.Counter() for k in launches}
     for run in paths.values():
         for k, by_shape in run.items():
@@ -1518,7 +1630,8 @@ def main() -> int:
     ]}
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 

@@ -227,6 +227,24 @@ def test_bench_work_counts():
     assert by == "bytes" and abs(ms - 1.0) < 1e-12
 
 
+def test_bench_line_leads_with_the_reference_headline_keys():
+    """The line carries the keys the reference's bench prints (``bench.py:
+    827-838``): value = tabled points/s, unit, vs_baseline = the tabled
+    bound share; the rest of the bench's object follows on the same line."""
+    import json
+
+    out = {"metric": "msm_32768pt_throughput", "card": "NVIDIA H100 80GB HBM3",
+           "points_per_s_tabled": 25208635.5, "points_per_s_untabled": 21443000.0,
+           "bound_share_tabled": 0.1602, "bound_share_untabled": 0.1589, "correct": True}
+    text = bench.line(out)
+    assert "\n" not in text
+    got = json.loads(text)
+    assert list(got)[:4] == ["metric", "value", "unit", "vs_baseline"]
+    assert (got["metric"], got["value"], got["unit"], got["vs_baseline"]) == (
+        "msm_32768pt_throughput", 25208635.5, "points/s", 0.1602)
+    assert {k: got[k] for k in out} == out
+
+
 def test_bound_of_launches_in_sequence_sums_their_bounds():
     """chain's ten launches: one operations-bound, nine bytes-bound; the sum
     of the ten bounds, not the bound of the summed work."""
