@@ -77,6 +77,26 @@ def decompress_chain() -> int:
     return 2 + SQRT_SQUARINGS + SQRT_PRODUCTS + 1
 
 
+# the inverse a^(p-2) as an addition chain (libsecp256k1's secp256k1_fe_inv;
+# csrc/field.cuh: fe_inv runs it), steps (s, k) as in SQRT_CHAIN: its first
+# 11 steps are the square root's (the ladder to a^(2^223 - 1)), then four of
+# its own.  p - 2 in binary is blocks of ones of lengths 223, 22, 1, 2 and 1.
+INV_CHAIN = SQRT_CHAIN[:11] + ((23, 22), (5, 1), (3, 2), (2, 1))
+INV_SQUARINGS = sum(s for s, _ in INV_CHAIN)  # 255
+INV_PRODUCTS = sum(1 for _, k in INV_CHAIN if k)  # 15
+INV = INV_SQUARINGS * FE_SQR + INV_PRODUCTS * FE_MUL
+
+
+def inv_chain() -> int:
+    """inv's chain, one thread a lane: the inverse's dependent field products."""
+    return INV_SQUARINGS + INV_PRODUCTS
+
+
+def to_affine_chain() -> int:
+    """to_affine's chain: the inverse of z, then x z^-1 (y z^-1 beside it)."""
+    return inv_chain() + 1
+
+
 # multiplies per chain step, by phase (tools.cu: chain_step)
 CHAIN_STEP = {
     "padd": PT_ADD,
@@ -256,6 +276,15 @@ def select_reduce_fused(absd, sgn):
 
 def decompress(n: int):
     return n * DECOMPRESS, n * (FE_BYTES + 8 + FE_BYTES + 1)
+
+
+def inv(n: int):
+    return n * INV, n * 2 * FE_BYTES
+
+
+def to_affine(n: int):
+    """x, y and z in; x z^-1, y z^-1 and the identity mask (a byte) out."""
+    return n * (INV + 2 * FE_MUL), n * (3 * FE_BYTES + 2 * FE_BYTES + 1)
 
 
 def sr_variant(absd, sgn, blk: int, out_w: int, noselect: bool):

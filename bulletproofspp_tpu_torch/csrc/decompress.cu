@@ -38,29 +38,12 @@ namespace {
 
 constexpr int kThreads = 128;
 
-// a^(2^n) by n squarings
-__device__ __forceinline__ Fe fe_sqr_n(Fe a, int n) {
-#pragma unroll 1
-  for (int i = 0; i < n; i++) a = fe_sqr(a);
-  return a;
-}
-
-// a^((p+1)/4).  xk = a^(2^k - 1); each step squares the last result s times
-// and multiplies by xk: bounds.py SQRT_CHAIN's (s, k), in its order.
+// a^((p+1)/4): the ladder (field.cuh: fe_ladder), then three steps of its
+// own; (s, k) as in bounds.py SQRT_CHAIN, in its order.
 __device__ Fe fe_sqrt_candidate(const Fe& a) {
-  const Fe x2 = fe_mul(fe_sqr(a), a);                  // (1, 1)
-  const Fe x3 = fe_mul(fe_sqr(x2), a);                 // (1, 1)
-  const Fe x6 = fe_mul(fe_sqr_n(x3, 3), x3);           // (3, 3)
-  const Fe x9 = fe_mul(fe_sqr_n(x6, 3), x3);           // (3, 3)
-  const Fe x11 = fe_mul(fe_sqr_n(x9, 2), x2);          // (2, 2)
-  const Fe x22 = fe_mul(fe_sqr_n(x11, 11), x11);       // (11, 11)
-  const Fe x44 = fe_mul(fe_sqr_n(x22, 22), x22);       // (22, 22)
-  const Fe x88 = fe_mul(fe_sqr_n(x44, 44), x44);       // (44, 44)
-  const Fe x176 = fe_mul(fe_sqr_n(x88, 88), x88);      // (88, 88)
-  const Fe x220 = fe_mul(fe_sqr_n(x176, 44), x44);     // (44, 44)
-  const Fe x223 = fe_mul(fe_sqr_n(x220, 3), x3);       // (3, 3)
-  Fe t = fe_mul(fe_sqr_n(x223, 23), x22);              // (23, 22)
-  t = fe_mul(fe_sqr_n(t, 6), x2);                      // (6, 2)
+  const FeLadder l = fe_ladder(a);                     // the ladder's 11 steps
+  Fe t = fe_mul(fe_sqr_n(l.x223, 23), l.x22);          // (23, 22)
+  t = fe_mul(fe_sqr_n(t, 6), l.x2);                    // (6, 2)
   return fe_sqr_n(t, 2);                               // (2, 0)
 }
 

@@ -236,6 +236,50 @@ __device__ __forceinline__ Fe fe_mul_small(const Fe& a, u32 k) {
   return r;
 }
 
+// a^(2^n) by n squarings
+__device__ __forceinline__ Fe fe_sqr_n(Fe a, int n) {
+#pragma unroll 1
+  for (int i = 0; i < n; i++) a = fe_sqr(a);
+  return a;
+}
+
+// libsecp256k1's addition chains for the square root (decompress.cu:
+// fe_sqrt_candidate) and the inverse (fe_inv) share their first 11 steps, the
+// ladder below: xk = a^(2^k - 1), each step squaring the last result s times
+// and multiplying it by xk, (s, k) in the comments (bounds.py: SQRT_CHAIN and
+// INV_CHAIN).  The two chains then take their products from x2, x3, x22 and
+// x223 (and a = x1).
+struct FeLadder {
+  Fe x2, x3, x22, x223;
+};
+
+__device__ __forceinline__ FeLadder fe_ladder(const Fe& a) {
+  FeLadder l;
+  l.x2 = fe_mul(fe_sqr(a), a);                        // (1, 1)
+  l.x3 = fe_mul(fe_sqr(l.x2), a);                     // (1, 1)
+  const Fe x6 = fe_mul(fe_sqr_n(l.x3, 3), l.x3);      // (3, 3)
+  const Fe x9 = fe_mul(fe_sqr_n(x6, 3), l.x3);        // (3, 3)
+  const Fe x11 = fe_mul(fe_sqr_n(x9, 2), l.x2);       // (2, 2)
+  l.x22 = fe_mul(fe_sqr_n(x11, 11), x11);             // (11, 11)
+  const Fe x44 = fe_mul(fe_sqr_n(l.x22, 22), l.x22);  // (22, 22)
+  const Fe x88 = fe_mul(fe_sqr_n(x44, 44), x44);      // (44, 44)
+  const Fe x176 = fe_mul(fe_sqr_n(x88, 88), x88);     // (88, 88)
+  const Fe x220 = fe_mul(fe_sqr_n(x176, 44), x44);    // (44, 44)
+  l.x223 = fe_mul(fe_sqr_n(x220, 3), l.x3);           // (3, 3)
+  return l;
+}
+
+// a^(p-2) = a^-1 mod p, strict; 0 -> 0 (every step multiplies by a power of
+// a).  p - 2 in binary is blocks of ones of lengths 223, 22, 1, 2 and 1: the
+// ladder, then four steps.  255 squarings and 15 multiplications.
+__device__ __forceinline__ Fe fe_inv(const Fe& a) {
+  const FeLadder l = fe_ladder(a);                    // the ladder's 11 steps
+  Fe t = fe_mul(fe_sqr_n(l.x223, 23), l.x22);         // (23, 22)
+  t = fe_mul(fe_sqr_n(t, 5), a);                      // (5, 1)
+  t = fe_mul(fe_sqr_n(t, 3), l.x2);                   // (3, 2)
+  return fe_mul(fe_sqr_n(t, 2), a);                   // (2, 1)
+}
+
 // Strict -> canonical (< p): a >= p iff a + C carries out of 2^256, and then
 // the low 256 bits of a + C are a - p (a < 2^256 < 2p, so once is enough).
 __device__ __forceinline__ Fe fe_canon(const Fe& a) {

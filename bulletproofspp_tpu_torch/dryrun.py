@@ -35,6 +35,7 @@ import json
 import os
 import pickle
 import random
+import signal
 import socket
 import subprocess
 import sys
@@ -209,20 +210,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_workers(n: int, args: list) -> list:
-    """N workers on one process group: [(rank, [RUN records])].  Reaped
-    concurrently (waiting on worker 0 alone can deadlock while worker 1
-    fills its pipe mid-collective); on any failure the survivors are
-    killed and the failure raised with every worker's output."""
-    from .cli import _party_env
-
-    coord = f"127.0.0.1:{_free_port()}"
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "bulletproofspp_tpu_torch.dryrun", "worker", coord, str(n),
-         str(rank), *args],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=_party_env(), text=True)
-        for rank in range(n)]
-    outs = [None] * n
+def _spawn_and_reap(cmds: list, env=None) -> list:
+    """Runs one process a command list (rank i runs ``cmds[i]``) and returns
+    their (stdout, stderr).  Reaped concurrently (waiting on worker 0 alone
+    can deadlock while worker 1 fills its pipe mid-collective).  The first
+    worker whose reaper sees a non-zero rc is the first to fail; the
+    workers still running then are killed (the others cannot finish
+    without it), and an AssertionError names the first failure, then every
+    other failed worker, each killed one as killed after it, with each
+    one's output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
+                              text=True) for cmd in cmds]
+    outs = [None] * len(procs)
+    first, killed = [], set()
+    lock = threading.Lock()
 
     def reap(i):
         try:
@@ -230,20 +231,49 @@ def _run_workers(n: int, args: list) -> list:
         except subprocess.TimeoutExpired:
             procs[i].kill()
             outs[i] = procs[i].communicate(timeout=60)
-        if procs[i].returncode != 0:  # the others cannot finish without it
-            for p in procs:
+        if procs[i].returncode == 0:
+            return
+        with lock:
+            if first:
+                return
+            first.append(i)
+            for j, p in enumerate(procs):
                 if p.poll() is None:
                     p.kill()
+                    killed.add(j)
 
-    threads = [threading.Thread(target=reap, args=(i,)) for i in range(n)]
+    threads = [threading.Thread(target=reap, args=(i,)) for i in range(len(procs))]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    failed = [i for i, p in enumerate(procs) if p.returncode != 0]
-    if failed:
-        raise AssertionError("multiprocess worker(s) failed: " + "\n".join(
-            f"rank {i} rc {procs[i].returncode}\n{outs[i][0]}\n{outs[i][1]}" for i in failed))
+    if not first:
+        return outs
+    (i0,) = first
+
+    def entry(i):
+        rc = procs[i].returncode
+        if i == i0:
+            note = " (first to fail)"
+        elif i in killed and rc == -signal.SIGKILL:
+            note = f" (killed after rank {i0} failed)"
+        else:
+            note = ""
+        return f"rank {i} rc {rc}{note}\n{outs[i][0]}\n{outs[i][1]}"
+
+    others = [i for i, p in enumerate(procs) if p.returncode != 0 and i != i0]
+    raise AssertionError("multiprocess worker(s) failed: " + "\n".join(map(entry, [i0, *others])))
+
+
+def _run_workers(n: int, args: list) -> list:
+    """N workers on one process group: [(rank, [RUN records])]; a failure
+    raises with every failed worker's output (``_spawn_and_reap``)."""
+    from .cli import _party_env
+
+    coord = f"127.0.0.1:{_free_port()}"
+    outs = _spawn_and_reap(
+        [[sys.executable, "-m", "bulletproofspp_tpu_torch.dryrun", "worker", coord, str(n),
+          str(rank), *args] for rank in range(n)], _party_env())
     runs = [[json.loads(line[4:]) for line in out.splitlines() if line.startswith("RUN ")]
             for out, _ in outs]
     if not runs[0] or any([r["result"] for r in rank_runs] != [r["result"] for r in runs[0]]

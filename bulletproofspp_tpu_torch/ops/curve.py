@@ -6,8 +6,9 @@ homogeneous projective (X:Y:Z) with identity (0:1:0).  One branchless
 stream handles P+Q, P+P, P+(-P), P+O and O+Q.  Points are tuples of
 (16, *batch) int64 limb planes (``ops.limb``).
 
-``padd`` and ``decompress`` are public entries: on a CUDA tensor they
-launch the hand-written kernel (``ops.kernels.padd`` / ``.decompress``),
+``padd``, ``decompress`` and ``to_affine`` are public entries: on a CUDA
+tensor they launch the hand-written kernel (``ops.kernels.padd`` /
+``.decompress`` / ``.to_affine``),
 on a CPU tensor they run its plain version.  The ``*_loose`` forms keep lazy limbs between
 point operations (``ops.limb`` forms); loops that chain many point ops
 (Horner, basis folding) use them and tighten once at the end.
@@ -151,6 +152,25 @@ def to_affine_host(p):
     """Projective (16, K) planes -> list of affine tuples / None: one
     device normalization, one copy, host inverses."""
     return affine_from_normalized(limb.planes_to_numpy(normalize3(*p)))
+
+
+def to_affine(p):
+    """Projective (16, L) strict lanes -> (x, y, inf): x z^-1 and y z^-1
+    canonical, inf (L,) bool where z = 0 mod p, x and y 0 there
+    (``bulletproofspp_tpu/ops/curve.py:156``).  The to_affine kernel on a
+    CUDA tensor (``ops.kernels.to_affine``), its plain version on a CPU
+    tensor."""
+    from . import kernels
+
+    return kernels.to_affine(*p)
+
+
+def affine_lanes_to_host(x, y, inf):
+    """``to_affine``'s (x, y, inf) -> list of affine tuples / None: one
+    device-to-host copy of the three, stacked."""
+    arr = limb.planes_to_numpy(torch.cat([x, y, inf.to(limb.DTYPE).unsqueeze(0)]))
+    xs, ys = limb.unpack_ints(arr[:limb.NLIMB]), limb.unpack_ints(arr[limb.NLIMB:-1])
+    return [None if i else (a, b) for a, b, i in zip(xs, ys, arr[-1])]
 
 
 def decompress(x, sign):

@@ -229,16 +229,22 @@ class TorchEngine:
         return self.msm_many([[([s for s, _ in flt], [p for _, p in flt])]])[0]
 
     # -- basis folding and square completion ---------------------------------
-    def fold_bv(self, b: int, a: int, even, odd):
-        """b E_i + a O_i lanes, projective, kept on the device."""
+    def _fold_args(self, b: int, a: int, even, odd):
+        """``msm.fold_mul``'s arguments for b E_i + a O_i (the lanes padded
+        to their bucket with the identity, the digit rows of b and a), and
+        the lane count n."""
         even = self.basevec(even)
         odd = self.basevec(odd)
         n = len(even)
         L = _bucket(n)
         de, se = native.recode_signed(int(b))
         do, so = native.recode_signed(int(a))
-        out = msm.fold_mul(_dp_pad(even, L).coords(), _dp_pad(odd, L).coords(), de, se, do, so)
-        return _dp_slice(DevicePoints(*out), n)
+        return (_dp_pad(even, L).coords(), _dp_pad(odd, L).coords(), de, se, do, so), n
+
+    def fold_bv(self, b: int, a: int, even, odd):
+        """b E_i + a O_i lanes, projective, kept on the device."""
+        args, n = self._fold_args(b, a, even, odd)
+        return _dp_slice(DevicePoints(*msm.fold_mul(*args)), n)
 
     def complete_square(self, r: int, g0s, g1s):
         """(g1 + r g0, g1 - r g0) as device base vectors."""
@@ -257,22 +263,25 @@ class TorchEngine:
     # -- the same on host affine lists (``bulletproofspp_tpu/ops/engine.py:547-587``)
     def fold_bases(self, b: int, a: int, g_even, g_odd):
         """b E_i + a O_i lanes as host affine points / None (None lanes are
-        the identity): one fold on the device, then one copy."""
+        the identity): one fold and one affine conversion on the device
+        (``msm.run_fold``), then one copy."""
         if len(g_even) == 0:
             return []
-        return self.fold_bv(b, a, g_even, g_odd).to_host()
+        args, n = self._fold_args(b, a, g_even, g_odd)
+        return curve.affine_lanes_to_host(*msm.run_fold(*args))[:n]
 
     def shared_mul(self, k: int, pts):
         """k P_i lanes as host affine points / None: k split into its GLV
-        halves (k1, k2) and one fold of (P_i, phi(P_i)) with them."""
+        halves (k1, k2), one fold of (P_i, phi(P_i)) with them and one affine
+        conversion on the device, then one copy."""
         if len(pts) == 0:
             return []
         p = self.basevec(pts)
         n = len(p)
         pe = _dp_pad(p, _bucket(n)).coords()
         k1, k2 = glv.split(int(k) % R)
-        out = msm.fold_mul(pe, curve.endo(pe), *native.recode_signed(k1), *native.recode_signed(k2))
-        return _dp_slice(DevicePoints(*out), n).to_host()
+        out = msm.run_fold(pe, curve.endo(pe), *native.recode_signed(k1), *native.recode_signed(k2))
+        return curve.affine_lanes_to_host(*out)[:n]
 
     # -- the same for N lockstep provers at once -------------------------------
     def fold_bv_many(self, calls):

@@ -1,16 +1,19 @@
 """The port's hand-written CUDA kernels, their plain versions and launch counts.
 
-Thirteen kernels.  Seven replace Pallas TPU kernels of
+Fifteen kernels.  Seven replace Pallas TPU kernels of
 ``bulletproofspp_tpu/ops/pallas_field.py`` (padd, horner, reduce_block,
 tail_horner, table_flat, select_reduce, and select_reduce_fused for MSMs
 of 2^21 lanes and more); three replace the Pallas kernels of the JAX
 package's measurement tools (sr_variant and grid_copy of
-``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); three
-replace XLA-only functions that as plain PyTorch dominated the card's
-time: fold (``fold_mul_kernel`` of ``bulletproofspp_tpu/ops/msm.py``,
-basis folding in prove), fold_many (its vmap over the provers of a
-lockstep batch) and decompress (``decompress_kernel`` of
-``bulletproofspp_tpu/ops/curve.py``, proof decoding in verify).  Each
+``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); five
+replace XLA-only functions: fold (``fold_mul_kernel`` of
+``bulletproofspp_tpu/ops/msm.py``, basis folding in prove), fold_many
+(its vmap over the provers of a lockstep batch) and decompress
+(``decompress_kernel`` of ``bulletproofspp_tpu/ops/curve.py``, proof
+decoding in verify), which as plain PyTorch dominated the card's time,
+and inv and to_affine (``limb.inv`` / ``batch_inv`` and
+``curve.to_affine``, the affine conversion of ``fold_bases`` and
+``shared_mul``).  Each
 keeps the contract at the boundary:
 (16, N) int64 planes of 16-bit limbs, strict in and out (``ops.limb``);
 multiple tables are flat, entry e and limb i of lane j at row 16 e + i
@@ -57,7 +60,8 @@ from . import curve, glv, limb
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("kernels.cu", "select_reduce_fused.cu", "decompress.cu", "tools.cu")  # one library each
+# one library each
+SOURCES = ("kernels.cu", "select_reduce_fused.cu", "decompress.cu", "affine.cu", "tools.cu")
 HEADERS = ("curve.cuh", "field.cuh", "curve_warp.cuh", "select_reduce.cuh")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -113,6 +117,10 @@ KERNELS = {
                ("select_reduce_fused_kernel",)),
         Kernel("decompress", "decompress.cu", "bppp_decompress", [_P] * 4 + [_I64, _P],
                "bulletproofspp_tpu/ops/curve.py:224", ("decompress_kernel",)),
+        Kernel("inv", "affine.cu", "bppp_inv", [_P] * 2 + [_I64, _P],
+               "bulletproofspp_tpu/ops/limb.py:371/:424", ("inv_kernel",)),
+        Kernel("to_affine", "affine.cu", "bppp_to_affine", [_P] * 6 + [_I64, _P],
+               "bulletproofspp_tpu/ops/curve.py:156", ("to_affine_kernel",)),
         Kernel("sr_variant", "tools.cu", "bppp_sr_variant", [_P] * 8 + [_I64] * 4 + [_I32, _P],
                "tools/r5_experiments.py:115", ("sr_variant_kernel",)),
         Kernel("grid_copy", "tools.cu", "bppp_grid_copy", [_P] * 2 + [_I64] * 3 + [_P],
@@ -725,6 +733,56 @@ def decompress(x, sign):
     ok = torch.empty(n, dtype=torch.bool, device=x.device)
     _launch("decompress", f"L={n}", dev, *_ptrs(x, sign, y, ok), n)
     return y, ok
+
+
+# ---------------------------------------------------------------------------
+# 9b. inv and to_affine: the Fermat inverse, one thread a lane, and the affine
+# conversion of fold_bases / shared_mul
+# ---------------------------------------------------------------------------
+
+
+def inv_plain(a):
+    """(16, *batch) strict -> a^-1 mod p canonical, 0 and Q -> 0:
+    square-and-multiply over the bits of p - 2 (``limb.fermat_inv``)."""
+    return limb.normalize(limb.fermat_inv(a))
+
+
+def inv(a):
+    """``inv_plain`` on the card: libsecp256k1's addition chain for p - 2
+    (``csrc/field.cuh: fe_inv``) on every element."""
+    if a.device.type == "cpu":
+        return inv_plain(a)
+    flat = a.reshape(limb.NLIMB, -1).contiguous()
+    dev = _check(flat)
+    n = flat.shape[1]
+    out = torch.empty_like(flat)
+    _launch("inv", f"L={n}", dev, *_ptrs(flat, out), n)
+    return out.reshape(a.shape)
+
+
+def to_affine_plain(x, y, z):
+    """(16, L) strict projective lanes -> (x z^-1, y z^-1) canonical and inf
+    (L,) bool where z = 0 mod p, x and y 0 there: the JAX package's
+    ``curve.to_affine`` (``bulletproofspp_tpu/ops/curve.py:156``), its batch
+    inverse ``limb.batch_inv_plain``."""
+    zi = limb.batch_inv_plain(z)
+    return limb.normalize(limb.mul(x, zi)), limb.normalize(limb.mul(y, zi)), limb.is_zero(z)
+
+
+def to_affine(x, y, z):
+    """``to_affine_plain`` on the card in one launch: one inverse a lane
+    (``inv``'s chain), then the two products."""
+    if x.device.type == "cpu":
+        return to_affine_plain(x, y, z)
+    x, y, z = (t.contiguous() for t in (x, y, z))
+    dev = _check(x, y, z)
+    if x.dim() != 2 or y.shape != x.shape or z.shape != x.shape:
+        raise ValueError("to_affine takes x, y and z (16, L) planes of one shape")
+    n = x.shape[1]
+    ax, ay = torch.empty_like(x), torch.empty_like(y)
+    inf = torch.empty(n, dtype=torch.bool, device=x.device)
+    _launch("to_affine", f"L={n}", dev, *_ptrs(x, y, z, ax, ay, inf), n)
+    return ax, ay, inf
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ planes are ``torch.int64``: PyTorch on the CPU has no uint32 ``+`` or
 ``>>``, and 64-bit lanes leave room for lazy reduction.  Everything runs
 on CPU and CUDA tensors alike (only elementwise ops, sums and
 ``index_add_``), so ``ops.kernels`` can hold each CUDA kernel against it
-on the card.
+on the card; ``inv`` and ``batch_inv`` alone launch a kernel on a CUDA
+tensor (``fermat_inv`` and ``batch_inv_plain`` are their plain versions).
 
 Forms (the bounds every function states are worst cases, derived below
 by ``_wrap_passes`` on per-row bounds, not by hand):
@@ -306,20 +307,97 @@ def gt(a, b):
     return g > s
 
 
-_SQRT_EXP = (Q + 1) // 4
-
-
-def sqrt_candidate(a):
-    """a^((p+1)/4): the principal square root when a is a residue (p = 3
-    mod 4; callers check r^2 == a).  Square-and-multiply over the host
-    exponent's bits, loose in between."""
-    r = None
-    for bit in bin(_SQRT_EXP)[2:]:
-        if r is None:
-            r = a.clone()  # leading bit
-            continue
+def _pow(a, e: int):
+    """a^e for a host exponent e >= 1: square-and-multiply over its bits
+    below the top one, loose in between; strict out."""
+    r = a.clone()
+    for bit in bin(e)[3:]:
         r = mul_loose(r, r)
         if bit == "1":
             r = mul_loose(r, a)
     return tighten(r, LOOSE_MAX)
 
+
+def sqrt_candidate(a):
+    """a^((p+1)/4): the principal square root when a is a residue (p = 3
+    mod 4; callers check r^2 == a)."""
+    return _pow(a, (Q + 1) // 4)
+
+
+# ---------------------------------------------------------------------------
+# Inversion
+# ---------------------------------------------------------------------------
+
+
+def fermat_inv(a):
+    """a^(p-2) = a^-1 mod p, strict; 0 and Q -> 0
+    (``bulletproofspp_tpu/ops/limb.py:371``).  Plain PyTorch on any device:
+    ``kernels.inv_plain`` normalizes it."""
+    return _pow(a, Q - 2)
+
+
+def inv(a):
+    """a^-1 mod p over (16, *batch) strict planes, canonical; 0 and Q -> 0.
+    The inv kernel on a CUDA tensor (``ops.kernels.inv``), its plain version
+    (``kernels.inv_plain``, square-and-multiply) on a CPU tensor."""
+    from . import kernels
+
+    return kernels.inv(a)
+
+
+def batch_inv(a, axis: int = -1):
+    """a^-1 mod p of every element of (16, *batch) strict planes, canonical;
+    zeros map to zero (``bulletproofspp_tpu/ops/limb.py:424``).  On a CPU
+    tensor the JAX package's formulation along ``axis``
+    (``batch_inv_plain``); on a CUDA tensor the inv kernel on every element:
+    the inverse is unique, and Montgomery's trick saves products, not
+    latency (its one inverse is the same chain of dependent products).
+    Axis 0, the limb axis, is refused on either device."""
+    axis = _batch_axis(a, axis)
+    if a.device.type == "cpu":
+        return batch_inv_plain(a, axis)
+    from . import kernels
+
+    return kernels.inv(a)
+
+
+def _batch_axis(a, axis: int) -> int:
+    """``axis`` of (16, *batch) planes as a non-negative batch axis."""
+    axis %= a.dim()
+    if axis == 0:
+        raise ValueError("batch_inv: axis 0 is the limb axis")
+    return axis
+
+
+def _scan_mul(x, axis: int):
+    """Inclusive prefix products along ``axis`` by a log-step scan: at step
+    d each element from d on takes the product with the one d before it."""
+    n = x.shape[axis]
+    d = 1
+    while d < n:
+        x = torch.cat([x.narrow(axis, 0, d),
+                       mul(x.narrow(axis, d, n - d), x.narrow(axis, 0, n - d))], axis)
+        d *= 2
+    return x
+
+
+def batch_inv_plain(a, axis: int = -1):
+    """Montgomery batch inversion with one Fermat inverse, as the JAX
+    package formulates it (``limb.py:424-440``): zeros become 1; inclusive
+    prefix and suffix products (``_scan_mul``); T = the inverse of the
+    total; element i is exclusive prefix i x T x exclusive suffix i; zeros
+    back to 0.  Canonical out; plain PyTorch on any device."""
+    axis = _batch_axis(a, axis)
+    n = a.shape[axis]
+    if n == 0:
+        return a.clone()
+    zmask = is_zero(a)
+    ax = select(zmask, ones(a.shape[1:], a.device), a)
+    prefix = _scan_mul(ax, axis)
+    suffix = _scan_mul(ax.flip(axis), axis).flip(axis)
+    t = fermat_inv(prefix.narrow(axis, n - 1, 1)).expand_as(a)
+    one = ones(prefix.narrow(axis, 0, 1).shape[1:], a.device)
+    exc_pre = torch.cat([one, prefix.narrow(axis, 0, n - 1)], axis)
+    exc_suf = torch.cat([suffix.narrow(axis, 1, n - 1), one], axis)
+    out = mul(mul(exc_pre, t), exc_suf)
+    return normalize(select(zmask, torch.zeros_like(a), out))

@@ -115,6 +115,13 @@ def fold_mul(pe, po, de, se, do, so):
     return kernels.fold(kernels.table_flat(pe), kernels.table_flat(po), np.stack([de, se, do, so]))
 
 
+def run_fold(pe, po, de, se, do, so):
+    """``fold_mul``, then the lanes to affine on the device
+    (``bulletproofspp_tpu/ops/msm.py:313-321``): (x, y, inf) of
+    ``curve.to_affine``."""
+    return curve.to_affine(fold_mul(pe, po, de, se, do, so))
+
+
 def fold_mul_many(pe, po, digits):
     """``fold_mul`` for B provers at once (``jax.vmap(fold_mul_kernel)``,
     ``bulletproofspp_tpu/ops/msm.py:297``): pe, po (16, B L) lanes, prover

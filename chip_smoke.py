@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify, multiparty, shard, measure.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify, multiparty, shard, convert, measure.
 
     python3 chip_smoke.py
 
@@ -109,8 +109,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``range_proof.prove`` and to the golden digest, and 4 seeded parties
      on ``TorchEngine`` equal to the same run on ``HostEngine``; ``mp-demo
      --parties 3`` over TCP and ``--local`` ("True"); ``fold_bases`` and
-     ``shared_mul`` at 16, 512 and 4,096 lanes equal to ``HostEngine``'s;
-     and ``engine_profile``'s multiparty profile (4 parties and the dealer
+     ``shared_mul`` at 16, 512 and 4,096 lanes equal to ``HostEngine``'s,
+     each call through exactly one ``to_affine`` launch; and
+     ``engine_profile``'s multiparty profile (4 parties and the dealer
      on one engine against one prover);
   12. the sharded MSM: (a) log ``torch.cuda.device_count()``; (b) hold the
      kernels that take a row count at the sharded rows_local of 17 (win =
@@ -128,6 +129,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``dryrun.dryrun_multichip(2, "cuda")``.  Every MSM equals phase 6's
      host answer; logged: each run's wall seconds, launches, device seconds
      under ``torch.profiler``, peak device memory and gather seconds.
+  13. device affine conversion: (a) inv and to_affine against their plain
+     versions at 16, 512, 4,096 and 65,536 lanes with edge lanes (z = 0,
+     Q, Q - 1, x = 0, saturated limbs, values in [Q, 2^256)), word for
+     word, each timed at 16, 4,096 and 65,536; (b) counted from 0, the
+     affine path at 4,096 lanes alone: one ``fold_bases`` and one
+     ``shared_mul`` on ``TorchEngine``, which launch fold 2, table_flat 4,
+     to_affine 2 and no other kernel (``inv`` is on no path: the JAX
+     package calls ``limb.inv`` / ``batch_inv`` only from ``to_affine``,
+     which the to_affine kernel fuses); then, after the counts are read,
+     both equal to their route before device conversion
+     (``DevicePoints.to_host``, one host inverse a lane) and to the JAX
+     package's route through the port's field (``limb.batch_inv`` of the
+     fold's Z, ``limb.inv``); both routes' walls logged in turns, with the
+     host inverses' seconds alone.
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
@@ -137,10 +152,11 @@ route; padd at 1,056 lanes, the halving trees' commonest, and 65,536;
 table_flat at 16, fold's, and 4,096; reduce_block at W = 33,792, f = 8,
 the bench's second launch, and W = 16,896, f = 4, cli test's commonest;
 decompress at 16 lanes, cli test's smallest, and 16,384; fold_many at B =
-2 and 16 of L = 16 and 512), the kernel's
+2 and 16 of L = 16 and 512; inv and to_affine at 16, 4,096 and 65,536), the kernel's
 launch count (summed over the main-path runs of phases 3, 6, 7, 8, 9, 10,
-11 and 12, each counted from 0) in all, by path (``launches_by_path``: cli_test,
-msm_2_21, batch_verify, measurement, prove_batch, serve, multiparty, sharded), by design and path for padd, table_flat, reduce_block and
+11, 12 and 13, each counted from 0) in all, by path (``launches_by_path``: cli_test,
+msm_2_21, batch_verify, measurement, prove_batch, serve, multiparty, sharded,
+affine), by design and path for padd, table_flat, reduce_block and
 select_reduce (``launches_by_design``) and by shape, largest normalized
 difference, times (for padd, table_flat and reduce_block the design the
 wrapper takes, from the in-turns timings), bound (``bounds``:
@@ -151,8 +167,8 @@ The kernel lines of phase 2, and the JSON line (``chain``), also give, for
 tail_horner, horner, fold, fold_many, select_reduce_fused, padd, table_flat and
 reduce_block, the time per point operation and per product round of the
 kernel's longest dependent chain (``bounds.*_chain``; padd's, table_flat's
-and reduce_block's by design), and for decompress the time per dependent
-field product of its chain;
+and reduce_block's by design), and for decompress, inv and to_affine the
+time per dependent field product of its chain;
 the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 CUDA is not available.
 """
@@ -194,6 +210,12 @@ MP_BINARY, MP_BINARY_PARTIES = "bin_test", 2
 MP_DEMO_PARTIES = 3
 MP_LANES = (16, 512, 4096)
 DEVICE = "cuda"  # the CLI's --device
+
+# phase 13: the affine kernels' widths (fold_bases' 16 to 4,096 lanes and the
+# measurement width), those timed, their edge values, and the path's lanes
+AFFINE_WIDTHS = (16, 512, 4096, 65536)
+AFFINE_TIMED = (16, 4096, 65536)
+AFFINE_LANES = 4096
 
 MEASURE_L = 65536  # the measurement tools' width (32,768 points)
 SR_CASES = ((1024, 128, False), (1024, 128, True), (512, 128, False), (512, 256, False),
@@ -656,6 +678,16 @@ def check_kernels(dev):
 
     rows += check_decompress(dev, rng)
     rows += check_measurement_kernels(dev, rng)
+    return kernel_rows(rows)
+
+
+def kernel_rows(rows):
+    """The kernel lines of the log and the rows of the kernel JSON line,
+    {kernel: [row]}, from (name, max_abs_err, ms, plain ms, shape, work[,
+    extra]) tuples: the bound at the card's maximum SM clock and the time
+    per step of the kernel's longest dependent chain."""
+    from bulletproofspp_tpu_torch import bounds
+
     torch.cuda.synchronize()
     mhz = bounds.card()["sm_clock_max_mhz"]
     # longest dependent chains (point ops, product rounds) at the rows' shapes
@@ -1307,24 +1339,34 @@ def affine_walk(n: int, seed: int):
 
 def engine_interface(dev):
     """Phase 11 (e): fold_bases and shared_mul on the card at MP_LANES,
-    equal to HostEngine's (None lanes; zero scalars)."""
+    equal to HostEngine's (None lanes; zero scalars), each call through one
+    to_affine launch."""
     from bulletproofspp_tpu_torch.core.engine import HostEngine
     from bulletproofspp_tpu_torch.core.fields import R
+    from bulletproofspp_tpu_torch.ops import kernels
     from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
     eng, host = TorchEngine(dev), HostEngine()
     rng = np.random.default_rng(SEED + 11)
+
+    def one_to_affine(call, *args):
+        before = kernels.counts()["to_affine"]
+        out = getattr(eng, call)(*args)
+        if kernels.counts()["to_affine"] - before != 1:
+            raise AssertionError(f"{call} did not convert through one to_affine launch")
+        return out
+
     for n in MP_LANES:
         even, odd = affine_walk(n, SEED + n), affine_walk(n, SEED + 2 * n)
         b, a = (int.from_bytes(rng.bytes(16), "little") >> 1 for _ in range(2))
         for fb, fa in ((b, -a), (0, a)):
-            if eng.fold_bases(fb, fa, even, odd) != host.fold_bases(fb, fa, even, odd):
+            if one_to_affine("fold_bases", fb, fa, even, odd) != host.fold_bases(fb, fa, even, odd):
                 raise AssertionError(f"fold_bases at {n} lanes differs from HostEngine's")
         for k in (int.from_bytes(rng.bytes(32), "little") % R, 0):
-            if eng.shared_mul(k, even) != host.shared_mul(k, even):
+            if one_to_affine("shared_mul", k, even) != host.shared_mul(k, even):
                 raise AssertionError(f"shared_mul at {n} lanes (k = {k}) differs from HostEngine's")
     log(f"fold_bases and shared_mul at {', '.join(map(str, MP_LANES))} lanes (None lanes, zero "
-        "scalars): equal to HostEngine's")
+        "scalars): equal to HostEngine's, one to_affine launch a call")
 
 
 def multiparty_phase(dev, work, required):
@@ -1505,6 +1547,128 @@ def sharded_phase(dev, blobs, required):
     return shapes
 
 
+def edge_planes(L: int, rng, dev, shift: int = 0):
+    """(16, L) strict planes of numpy-seeded random limbs (values over the
+    full 256-bit range, so not canonical) whose first lanes hold the edge
+    values (0, 1, Q, Q - 1, Q + 1, 2^256 - 1, saturated 0xFFFF runs),
+    rotated by ``shift``."""
+    from bulletproofspp_tpu_torch.core.fields import Q
+    from bulletproofspp_tpu_torch.ops import limb
+
+    edge = [0, 1, Q, Q - 1, Q - 2, Q + 1, (1 << 256) - 1, (1 << 256) % Q, (1 << 128) - 1,
+            int("FFFF" * 8 + "0000" * 8, 16), int("FFFF0000" * 8, 16), 0]
+    t = torch.as_tensor(rng.integers(0, 1 << 16, size=(limb.NLIMB, L)), device=dev)
+    vals = edge[shift:] + edge[:shift]
+    k = min(L, len(vals))
+    t[:, :k] = limb.from_ints(vals[:k], dev)
+    return t
+
+
+def check_affine(dev):
+    """Phase 13 (a): inv and to_affine against their plain versions at
+    AFFINE_WIDTHS, edge lanes (``edge_planes``: z = 0, Q, Q - 1, x = 0,
+    saturated limbs) included; both give canonical words, so the outputs
+    and the identity mask must be equal word for word.  Each timed (CUDA ms
+    back to back, the plain version's as the host sends it) at
+    AFFINE_TIMED.  Returns the kernel rows."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED + 13)
+    rows = []
+    for L in AFFINE_WIDTHS:
+        a = edge_planes(L, rng, dev)
+        x, y, z = (edge_planes(L, rng, dev, shift) for shift in (5, 3, 0))
+        for name, got, want in (("inv", (kernels.inv(a),), (kernels.inv_plain(a),)),
+                                ("to_affine", kernels.to_affine(x, y, z),
+                                 kernels.to_affine_plain(x, y, z))):
+            err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item())
+                      for g, w in zip(got, want))
+            if err != 0:
+                raise AssertionError(f"kernel {name} L={L} disagrees with its plain version: "
+                                     f"max |diff| {err}")
+        if L in AFFINE_TIMED:
+            rows += [("inv", 0, time_ms(lambda: kernels.inv(a), 10),
+                      time_ms(lambda: kernels.inv_plain(a), 1, paced=True), f"L={L}",
+                      bounds.inv(L), {"products": bounds.inv_chain()}),
+                     ("to_affine", 0, time_ms(lambda: kernels.to_affine(x, y, z), 10),
+                      time_ms(lambda: kernels.to_affine_plain(x, y, z), 1, paced=True), f"L={L}",
+                      bounds.to_affine(L), {"products": bounds.to_affine_chain()})]
+    log(f"inv and to_affine at {', '.join(map(str, AFFINE_WIDTHS))} lanes (z = 0, Q, Q - 1, x = 0 "
+        "and saturated lanes among them): equal to their plain versions word for word")
+    return rows
+
+
+def affine_phase(dev):
+    """Phase 13 (b): counted from 0, the affine path at AFFINE_LANES lanes
+    alone: one TorchEngine.fold_bases and one shared_mul (fold 2,
+    table_flat 4, to_affine 2, nothing else).  Only after the counts are
+    read: both equal to their route before device affine conversion (the
+    fold's lanes normalized, copied and inverted on the host,
+    ``DevicePoints.to_host``) and to the JAX package's route through the
+    port's field (limb.batch_inv of the fold's Z, then limb.inv of 16
+    lanes); the walls of both routes logged in turns, with the seconds of
+    the host inverses alone.  Returns the path's launches by shape."""
+    from bulletproofspp_tpu_torch import native
+    from bulletproofspp_tpu_torch.core.fields import R
+    from bulletproofspp_tpu_torch.ops import curve, glv, kernels, limb, msm
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine, _dp_pad, _dp_slice, DevicePoints
+
+    n = AFFINE_LANES
+    eng = TorchEngine(dev)
+    rng = np.random.default_rng(SEED + 131)
+    even, odd = affine_walk(n, SEED + 13), affine_walk(n, SEED + 26)
+    b, a = (int.from_bytes(rng.bytes(16), "little") >> 1 for _ in range(2))
+    k = int.from_bytes(rng.bytes(32), "little") % R
+
+    def shared_mul_host_inverse():
+        p = _dp_pad(eng.basevec(even), n)
+        pe = p.coords()
+        k1, k2 = glv.split(k)
+        out = msm.fold_mul(pe, curve.endo(pe), *native.recode_signed(k1),
+                           *native.recode_signed(k2))
+        return _dp_slice(DevicePoints(*out), n).to_host()
+
+    routes = {
+        "fold_bases": lambda: eng.fold_bases(b, -a, even, odd),
+        "fold_bases, host inverse": lambda: eng.fold_bv(b, -a, even, odd).to_host(),
+        "shared_mul": lambda: eng.shared_mul(k, even),
+        "shared_mul, host inverse": shared_mul_host_inverse,
+    }
+    kernels.reset_counts()
+    got = {name: routes[name]() for name in ("fold_bases", "shared_mul")}
+    torch.cuda.synchronize()
+    launches, shapes = kernels.counts(), kernels.shape_counts()
+    want = {"fold": 2, "table_flat": 4, "to_affine": 2}
+    if {name: c for name, c in launches.items() if c} != want:
+        raise AssertionError(f"the affine path launched {launches}, want {want} and nothing else")
+    for name in ("fold_bases", "shared_mul"):
+        if got[name] != routes[f"{name}, host inverse"]():
+            raise AssertionError(f"{name} at {n} lanes differs from the host-inverse route")
+    # the JAX package's to_affine, step by step through the port's field
+    fx, _, fz = msm.fold_mul(*eng._fold_args(b, -a, even, odd)[0])
+    zi = limb.batch_inv(fz)
+    if limb.unpack_ints(limb.normalize(limb.mul(fx, zi))) != [
+            0 if p is None else p[0] for p in got["fold_bases"]]:
+        raise AssertionError("limb.batch_inv's x / z differs from fold_bases'")
+    if not torch.equal(limb.inv(fz[:, :16]), zi[:, :16]):
+        raise AssertionError("limb.inv differs from limb.batch_inv")
+    walls = {name: [] for name in routes}
+    for name in [*routes, *reversed(routes)] * 2:
+        t0 = time.perf_counter()
+        routes[name]()
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    planes = limb.planes_to_numpy(curve.normalize3(*eng.fold_bv(b, -a, even, odd).coords()))
+    t0 = time.perf_counter()
+    curve.affine_from_normalized(planes)
+    host_s = time.perf_counter() - t0
+    log(f"{card_line()}: fold_bases and shared_mul at {n} lanes equal to the host-inverse route "
+        f"and to limb.batch_inv / limb.inv; wall seconds in turns {json.dumps(walls)}; the {n} "
+        f"host inverses alone {host_s:.4f} s; launches on the affine path {launches}")
+    return shapes
+
+
 def measurement_path():
     """Phase 8: counted from 0, the port's bench at 32,768 points and the
     two tools' mains, all in this process."""
@@ -1573,7 +1737,8 @@ def main() -> int:
         launches, cli_shapes = kernels.counts(), kernels.shape_counts()
         log(f"launches on the main path: {launches}")
         require_launched("cli test", launches, set(launches) - {
-            "select_reduce_fused", "sr_variant", "grid_copy", "chain", "fold_many"})
+            "select_reduce_fused", "sr_variant", "grid_copy", "chain", "fold_many", "inv",
+            "to_affine"})
         require_port_only()
         prove_verify_times(work)
         measured = measurement_path()  # before any other torch.profiler session
@@ -1594,19 +1759,22 @@ def main() -> int:
             "padd", "horner", "table_flat", "select_reduce", "select_reduce_fused",
             "reduce_block", "tail_horner", "decompress"})
         require_port_only()
+        checked.update(kernel_rows(check_affine(dev)))  # phase 13
+        affine = affine_phase(dev)
+        require_port_only()
     finally:
         os.chdir(HERE)
         shutil.rmtree(work, ignore_errors=True)
     require_port_only()
     paths = {"cli_test": cli_shapes, "msm_2_21": wide, "batch_verify": batch,
              "measurement": measured, "prove_batch": prove_batch, "serve": served,
-             "multiparty": multiparty, "sharded": shard}
+             "multiparty": multiparty, "sharded": shard, "affine": affine}
     shapes = {k: collections.Counter() for k in launches}
     for run in paths.values():
         for k, by_shape in run.items():
             shapes[k].update(by_shape)
     launches = {k: sum(v.values()) for k, v in shapes.items()}
-    require_launched("the main paths", launches, set(launches))
+    require_launched("the main paths", launches, set(launches) - {"inv"})  # inv: on no path
     by_path = {k: {path: sum(run[k].values()) for path, run in paths.items()} for k in launches}
     by_design = {k: {path: designs(run[k]) for path, run in paths.items()}
                  for k in ("padd", "table_flat", "reduce_block", "select_reduce")}

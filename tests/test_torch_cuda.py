@@ -82,6 +82,11 @@ def test_cuda_kernels_match_plain_versions():
     sign = torch.as_tensor(rng.integers(0, 2, size=256), device=dev)
     (y, ok), (py, pok) = kernels.decompress(x, sign), kernels.decompress_plain(x, sign)
     assert torch.equal(y, py) and torch.equal(ok, pok) and 0 < int(ok.sum()) < 256
+    # the affine conversion, canonical out: z = 0, Q and p - 1 among random lanes
+    z = limb.from_ints(xs[:253] + [0, Q, Q - 1], dev)
+    assert torch.equal(kernels.inv(z), kernels.inv_plain(z))
+    for got, want in zip(kernels.to_affine(x, x, z), kernels.to_affine_plain(x, x, z)):
+        assert torch.equal(got, want)
     launched = kernels.counts()
     assert all(launched[k] > 0 for k in launched if k not in ("sr_variant", "grid_copy", "chain"))
 

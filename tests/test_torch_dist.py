@@ -7,6 +7,7 @@ test_torch_sharded.py)."""
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -67,6 +68,30 @@ def test_sharded_msm_global_equals_the_jax_package():
 
 
 def test_a_failing_rank_fails_the_run(tmp_path, monkeypatch):
+    """Both ranks fail (a missing corpus); whichever exits first is named,
+    with its rc 1, as the first to fail."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    with pytest.raises(AssertionError, match="rank 0 rc 1"):
+    with pytest.raises(AssertionError, match=r"failed: rank [01] rc 1 \(first to fail\)"):
         dryrun._run_workers(2, ["batch", str(tmp_path / "missing.pkl"), "--device", "cpu"])
+
+
+def test_the_reaper_kills_the_survivors_of_the_first_failure():
+    """Rank 1 fails at once, rank 0 would sleep for a minute: rank 1 is the
+    first to fail, rank 0 is killed after it, and each one's output is in
+    the message."""
+    cmds = [[sys.executable, "-c", "import time; print('rank 0 up', flush=True); time.sleep(60)"],
+            [sys.executable, "-c", "import sys; print('rank 1 gives up'); sys.exit(1)"]]
+    t0 = time.perf_counter()
+    with pytest.raises(AssertionError) as err:
+        dryrun._spawn_and_reap(cmds)
+    assert time.perf_counter() - t0 < 30
+    msg = str(err.value)
+    assert msg.startswith("multiprocess worker(s) failed: "
+                          "rank 1 rc 1 (first to fail)\nrank 1 gives up")
+    assert "rank 0 rc -9 (killed after rank 1 failed)" in msg
+    assert msg.index("rank 1 rc 1") < msg.index("rank 0 rc -9")
+
+
+def test_the_reaper_returns_every_output_when_all_succeed():
+    cmds = [[sys.executable, "-c", f"print('rank {i}')"] for i in range(3)]
+    assert [out for out, _ in dryrun._spawn_and_reap(cmds)] == [f"rank {i}\n" for i in range(3)]

@@ -98,6 +98,8 @@ CALLS = {
     "select_reduce_fused": lambda: kernels.select_reduce_fused(_pt(1024), _meta(1, 3, 1024),
                                                                _meta(1, 3, 1024)),
     "decompress": lambda: kernels.decompress(_meta(16, 64), _meta(64)),
+    "inv": lambda: kernels.inv(_meta(16, 64)),
+    "to_affine": lambda: kernels.to_affine(*_pt(64)),
     "sr_variant": lambda: kernels.sr_variant(_tables(1024), _meta(3, 1024), _meta(3, 1024)),
     "grid_copy": lambda: kernels.grid_copy(_meta(16, 1024)),
     "chain": lambda: kernels.chain("padd", _pt(64), _pt(64)),

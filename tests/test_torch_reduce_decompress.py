@@ -1,8 +1,9 @@
 """The chains of the redesigned reduce_block and decompress, held on the
 CPU: decompress's square-root addition chain (``bounds.SQRT_CHAIN``)
 against Python's ``pow`` on seeded integers and against the steps that
-``csrc/decompress.cu`` runs, and the chain lengths and work that
-``bounds.py`` gives both kernels."""
+``csrc/decompress.cu`` runs, the inverse's (``bounds.INV_CHAIN``) against
+the steps of ``csrc/field.cuh: fe_inv``, and the chain lengths and work
+that ``bounds.py`` gives both kernels."""
 
 import os
 import re
@@ -49,23 +50,29 @@ def test_sqrt_chain_counts_253_squarings_and_13_multiplications():
     assert [len(b) for b in bin(e)[2:].split("0") if b] == [223, 22, 2]
 
 
-def _source_steps():
-    """(squarings, multiply-by k) of each step of decompress.cu's
-    fe_sqrt_candidate, read from its code, and the (s, k) its comments
-    give."""
-    with open(os.path.join(kernels.CSRC, "decompress.cu")) as f:
+def _source_steps(source="decompress.cu", head="Fe fe_sqrt_candidate("):
+    """(squarings, multiply-by k) of each step of a chain's function (by
+    default decompress.cu's fe_sqrt_candidate), read from its code, and the
+    (s, k) its comments give; a call of field.cuh's fe_ladder stands for
+    the ladder's steps, read the same way."""
+    with open(os.path.join(kernels.CSRC, source)) as f:
         src = f.read()
-    body = src[src.index("Fe fe_sqrt_candidate("):]
+    body = src[src.index(head):]
     body = body[:body.index("\n}\n")]
     code, comments = [], []
     for line in body.splitlines():
+        if "= fe_ladder(a);" in line:
+            c, n = _source_steps("field.cuh", "FeLadder fe_ladder(")
+            code += c
+            comments += n
+            continue
         note = re.search(r"// \((\d+), (\d+)\)$", line)
         if not note:
             continue
         comments.append((int(note.group(1)), int(note.group(2))))
-        sq = re.search(r"fe_sqr_n\(\w+, (\d+)\)", line)
+        sq = re.search(r"fe_sqr_n\([\w.]+, (\d+)\)", line)
         s = int(sq.group(1)) if sq else line.count("fe_sqr(")
-        mul = re.search(r"fe_mul\(.*, (\w+)\);", line)
+        mul = re.search(r"fe_mul\(.*, (?:l\.)?(\w+)\);", line)
         k = 0 if not mul else 1 if mul.group(1) == "a" else int(mul.group(1)[1:])
         code.append((s, k))
     return code, comments
@@ -74,6 +81,14 @@ def _source_steps():
 def test_decompress_source_runs_the_chain_its_comments_give():
     code, comments = _source_steps()
     assert code == comments == list(bounds.SQRT_CHAIN)
+
+
+def test_inv_source_runs_the_chain_its_comments_give():
+    """field.cuh's fe_inv, which the affine kernels run: bounds.INV_CHAIN,
+    the square root's ladder among its steps."""
+    code, comments = _source_steps("field.cuh", "Fe fe_inv(")
+    assert code == comments == list(bounds.INV_CHAIN)
+    assert bounds.INV_CHAIN[:11] == bounds.SQRT_CHAIN[:11]
 
 
 def test_decompress_work_and_chain_count_the_new_chain():
