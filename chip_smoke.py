@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify, multiparty, shard, convert, measure.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify, multiparty, shard, convert, measure, bench.
 
     python3 chip_smoke.py
 
@@ -143,6 +143,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      package's route through the port's field (``limb.batch_inv`` of the
      fold's Z, ``limb.inv``); both routes' walls logged in turns, with the
      host inverses' seconds alone.
+  14. the bench's proof legs: 1,024 bench proofs generated anew
+     (``bench.gen_proofs``: HostEngine in spawned workers); then, each
+     counted from 0, ``bench_proofs``, ``bench_mixed``, ``bench_serve`` and
+     ``bench_batch_1024`` (over those proofs) in this process at the
+     reference's default sizes (BENCH_* unset: 3 waves each) on one
+     ``TorchEngine``: each leg's ``*all_valid`` true, the line it prints on
+     stderr equal to what it returns and holding the keys of the root
+     bench.py's line (read from its source) and the card's; each leg
+     launching its ``BENCH_REQUIRED`` kernels; logged: each line, its
+     wall seconds and its launches by kernel.  Then ``python -m
+     bulletproofspp_tpu_torch.bench`` as a subprocess with BENCH_ONLY=batch
+     and BENCH_BATCH_N=16: rc 0, one valid batch line of 16 proofs on
+     stderr, no MSM line.
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
@@ -154,9 +167,9 @@ the bench's second launch, and W = 16,896, f = 4, cli test's commonest;
 decompress at 16 lanes, cli test's smallest, and 16,384; fold_many at B =
 2 and 16 of L = 16 and 512; inv and to_affine at 16, 4,096 and 65,536), the kernel's
 launch count (summed over the main-path runs of phases 3, 6, 7, 8, 9, 10,
-11, 12 and 13, each counted from 0) in all, by path (``launches_by_path``: cli_test,
+11, 12, 13 and 14, each counted from 0) in all, by path (``launches_by_path``: cli_test,
 msm_2_21, batch_verify, measurement, prove_batch, serve, multiparty, sharded,
-affine), by design and path for padd, table_flat, reduce_block and
+affine, bench_proofs, bench_mixed, bench_serve, bench_batch), by design and path for padd, table_flat, reduce_block and
 select_reduce (``launches_by_design``) and by shape, largest normalized
 difference, times (for padd, table_flat and reduce_block the design the
 wrapper takes, from the in-turns timings), bound (``bounds``:
@@ -216,6 +229,16 @@ DEVICE = "cuda"  # the CLI's --device
 AFFINE_WIDTHS = (16, 512, 4096, 65536)
 AFFINE_TIMED = (16, 4096, 65536)
 AFFINE_LANES = 4096
+
+# phase 14: the kernels each proof leg of the bench must launch, and the
+# size of the batch leg's run as a subprocess
+BENCH_REQUIRED = {
+    "proofs": {"fold", "fold_many", "padd", "table_flat", "horner", "tail_horner"},
+    "mixed": set(),
+    "serve": {"fold_many", "decompress"},
+    "batch": {"decompress", "table_flat", "select_reduce", "reduce_block", "tail_horner"},
+}
+BENCH_SUBPROCESS_N = 16
 
 MEASURE_L = 65536  # the measurement tools' width (32,768 points)
 SR_CASES = ((1024, 128, False), (1024, 128, True), (512, 128, False), (512, 256, False),
@@ -1669,6 +1692,79 @@ def affine_phase(dev):
     return shapes
 
 
+def reference_bench_keys(names) -> dict:
+    """{function: keys of the JSON line it prints} for the functions
+    ``names`` of the JAX package's root bench.py, read from its source (not
+    imported)."""
+    with open(os.path.join(HERE, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    keys = {}
+    for fn in tree.body:
+        if isinstance(fn, ast.FunctionDef) and fn.name in names:
+            for node in ast.walk(fn):
+                if (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "dumps"
+                        and node.args and isinstance(node.args[0], ast.Dict)):
+                    keys[fn.name] = {k.value for k in node.args[0].keys}
+    return keys
+
+
+def bench_legs_phase(dev):
+    """Phase 14: counted from 0 before each, the bench's four proof legs in
+    this process at the reference's default sizes on one TorchEngine (the
+    batch leg over 1,024 proofs generated now, not a cache); each valid,
+    printing the reference's keys, and launching its BENCH_REQUIRED
+    kernels.  Then the bench as a subprocess with BENCH_ONLY=batch and
+    BENCH_BATCH_N=16.  Returns {path: launches by shape}."""
+    from bulletproofspp_tpu_torch import bench
+    from bulletproofspp_tpu_torch.ops import kernels
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    for name in [k for k in os.environ if k.startswith("BENCH_")]:
+        del os.environ[name]  # the reference's default sizes
+    want_keys = reference_bench_keys({leg.__name__ for leg, _ in bench.LEGS.values()})
+    t0 = time.perf_counter()
+    blobs = bench.gen_proofs(BATCH_N)
+    log(f"bench legs: {len(blobs)} proofs generated by HostEngine in spawned workers, "
+        f"{time.perf_counter() - t0:.3f} s")
+    eng = TorchEngine(dev)
+    paths = {}
+    for name, (leg, valid) in bench.LEGS.items():
+        kernels.reset_counts()
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            out = leg(eng, blobs=blobs) if name == "batch" else leg(eng)
+        secs = time.perf_counter() - t0
+        launches = kernels.counts()
+        paths[f"bench_{name}"] = kernels.shape_counts()
+        printed = json.loads(err.getvalue().strip().splitlines()[-1])
+        log(f"bench leg {name} ({secs:.3f} s): {json.dumps(printed)}")
+        log(f"bench leg {name}: launches {json.dumps({k: n for k, n in launches.items() if n})}")
+        if printed != out:
+            raise AssertionError(f"bench leg {name} printed {printed}, returned {out}")
+        if set(out) != want_keys[leg.__name__] | {"card", "power_limit_w"}:
+            raise AssertionError(f"bench leg {name}'s keys {sorted(out)} are not the reference's "
+                                 f"{sorted(want_keys[leg.__name__])} and the card's")
+        if out[valid] is not True:
+            raise AssertionError(f"bench leg {name}: {valid} is {out[valid]}")
+        require_launched(f"bench leg {name}", launches, BENCH_REQUIRED[name])
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bulletproofspp_tpu_torch.bench"], cwd=HERE, capture_output=True,
+        text=True, timeout=600,
+        env={**os.environ, "BENCH_ONLY": "batch", "BENCH_BATCH_N": str(BENCH_SUBPROCESS_N)})
+    lines = [json.loads(t) for t in proc.stderr.splitlines() if t.startswith("{")]
+    msm_lines = [t for t in proc.stdout.splitlines() if t.startswith("{")]
+    if proc.returncode != 0 or msm_lines or len(lines) != 1 \
+            or (lines[0]["batch_n"], lines[0]["batch_all_valid"]) != (BENCH_SUBPROCESS_N, True):
+        raise AssertionError(f"BENCH_ONLY=batch: rc {proc.returncode}, stdout {proc.stdout!r}, "
+                             f"stderr {proc.stderr[-2000:]!r}")
+    log(f"bench BENCH_ONLY=batch BENCH_BATCH_N={BENCH_SUBPROCESS_N} as a subprocess: rc 0, "
+        f"{time.perf_counter() - t0:.3f} s, {json.dumps(lines[0])}")
+    return paths
+
+
 def measurement_path():
     """Phase 8: counted from 0, the port's bench at 32,768 points and the
     two tools' mains, all in this process."""
@@ -1762,13 +1858,15 @@ def main() -> int:
         checked.update(kernel_rows(check_affine(dev)))  # phase 13
         affine = affine_phase(dev)
         require_port_only()
+        bench_legs = bench_legs_phase(dev)
+        require_port_only()
     finally:
         os.chdir(HERE)
         shutil.rmtree(work, ignore_errors=True)
     require_port_only()
     paths = {"cli_test": cli_shapes, "msm_2_21": wide, "batch_verify": batch,
              "measurement": measured, "prove_batch": prove_batch, "serve": served,
-             "multiparty": multiparty, "sharded": shard, "affine": affine}
+             "multiparty": multiparty, "sharded": shard, "affine": affine, **bench_legs}
     shapes = {k: collections.Counter() for k in launches}
     for run in paths.values():
         for k, by_shape in run.items():

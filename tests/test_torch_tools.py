@@ -230,19 +230,36 @@ def test_bench_work_counts():
 def test_bench_line_leads_with_the_reference_headline_keys():
     """The line carries the keys the reference's bench prints (``bench.py:
     827-838``): value = tabled points/s, unit, vs_baseline = the tabled
-    bound share; the rest of the bench's object follows on the same line."""
+    bound share, vs_host_engine = tabled points/s over the host engine's;
+    the rest of the bench's object follows on the same line."""
     import json
 
     out = {"metric": "msm_32768pt_throughput", "card": "NVIDIA H100 80GB HBM3",
            "points_per_s_tabled": 25208635.5, "points_per_s_untabled": 21443000.0,
-           "bound_share_tabled": 0.1602, "bound_share_untabled": 0.1589, "correct": True}
+           "bound_share_tabled": 0.1602, "bound_share_untabled": 0.1589, "correct": True,
+           "host_engine_points_per_s": 2500.0, "vs_host_engine": 10083.4542}
     text = bench.line(out)
     assert "\n" not in text
     got = json.loads(text)
-    assert list(got)[:4] == ["metric", "value", "unit", "vs_baseline"]
-    assert (got["metric"], got["value"], got["unit"], got["vs_baseline"]) == (
-        "msm_32768pt_throughput", 25208635.5, "points/s", 0.1602)
+    assert list(got)[:5] == ["metric", "value", "unit", "vs_baseline", "vs_host_engine"]
+    assert (got["metric"], got["value"], got["unit"], got["vs_baseline"], got["vs_host_engine"]) == (
+        "msm_32768pt_throughput", 25208635.5, "points/s", 0.1602, 10083.4542)
     assert {k: got[k] for k in out} == out
+
+
+def test_host_engine_basis_is_the_references():
+    """vs_host_engine's host MSM runs over the reference's points: the first
+    min(64, n) doublings of G (the JAX package's ``ec.dbl``), with the
+    scalars of set 0 (Random(2024))."""
+    from bulletproofspp_tpu.core import ec as jec
+
+    pts, p = [], jec.G
+    for _ in range(bench.HOST_POINTS):
+        pts.append(p)
+        p = jec.dbl(p)
+    assert bench.doublings(bench.HOST_POINTS) == pts
+    rng = random.Random(2024)
+    assert bench.scalar_sets(bench.HOST_POINTS, 1)[0] == [rng.randrange(R) for _ in range(64)]
 
 
 def test_bound_of_launches_in_sequence_sums_their_bounds():
