@@ -81,7 +81,6 @@ there is no CPU carry-on.  Imports no JAX.
 
 from __future__ import annotations
 
-import collections
 import json
 import multiprocessing
 import os
@@ -95,7 +94,7 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 import numpy as np
 import torch
 
-from . import bounds, cli, native, serve
+from . import bounds, cli, engine_profile, native, serve
 from .core import ec, lockstep
 from .core import range_proof as rpm
 from .core.batch import batch_verify, batch_verify_encoded
@@ -227,48 +226,6 @@ def _msm_work(absd, sgn, tabled: bool, L: int):
     return ops, reads + bounds.PT_BYTES
 
 
-def _profile(fn) -> dict:
-    """One call of fn(0) under torch.profiler: its wall seconds, device
-    seconds, device milliseconds (and launches) by kernel, and whether the
-    profile holds every launch of the port's kernels that the call made."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from .engine_profile import device_time
-
-    torch.cuda.synchronize()
-    before = kernels.counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn(0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launched = {k: n - before[k] for k, n in kernels.counts().items() if n > before[k]}
-    device_s, by_kernel = device_time(prof, top=None)
-    return {"wall_s": wall, "device_s": device_s, "by_kernel": by_kernel,
-            "complete": profile_complete(launched, by_kernel)}
-
-
-def profile_complete(launched: dict, by_kernel: dict) -> bool:
-    """Whether a profile's kernels ({name: [ms, launches]}, keyed as
-    ``engine_profile.device_time`` keys them) hold every launch in
-    ``launched`` ({wrapper: launches}): each ``__global__`` function of the
-    wrappers' ``device_kernels`` (or each set of alternatives, ``"a|b"``)
-    ran as many times as the wrappers' launches that run it.  Matched by
-    function name (``engine_profile.wrappers_of``), so a kernel shared by
-    two wrappers (``horner_warp_kernel``) counts for both."""
-    from .engine_profile import wrappers_of
-
-    want = collections.Counter()
-    for k, n in launched.items():
-        for group in kernels.KERNELS[k].device_kernels:
-            want[group] += n
-    seen = collections.Counter()
-    for key, (_, n) in by_kernel.items():
-        for group in set(wrappers_of(key).values()) & want.keys():
-            seen[group] += n
-    return seen == want
-
-
 def run() -> dict:
     """The bench; returns its result line as a dict."""
     card = bounds.card()
@@ -320,7 +277,7 @@ def run() -> dict:
     t_e2e = sampled(e2e_call, host_ms)
     t_padd = sampled(padd_chain)
     ns_padd = t_padd["ms"] * 1e6 / PADD_CHAIN / L
-    profiled = {name: _profile(fn) for name, fn in
+    profiled = {name: engine_profile.profiled(lambda fn=fn: fn(0)) for name, fn in
                 (("tabled", tabled_call), ("untabled", untabled_call), ("e2e", e2e_call))}
 
     out = {

@@ -287,6 +287,31 @@ def to_affine(n: int):
     return n * (INV + 2 * FE_MUL), n * (3 * FE_BYTES + 2 * FE_BYTES + 1)
 
 
+def select_small(absd, sgn):
+    """The entries the digits select (``_selected_bytes``: the gather reads X
+    and Z by |d|, Y by |d| + 9 s), the digits, the selected points out; no
+    multiplies."""
+    n = absd.numel()
+    return 0, _selected_bytes(absd, sgn) + n * 16 + n * PT_BYTES
+
+
+def endo(n: int, interleave: bool):
+    """beta x a lane; with ``interleave`` the three planes in and twice their
+    lanes out, else x in and beta x out."""
+    if interleave:
+        return n * FE_MUL, n * 3 * PT_BYTES
+    return n * FE_MUL, n * 2 * FE_BYTES
+
+
+def pneg(n: int):
+    return n * FE_SUB, n * 2 * FE_BYTES
+
+
+def normalize3(n: int):
+    """Three planes in, three out; ``fe_canon`` has no multiply."""
+    return 0, n * 2 * PT_BYTES
+
+
 def sr_variant(absd, sgn, blk: int, out_w: int, noselect: bool):
     factor = blk // out_w
     rows, L = absd.shape

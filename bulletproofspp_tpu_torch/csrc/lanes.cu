@@ -1,0 +1,168 @@
+// lanes: the small lane-wise device functions of the main paths, which the
+// JAX package compiles into its device programs (XLA, no Pallas):
+//  * select_small_kernel replaces msm_kernel's table select under 1,024
+//    lanes, msm._table's entries picked by digit (bulletproofspp_tpu/ops/
+//    msm.py:145-156, onehot_select): entry |d| of X and Z, |d| + 9 s of Y;
+//  * endo_kernel replaces curve.endo (bulletproofspp_tpu/ops/curve.py:251),
+//    phi(x, y, z) = (beta x, y, z), and with `interleave` the engine's
+//    _interleave_endo (bulletproofspp_tpu/ops/engine.py:119): [P_j, phi(P_j)]
+//    at lanes 2j and 2j + 1 of the three planes, in the same launch;
+//  * pneg_kernel replaces curve.pneg (bulletproofspp_tpu/ops/curve.py:87),
+//    -y a lane (fe_neg: strict, -0 may come out as 0 or Q);
+//  * normalize3_kernel replaces curve._normalize3 (bulletproofspp_tpu/ops/
+//    curve.py:124): three strict planes to one stacked (3, 16, n) canonical
+//    tensor, ready for one device-to-host copy.
+// Equal to ops/kernels.py: select_plain (word for word), endo_plain and
+// pneg_plain (after normalization) and normalize3_plain (word for word).
+//
+// What bounds them on the H100: a launch's fixed cost.  Each moves a few KB
+// to a few MB (a 16- to 512-lane MSM's selected entries, a few thousand
+// lanes of points), and endo's one field product a lane is far below the
+// multiply rate.  As plain PyTorch on the card each was a chain of 17 to 190
+// small operator launches; here each is one launch, one thread a lane (a
+// (MSM, row, lane) for the select) in a grid-stride loop, neighbouring
+// threads on neighbouring lanes, so every limb row is read and written in
+// whole sectors.
+//
+// Planes: (16, n) int64 of 16-bit limbs, strict in (not canonical: values in
+// [Q, 2^256) and saturated 0xFFFF limbs occur).  Flat tables: entry e, limb i
+// of lane c at row 16 e + i of a (16 E, B L) plane (table_flat's layout);
+// digits (B, rows, L) int64, |d| in 0..8 and s in {0, 1}.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "field.cuh"
+
+using namespace bppp;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int64_t kTable = 9;  // entries 0P..8P; the Y table holds 2 * kTable (then -Y)
+constexpr int kLimbs = 16;
+
+// beta, the cube root of unity mod p of the GLV endomorphism (core/ec.py:
+// BETA), as 8 little-endian 32-bit words
+__device__ __forceinline__ Fe fe_beta() {
+  const u32 w[8] = {0x719501eeu, 0xc1396c28u, 0x12f58995u, 0x9cf04975u,
+                    0xac3434e9u, 0x6e64479eu, 0x657c0710u, 0x7ae96a2bu};
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < 8; k++) r.w[k] = w[k];
+  return r;
+}
+
+__device__ __forceinline__ int64_t first_lane() {
+  return blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ int64_t lane_stride() { return (int64_t)gridDim.x * blockDim.x; }
+
+// One thread a (MSM b, row r, lane l), j = (b rows + r) L + l: its three
+// entries' 16 limbs each, from table lane b L + l.
+__global__ void select_small_kernel(const int64_t* __restrict__ tx, const int64_t* __restrict__ ty2,
+                                    const int64_t* __restrict__ tz,
+                                    const int64_t* __restrict__ absd,
+                                    const int64_t* __restrict__ sgn, int64_t* __restrict__ ox,
+                                    int64_t* __restrict__ oy, int64_t* __restrict__ oz,
+                                    int64_t batch, int64_t rows, int64_t L) {
+  const int64_t m = batch * rows * L;  // selected lanes
+  const int64_t n = batch * L;         // table lanes
+  for (int64_t j = first_lane(); j < m; j += lane_stride()) {
+    const int64_t c = (j / (rows * L)) * L + j % L;
+    const int64_t d = absd[j];
+    const int64_t* px = tx + kLimbs * d * n + c;
+    const int64_t* py = ty2 + kLimbs * (d + kTable * sgn[j]) * n + c;
+    const int64_t* pz = tz + kLimbs * d * n + c;
+#pragma unroll
+    for (int i = 0; i < kLimbs; i++) {
+      ox[i * m + j] = px[i * n];
+      oy[i * m + j] = py[i * n];
+      oz[i * m + j] = pz[i * n];
+    }
+  }
+}
+
+// beta x a lane; with interleave, lanes 2j and 2j + 1 of the (16, 2n) planes
+// get (x, y, z) and (beta x, y, z) of lane j.
+__global__ void endo_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
+                            const int64_t* __restrict__ z, int64_t* __restrict__ ox,
+                            int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t n,
+                            int interleave) {
+  for (int64_t j = first_lane(); j < n; j += lane_stride()) {
+    const Fe xv = fe_load(x, n, j);
+    const Fe bx = fe_mul(xv, fe_beta());
+    if (!interleave) {
+      fe_store(ox, n, j, bx);
+      continue;
+    }
+    const Fe yv = fe_load(y, n, j), zv = fe_load(z, n, j);
+    fe_store(ox, 2 * n, 2 * j, xv);
+    fe_store(ox + 1, 2 * n, 2 * j, bx);
+    fe_store(oy, 2 * n, 2 * j, yv);
+    fe_store(oy + 1, 2 * n, 2 * j, yv);
+    fe_store(oz, 2 * n, 2 * j, zv);
+    fe_store(oz + 1, 2 * n, 2 * j, zv);
+  }
+}
+
+__global__ void pneg_kernel(const int64_t* __restrict__ y, int64_t* __restrict__ out, int64_t n) {
+  for (int64_t j = first_lane(); j < n; j += lane_stride()) {
+    fe_store(out, n, j, fe_neg(fe_load(y, n, j)));
+  }
+}
+
+// out: (3, 16, n), plane c at c 16 n
+__global__ void normalize3_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
+                                  const int64_t* __restrict__ z, int64_t* __restrict__ out,
+                                  int64_t n) {
+  for (int64_t j = first_lane(); j < n; j += lane_stride()) {
+    fe_store(out, n, j, fe_canon(fe_load(x, n, j)));
+    fe_store(out + kLimbs * n, n, j, fe_canon(fe_load(y, n, j)));
+    fe_store(out + 2 * kLimbs * n, n, j, fe_canon(fe_load(z, n, j)));
+  }
+}
+
+int blocks_for(int64_t n) {
+  int64_t b = (n + kThreads - 1) / kThreads;
+  return (int)(b > 65535 * 16 ? 65535 * 16 : b);
+}
+
+}  // namespace
+
+extern "C" {
+
+int bppp_select_small(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
+                      const int64_t* absd, const int64_t* sgn, int64_t* ox, int64_t* oy,
+                      int64_t* oz, int64_t batch, int64_t rows, int64_t L, void* stream) {
+  const int64_t m = batch * rows * L;
+  if (m > 0) {
+    select_small_kernel<<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(
+        tx, ty2, tz, absd, sgn, ox, oy, oz, batch, rows, L);
+  }
+  return (int)cudaGetLastError();
+}
+
+int bppp_endo(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* ox, int64_t* oy,
+              int64_t* oz, int64_t n, int interleave, void* stream) {
+  if (n > 0) {
+    endo_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(x, y, z, ox, oy, oz, n,
+                                                                      interleave);
+  }
+  return (int)cudaGetLastError();
+}
+
+int bppp_pneg(const int64_t* y, int64_t* out, int64_t n, void* stream) {
+  if (n > 0) pneg_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(y, out, n);
+  return (int)cudaGetLastError();
+}
+
+int bppp_normalize3(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* out, int64_t n,
+                    void* stream) {
+  if (n > 0) normalize3_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(x, y, z, out, n);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -10,10 +10,13 @@ then ``--repeat`` timed runs of each.  Every ``TorchEngine`` call is
 wrapped with ``torch.cuda.synchronize()`` on both sides and its seconds
 are summed by kind (``msm_many``, ``fold_bv``, ...).  Prove seconds are
 those of ``range_proof.prove``; verify seconds those of ``decode_proof``
-and ``verify``.  Then one prove of each runs under ``torch.profiler``: the
-device time of each kernel, their sum, the device time and launches of
-each wrapper of ``ops.kernels`` (``by_wrapper``), and the device's idle
-share against the wall time of the same prove without the profiler.
+and ``verify``.  Then one prove and one verify of each run under
+``torch.profiler``: the device time of each kernel, their sum, the device
+time and launches of each wrapper of ``ops.kernels`` (``by_wrapper``, with
+``"library"``: the kernels no wrapper launches, PyTorch's own operators),
+whether the profile holds every launch of the port's kernels, and the
+device's idle share against the wall time of the same call without the
+profiler.
 
 ``--batch N`` instead proves N distinct proofs of examples/64bit (amount
 10^9 + i, seed ``bench<i>``, as the JAX package's ``bench.py`` batch) through the
@@ -43,15 +46,18 @@ the dealer holds every party's final share (before it: the parties'
 phase commitments; after it: the dealer's argument rounds).
 
 ``--plain NAME`` swaps kernel NAME's wrapper (``ops.kernels``) for its
-plain PyTorch version for the whole run, to see what the kernel saves end
-to end.  Output: the card's ``nvidia-smi`` line, then one JSON object per
-run and one per profile.  Needs a CUDA card; imports no JAX.
+plain PyTorch version for the whole run (``plain_versions``), to see what
+the kernel saves end to end.  Output: the card's ``nvidia-smi`` line,
+then one JSON object per run and one per profile.  Needs a CUDA card;
+imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import hashlib
 import json
 import os
 import re
@@ -60,6 +66,7 @@ import sys
 import time
 
 import torch
+from torch.autograd import DeviceType
 
 from . import cli
 from .core import range_proof as rpm
@@ -215,8 +222,6 @@ def profile_lockstep(n: int, eng):
     the device seconds and idle share of another under the profiler, device
     ms and launches by wrapper, and the fold launches (counted as the
     difference of ``kernels.counts()``, which are not reset)."""
-    from torch.profiler import ProfilerActivity, profile
-
     items = lockstep_items(n)
     routes = {"lockstep": lambda: prove_many(items, eng),
               "one_at_a_time": lambda: [rpm.prove(s, v, seed, eng) for s, v, seed in items]}
@@ -229,15 +234,11 @@ def profile_lockstep(n: int, eng):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         encoded[name] = [rpm.encode_proof(s, p) for (s, _v, _s), p in zip(items, proofs)]
-        before = kernels.counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        after = kernels.counts()
-        device_s, every = device_time(prof, top=None)
-        out[name] = {"wall_s": wall, "device_s": device_s,
-                     "device_idle_share": 1 - device_s / wall, "by_wrapper": by_wrapper(every),
-                     "fold_launches": {k: after[k] - before[k] for k in ("fold", "fold_many")}}
+        p = profiled(fn)
+        out[name] = {"wall_s": wall, "device_s": p["device_s"],
+                     "device_idle_share": 1 - p["device_s"] / wall,
+                     "by_wrapper": by_wrapper(p["by_kernel"]), "complete": p["complete"],
+                     "fold_launches": {k: p["launched"].get(k, 0) for k in ("fold", "fold_many")}}
     if encoded["lockstep"] != encoded["one_at_a_time"]:
         raise AssertionError("lockstep proofs differ from the ones proved one at a time")
     return out
@@ -287,8 +288,6 @@ def profile_multiparty(parties: int, eng, case: str = MP_CASE):
     route's split into the parties' and the dealer's), then the device
     seconds, idle share and device ms by wrapper of another run under the
     profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     spec, setup, values = _load(case)
     seeds = [f"mp party {k}".encode() for k in range(parties)]
     routes = {"multiparty": lambda: run_multiparty(setup, values, seeds, eng),
@@ -313,33 +312,90 @@ def profile_multiparty(parties: int, eng, case: str = MP_CASE):
                               "launches": {k: at[k] - before[k] for k in MP_COUNTED}}
             row["dealer"] = {"s": wall - (t_shares - t0),
                              "launches": {k: after[k] - at[k] for k in MP_COUNTED}}
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        device_s, every = device_time(prof, top=None)
-        row.update(device_s=device_s, device_idle_share=1 - device_s / wall,
-                   by_wrapper=by_wrapper(every))
+        p = profiled(fn)
+        row.update(device_s=p["device_s"], device_idle_share=1 - p["device_s"] / wall,
+                   by_wrapper=by_wrapper(p["by_kernel"]), complete=p["complete"])
         out[name] = row
     return out
 
 
-def profile_prove(name, eng):
-    """Device time per kernel over one prove, and the idle share against
-    the wall time of one prove without the profiler."""
+def profiled(fn) -> dict:
+    """One call of fn under torch.profiler: its wall seconds, device
+    seconds, device milliseconds (and launches) by kernel, the launches of
+    the port's wrappers it made, and whether the profile holds every one
+    of them (``profile_complete``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    case = _load(name)
-    _prove(case, eng)
-    t0 = time.perf_counter()
-    _prove(case, eng)
-    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before = kernels.counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _prove(case, eng)
-    device_s, every = device_time(prof, top=None)
-    top = dict(list(every.items())[:8])
-    return {"profile": name, "prove_wall_s": wall, "device_s": device_s,
-            "device_idle_share": 1 - device_s / wall, "top_kernels_ms_launches": top,
-            "by_wrapper": by_wrapper(every)}
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in kernels.counts().items() if n > before[k]}
+    device_s, by_kernel = device_time(prof, top=None)
+    return {"wall_s": wall, "device_s": device_s, "by_kernel": by_kernel, "launched": launched,
+            "complete": profile_complete(launched, by_kernel)}
+
+
+def _profile_call(label, fn):
+    """fn once to warm up, once timed (wall seconds) and once ``profiled``:
+    the device seconds, the idle share against the timed wall, the eight
+    kernels with the most device time, the device ms and launches by
+    wrapper (``by_wrapper``), the four library kernels launched most, the
+    port's launches and whether the profile holds them all."""
+    fn()
+    t0 = time.perf_counter()
+    fn()
+    wall = time.perf_counter() - t0
+    p = profiled(fn)
+    every = p["by_kernel"]
+    library = sorted(((k, v) for k, v in every.items() if _owners(k) == ("library",)),
+                     key=lambda kv: -kv[1][1])
+    return {"profile": label, "wall_s": wall, "device_s": p["device_s"],
+            "device_idle_share": 1 - p["device_s"] / wall,
+            "top_kernels_ms_launches": dict(list(every.items())[:8]),
+            "by_wrapper": by_wrapper(every), "library_top": {k[:72]: v for k, v in library[:4]},
+            "launched": p["launched"], "complete": p["complete"]}
+
+
+def profile_prove(name, eng):
+    """``_profile_call`` of one prove of example ``name``, with the sha256 of
+    its proof bytes."""
+    case = _load(name)
+    proofs = []
+    out = _profile_call(f"{name} prove", lambda: proofs.append(_prove(case, eng)))
+    out["proof_sha256"] = hashlib.sha256(rpm.encode_proof(case[1], proofs[-1])[1]).hexdigest()
+    return out
+
+
+def profile_verify(name, eng):
+    """``_profile_call`` of one verify (``decode_proof`` and ``verify``) of a
+    proof of example ``name``; raises if it does not verify."""
+    case = _load(name)
+    blobs = rpm.encode_proof(case[1], _prove(case, eng))
+
+    def verify():
+        if not _verify(case, eng, blobs):
+            raise AssertionError(f"{name}: the proof does not verify")
+
+    return _profile_call(f"{name} verify", verify)
+
+
+@contextlib.contextmanager
+def plain_versions(names):
+    """Inside the block, each kernel wrapper NAME of ``ops.kernels`` in
+    ``names`` is its plain PyTorch version (``NAME_plain``); call sites look
+    the wrappers up at call time, so the whole port takes the plain route."""
+    saved = {name: getattr(kernels, name) for name in names}
+    try:
+        for name in names:
+            setattr(kernels, name, getattr(kernels, f"{name}_plain"))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
 
 
 def wrappers_of(key: str) -> dict:
@@ -354,29 +410,69 @@ def wrappers_of(key: str) -> dict:
             if name.group(1) in g.split("|")}
 
 
+def _owners(key: str) -> tuple:
+    """The wrappers of ``ops.kernels`` that a profiled device kernel counts
+    for in ``by_wrapper``: those of ``wrappers_of``, else ``("library",)``;
+    copies and sets count for none."""
+    owners = tuple(wrappers_of(key))
+    if owners:
+        return owners
+    return () if key.startswith(("Memcpy", "Memset")) else ("library",)
+
+
 def by_wrapper(by_kernel: dict) -> dict:
     """{kernel: [ms, launches]} (``device_time``'s keys) -> {wrapper of
-    ``ops.kernels``: [ms, launches]} (``wrappers_of``)."""
-    out = {}
+    ``ops.kernels``: [ms, launches]} (``wrappers_of``), and under
+    ``"library"`` the sum over every device kernel that no wrapper claims
+    (PyTorch's own operators on the card; copies and sets left out)."""
+    out = {"library": [0.0, 0]}
     for key, (ms, n) in by_kernel.items():
-        for wrapper in wrappers_of(key):
+        for wrapper in _owners(key):
             acc = out.setdefault(wrapper, [0.0, 0])
             acc[0] = round(acc[0] + ms, 4)
             acc[1] += n
     return out
 
 
+def profile_complete(launched: dict, by_kernel: dict) -> bool:
+    """Whether a profile's kernels ({name: [ms, launches]}, keyed as
+    ``device_time`` keys them) hold every launch in ``launched`` ({wrapper:
+    launches}): each ``__global__`` function of the wrappers'
+    ``device_kernels`` (or each set of alternatives, ``"a|b"``) ran as many
+    times as the wrappers' launches that run it.  Matched by function name
+    (``wrappers_of``), so a kernel shared by two wrappers
+    (``horner_warp_kernel``) counts for both."""
+    want = collections.Counter()
+    for k, n in launched.items():
+        for group in kernels.KERNELS[k].device_kernels:
+            want[group] += n
+    seen = collections.Counter()
+    for key, (_, n) in by_kernel.items():
+        for group in set(wrappers_of(key).values()) & want.keys():
+            seen[group] += n
+    return seen == want
+
+
+# the profiler's own buffer requests: an event on the device's timeline
+# that is no kernel
+PROFILER_OVERHEAD = "Activity Buffer Request"
+
+
 def device_time(prof, top: int | None = 8):
     """A finished ``torch.profiler`` run -> (device seconds in kernels and
     copies, {kernel: [ms, launches]} of the ``top`` largest, or of all
-    where ``top`` is None)."""
+    where ``top`` is None).  Only the device's own events count (their
+    ``device_type`` is CUDA): PyTorch's operators and the CUDA runtime's
+    calls run on the host (in a process's first profile
+    ``cudaLaunchKernel`` carries a little device time and one count a
+    launch), and the profiler's buffer requests are not device work."""
     per = collections.Counter()
     launches = collections.Counter()
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = ev.self_cuda_time_total
-        if dev_us > 0 and not ev.key.startswith("aten::"):
+        if dev_us > 0 and ev.device_type == DeviceType.CUDA and ev.key != PROFILER_OVERHEAD:
             key = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
             per[key] += dev_us
             launches[key] += ev.count
@@ -398,17 +494,20 @@ def main(argv=None) -> int:
         raise RuntimeError("engine_profile needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
-    for name in args.plain:
-        setattr(kernels, name, getattr(kernels, f"{name}_plain"))
-    tag = "plain " + ",".join(args.plain) if args.plain else "kernels"
+    with plain_versions(args.plain):
+        _run(args, "plain " + ",".join(args.plain) if args.plain else "kernels")
+    return 0
+
+
+def _run(args, tag):
     if args.lockstep:
         print(json.dumps({"run": tag, **profile_lockstep(args.lockstep, TorchEngine("cuda"))}),
               flush=True)
-        return 0
+        return
     if args.mp:
         print(json.dumps({"run": tag, **profile_multiparty(args.mp, TorchEngine("cuda"))}),
               flush=True)
-        return 0
+        return
     eng = TimedEngine("cuda")
     if args.batch:
         t0 = time.perf_counter()
@@ -417,14 +516,13 @@ def main(argv=None) -> int:
               flush=True)
         for row in run_batch(setup, blobs, eng, 1 + args.repeat):  # the first is a warm-up
             print(json.dumps({"run": tag, **row}), flush=True)
-        return 0
+        return
     for case in ("64bit", "128by64"):
         for row in run_case(case, eng, args.repeat):
             print(json.dumps({"run": tag, **row}), flush=True)
     for case in ("64bit", "128by64"):
-        print(json.dumps({"run": tag, **profile_prove(case, TorchEngine("cuda"))}), flush=True)
-    return 0
-
+        for step in (profile_prove, profile_verify):
+            print(json.dumps({"run": tag, **step(case, TorchEngine("cuda"))}), flush=True)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -6,10 +6,10 @@ homogeneous projective (X:Y:Z) with identity (0:1:0).  One branchless
 stream handles P+Q, P+P, P+(-P), P+O and O+Q.  Points are tuples of
 (16, *batch) int64 limb planes (``ops.limb``).
 
-``padd``, ``decompress`` and ``to_affine`` are public entries: on a CUDA
-tensor they launch the hand-written kernel (``ops.kernels.padd`` /
-``.decompress`` / ``.to_affine``),
-on a CPU tensor they run its plain version.  The ``*_loose`` forms keep lazy limbs between
+``padd``, ``pneg``, ``endo``, ``normalize3``, ``decompress`` and
+``to_affine`` are public entries: on a CUDA tensor they launch the
+hand-written kernel (``ops.kernels.padd``, ``.pneg``, ...), on a CPU
+tensor they run its plain version.  The ``*_loose`` forms keep lazy limbs between
 point operations (``ops.limb`` forms); loops that chain many point ops
 (Horner, basis folding) use them and tighten once at the end.
 """
@@ -19,7 +19,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import ec
 from ..core.fields import Q
 from . import limb
 
@@ -102,14 +101,21 @@ def pdbl(p):
 
 
 def pneg(p):
-    x, y, z = p
-    return x, limb.neg(y), z
+    """(x, -y, z): the pneg kernel on a CUDA tensor (``ops.kernels.pneg``),
+    its plain version on a CPU tensor."""
+    from . import kernels
+
+    return kernels.pneg(p)
 
 
-def endo(p):
-    """GLV endomorphism phi(x, y, z) = (beta x, y, z)."""
-    x, y, z = p
-    return limb.mul(x, limb.const(ec.BETA, x).expand_as(x)), y, z
+def endo(p, interleave: bool = False):
+    """GLV endomorphism phi(x, y, z) = (beta x, y, z); with ``interleave``
+    the planes of [P_i, phi(P_i)] interleaved along the last axis.  The endo
+    kernel on a CUDA tensor (``ops.kernels.endo``), its plain version on a
+    CPU tensor."""
+    from . import kernels
+
+    return kernels.endo(p, interleave)
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +136,12 @@ def from_affine_host(points, device):
 
 
 def normalize3(x, y, z):
-    """Canonical (3, 16, *batch) planes, stacked for ONE device-to-host copy."""
-    return torch.stack([limb.normalize(x), limb.normalize(y), limb.normalize(z)])
+    """Canonical (3, 16, *batch) planes, stacked for ONE device-to-host copy:
+    the normalize3 kernel on a CUDA tensor (``ops.kernels.normalize3``), its
+    plain version on a CPU tensor."""
+    from . import kernels
+
+    return kernels.normalize3(x, y, z)
 
 
 def affine_from_normalized(arr):

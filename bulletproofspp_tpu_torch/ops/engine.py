@@ -89,11 +89,9 @@ def _dp_unstack(coords, count: int, L: int, n: int):
 
 
 def _interleave_endo(x, y, z):
-    """(16, ..., n) lanes -> (16, ..., 2n) [P_i, phi(P_i)] interleaved lanes."""
-    e = curve.endo((x, y, z))
-    return tuple(
-        torch.stack([a, b], -1).reshape(*a.shape[:-1], -1) for a, b in zip((x, y, z), e)
-    )
+    """(16, ..., n) lanes -> (16, ..., 2n) [P_i, phi(P_i)] interleaved lanes
+    (one endo launch on the card)."""
+    return curve.endo((x, y, z), interleave=True)
 
 
 class TorchEngine:

@@ -1,11 +1,11 @@
 """The port's hand-written CUDA kernels, their plain versions and launch counts.
 
-Fifteen kernels.  Seven replace Pallas TPU kernels of
+Nineteen kernels.  Seven replace Pallas TPU kernels of
 ``bulletproofspp_tpu/ops/pallas_field.py`` (padd, horner, reduce_block,
 tail_horner, table_flat, select_reduce, and select_reduce_fused for MSMs
 of 2^21 lanes and more); three replace the Pallas kernels of the JAX
 package's measurement tools (sr_variant and grid_copy of
-``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); five
+``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); nine
 replace XLA-only functions: fold (``fold_mul_kernel`` of
 ``bulletproofspp_tpu/ops/msm.py``, basis folding in prove), fold_many
 (its vmap over the provers of a lockstep batch) and decompress
@@ -13,7 +13,11 @@ replace XLA-only functions: fold (``fold_mul_kernel`` of
 decoding in verify), which as plain PyTorch dominated the card's time,
 and inv and to_affine (``limb.inv`` / ``batch_inv`` and
 ``curve.to_affine``, the affine conversion of ``fold_bases`` and
-``shared_mul``).  Each
+``shared_mul``), and the four lane-wise functions of ``csrc/lanes.cu``
+that every prove and verify runs: select_small (the table select of MSMs
+under 1,024 lanes), endo (GLV's phi, and the engine's [P, phi(P)]
+interleave), pneg and normalize3 (before each device-to-host copy of a
+result).  Each
 keeps the contract at the boundary:
 (16, N) int64 planes of 16-bit limbs, strict in and out (``ops.limb``);
 multiple tables are flat, entry e and limb i of lane j at row 16 e + i
@@ -56,12 +60,14 @@ import time
 import numpy as np
 import torch
 
+from ..core import ec
 from . import curve, glv, limb
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 # one library each
-SOURCES = ("kernels.cu", "select_reduce_fused.cu", "decompress.cu", "affine.cu", "tools.cu")
+SOURCES = ("kernels.cu", "select_reduce_fused.cu", "decompress.cu", "affine.cu", "lanes.cu",
+           "tools.cu")
 HEADERS = ("curve.cuh", "field.cuh", "curve_warp.cuh", "select_reduce.cuh")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -121,6 +127,14 @@ KERNELS = {
                "bulletproofspp_tpu/ops/limb.py:371/:424", ("inv_kernel",)),
         Kernel("to_affine", "affine.cu", "bppp_to_affine", [_P] * 6 + [_I64, _P],
                "bulletproofspp_tpu/ops/curve.py:156", ("to_affine_kernel",)),
+        Kernel("select_small", "lanes.cu", "bppp_select_small", [_P] * 8 + [_I64] * 3 + [_P],
+               "bulletproofspp_tpu/ops/msm.py:145", ("select_small_kernel",)),
+        Kernel("endo", "lanes.cu", "bppp_endo", [_P] * 6 + [_I64, _I32, _P],
+               "bulletproofspp_tpu/ops/curve.py:251 (and ops/engine.py:119)", ("endo_kernel",)),
+        Kernel("pneg", "lanes.cu", "bppp_pneg", [_P] * 2 + [_I64, _P],
+               "bulletproofspp_tpu/ops/curve.py:87", ("pneg_kernel",)),
+        Kernel("normalize3", "lanes.cu", "bppp_normalize3", [_P] * 4 + [_I64, _P],
+               "bulletproofspp_tpu/ops/curve.py:124", ("normalize3_kernel",)),
         Kernel("sr_variant", "tools.cu", "bppp_sr_variant", [_P] * 8 + [_I64] * 4 + [_I32, _P],
                "tools/r5_experiments.py:115", ("sr_variant_kernel",)),
         Kernel("grid_copy", "tools.cu", "bppp_grid_copy", [_P] * 2 + [_I64] * 3 + [_P],
@@ -508,7 +522,8 @@ def table_flat_design(p, narrow: bool):
 
 def select_plain(tables, absd, sgn):
     """Flat tables of B * L lanes, digits (B, ROWS, L) -> the selected
-    entries (16, B, ROWS, L), by direct indexing."""
+    entries (16, B, ROWS, L), by direct indexing (three ``torch.gather``:
+    also the one PyTorch call the smoke times ``select_small`` against)."""
     batch, _, L = absd.shape
 
     def pick(t, idx):
@@ -783,6 +798,115 @@ def to_affine(x, y, z):
     inf = torch.empty(n, dtype=torch.bool, device=x.device)
     _launch("to_affine", f"L={n}", dev, *_ptrs(x, y, z, ax, ay, inf), n)
     return ax, ay, inf
+
+
+# ---------------------------------------------------------------------------
+# 9c. the lane-wise functions of the main paths (``csrc/lanes.cu``): the table
+# select of MSMs under 1,024 lanes, endo, pneg and normalize3
+# ---------------------------------------------------------------------------
+
+
+def select_small(tables, absd, sgn):
+    """``select_plain`` on the card: one thread a (MSM, row, lane) copies
+    its three entries' limbs; equal to it word for word.  The digits'
+    range is not checked: they come only from the signed recodings
+    (``glv.recode_signed``, ``native.recode_signed``: |d| in 0..8, sign 0
+    or 1), and a check would read them back to the host, a wait on the
+    card every call.  Out of range, the kernel reads outside the tables,
+    where the plain version's ``torch.gather`` raises."""
+    if tables[0].device.type == "cpu":
+        return select_plain(tables, absd, sgn)
+    batch, rows, L = absd.shape
+    n = batch * L
+    tables = [t.contiguous() for t in tables]
+    if [t.shape for t in tables] != [(limb.NLIMB * TABLE, n), (2 * limb.NLIMB * TABLE, n),
+                                     (limb.NLIMB * TABLE, n)]:
+        raise ValueError(f"select_small: tables of {n} lanes must be (144, {n}), (288, {n}), "
+                         f"(144, {n})")
+    dev = _check(*(t[:limb.NLIMB] for t in tables))
+    absd, sgn = absd.contiguous(), sgn.contiguous()
+    if any(d.dtype != torch.int64 or d.device != tables[0].device or d.shape != absd.shape
+           for d in (absd, sgn)):
+        raise ValueError("select_small digits must be (B, ROWS, L) int64 on the tables' device")
+    out = _empty((limb.NLIMB, batch, rows, L), tables[0])
+    _launch("select_small", f"B={batch} L={L}", dev, *_ptrs(*tables, absd, sgn, *out), batch,
+            rows, L)
+    return out
+
+
+select_small_plain = select_plain  # under the wrapper's name (``engine_profile --plain``)
+
+
+def endo_plain(p, interleave: bool = False):
+    """phi(x, y, z) = (beta x, y, z) over (16, *batch) strict planes; with
+    ``interleave``, the (16, ..., 2n) planes of [P_i, phi(P_i)] interleaved
+    along the last axis (``bulletproofspp_tpu/ops/engine.py:119``)."""
+    x, y, z = p
+    e = limb.mul(x, limb.const(ec.BETA, x).expand_as(x)), y, z
+    if not interleave:
+        return e
+    return tuple(torch.stack([a, b], -1).reshape(*a.shape[:-1], -1) for a, b in zip(p, e))
+
+
+def endo(p, interleave: bool = False):
+    """``endo_plain`` on the card in one launch.  The batch axes are
+    flattened first: lane k n + i of (16, K, n) planes lands at k 2n + 2i
+    and k 2n + 2i + 1, the last axis interleaved."""
+    x, y, z = p
+    if x.device.type == "cpu":
+        return endo_plain(p, interleave)
+    flat = [t.reshape(limb.NLIMB, -1).contiguous() for t in (p if interleave else (x,))]
+    dev = _check(*flat)
+    n = flat[0].shape[1]
+    if interleave:
+        if any(t.shape != x.shape for t in (y, z)):
+            raise ValueError("endo: x, y and z must be planes of one shape")
+        out = _empty((limb.NLIMB, 2 * n), flat[0])
+        _launch("endo", f"L={n} interleave", dev, *_ptrs(*flat, *out), n, 1)
+        return tuple(t.reshape(*x.shape[:-1], 2 * x.shape[-1]) for t in out)
+    bx = torch.empty_like(flat[0])
+    _launch("endo", f"L={n}", dev, *_ptrs(flat[0], flat[0], flat[0], bx), 0, 0, n, 0)
+    return bx.reshape(x.shape), y, z
+
+
+def pneg_plain(p):
+    """(x, -y, z), strict."""
+    x, y, z = p
+    return x, limb.neg(y), z
+
+
+def pneg(p):
+    """``pneg_plain`` on the card: ``fe_neg`` a lane (strict; -0 may come out
+    as 0 or Q, both = 0 mod p)."""
+    x, y, z = p
+    if y.device.type == "cpu":
+        return pneg_plain(p)
+    flat = y.reshape(limb.NLIMB, -1).contiguous()
+    dev = _check(flat)
+    n = flat.shape[1]
+    out = torch.empty_like(flat)
+    _launch("pneg", f"L={n}", dev, *_ptrs(flat, out), n)
+    return x, out.reshape(y.shape), z
+
+
+def normalize3_plain(x, y, z):
+    """Three strict (16, *batch) planes -> canonical (3, 16, *batch), stacked."""
+    return torch.stack([limb.normalize(x), limb.normalize(y), limb.normalize(z)])
+
+
+def normalize3(x, y, z):
+    """``normalize3_plain`` on the card in one launch: ``fe_canon`` a lane of
+    each plane into one stacked tensor, ready for one device-to-host copy."""
+    if x.device.type == "cpu":
+        return normalize3_plain(x, y, z)
+    if y.shape != x.shape or z.shape != x.shape:
+        raise ValueError("normalize3: x, y and z must be planes of one shape")
+    flat = [t.reshape(limb.NLIMB, -1).contiguous() for t in (x, y, z)]
+    dev = _check(*flat)
+    n = flat[0].shape[1]
+    out = torch.empty((3, limb.NLIMB, n), dtype=torch.int64, device=x.device)
+    _launch("normalize3", f"K={n}", dev, *_ptrs(*flat, out), n)
+    return out.reshape(3, *x.shape)
 
 
 # ---------------------------------------------------------------------------

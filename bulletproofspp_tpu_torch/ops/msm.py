@@ -5,7 +5,8 @@ and recoded on the host (``ops.glv`` / ``native``) as 33 signed base-16
 digit rows per lane; each lane's multiples 0P..8P and their negated Y come
 from the table_flat kernel, and every (row, lane) picks its entry by
 direct indexing (a Hopper GPU gathers natively, so the TPU's one-hot
-select is not carried over).  The selected points are summed over lanes
+select is not carried over): under 1,024 lanes the select_small kernel,
+from there inside select_reduce.  The selected points are summed over lanes
 and the 33 row sums combined by Horner, by lane count L as in the JAX
 package (``msm.py:105-196``):
 
@@ -58,7 +59,7 @@ def msm(px, py, pz, absd, sgn):
         return _narrow(kernels.select_reduce_fused(p, absd, sgn), L // 8, batch, rows)
     if L >= 1024:
         return msm_tabled(kernels.table_flat(p), absd, sgn)
-    sel = kernels.select_plain(kernels.table_flat(p), absd, sgn)
+    sel = kernels.select_small(kernels.table_flat(p), absd, sgn)
     if L < 128:
         width = L
         while width > 1:

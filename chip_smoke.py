@@ -135,7 +135,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      word, each timed at 16, 4,096 and 65,536; (b) counted from 0, the
      affine path at 4,096 lanes alone: one ``fold_bases`` and one
      ``shared_mul`` on ``TorchEngine``, which launch fold 2, table_flat 4,
-     to_affine 2 and no other kernel (``inv`` is on no path: the JAX
+     to_affine 2, endo 1 and no other kernel (``inv`` is on no path: the JAX
      package calls ``limb.inv`` / ``batch_inv`` only from ``to_affine``,
      which the to_affine kernel fuses); then, after the counts are read,
      both equal to their route before device conversion
@@ -156,6 +156,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      bulletproofspp_tpu_torch.bench`` as a subprocess with BENCH_ONLY=batch
      and BENCH_BATCH_N=16: rc 0, one valid batch line of 16 proofs on
      stderr, no MSM line.
+  15. the lane-wise kernels (``csrc/lanes.cu``): (a) select_small, endo,
+     pneg and normalize3 against their plain versions with edge lanes
+     (``edge_planes``) among the inputs: select_small at B = 1, 2, 6, 66
+     MSMs of L = 16, 64, 128, 512 lanes word for word; endo interleaved at
+     8 to 2,048 lanes and at (16, K, n) stacks, endo and pneg at 16 to 512
+     lanes and lockstep's 16 x 16, equal after normalization and strict;
+     normalize3 at K = 1, 2, 6, 66, 130 word for word; each timed at the
+     main paths' commonest shapes, select_small in turns with
+     select_plain's three torch.gather (its ``library_ms``); (b) in a
+     process of its own, one 64bit prove and verify under
+     ``torch.profiler`` (a profile missing some of the port's launches
+     taken again, up to 3 times) with the lane kernels and
+     with the four swapped for their plain versions: the library
+     remainder (device kernels no wrapper launches) in ms and launches, the
+     port's launches and the wall of each, logged on one line.
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
@@ -165,7 +180,10 @@ route; padd at 1,056 lanes, the halving trees' commonest, and 65,536;
 table_flat at 16, fold's, and 4,096; reduce_block at W = 33,792, f = 8,
 the bench's second launch, and W = 16,896, f = 4, cli test's commonest;
 decompress at 16 lanes, cli test's smallest, and 16,384; fold_many at B =
-2 and 16 of L = 16 and 512; inv and to_affine at 16, 4,096 and 65,536), the kernel's
+2 and 16 of L = 16 and 512; inv and to_affine at 16, 4,096 and 65,536;
+select_small at B = 2, L = 16 and B = 1, L = 512; endo interleaved at K =
+2 of 8 lanes and 2,048 lanes, and at 16 lanes; pneg at 16; normalize3 at
+K = 2 and 130), the kernel's
 launch count (summed over the main-path runs of phases 3, 6, 7, 8, 9, 10,
 11, 12, 13 and 14, each counted from 0) in all, by path (``launches_by_path``: cli_test,
 msm_2_21, batch_verify, measurement, prove_batch, serve, multiparty, sharded,
@@ -175,7 +193,8 @@ difference, times (for padd, table_flat and reduce_block the design the
 wrapper takes, from the in-turns timings), bound (``bounds``:
 the larger of its 32-bit multiplies over the card's rate and its bytes
 over 3.35 TB/s; for chain's ten launches the sum of theirs) and, for grid_copy, the time of one PyTorch call that
-computes the same function (``library_ms``; null where there is none).
+computes the same function (``library_ms``; for select_small
+select_plain's three torch.gather; null where there is none).
 The kernel lines of phase 2, and the JSON line (``chain``), also give, for
 tail_horner, horner, fold, fold_many, select_reduce_fused, padd, table_flat and
 reduce_block, the time per point operation and per product round of the
@@ -240,6 +259,21 @@ BENCH_REQUIRED = {
 }
 BENCH_SUBPROCESS_N = 16
 
+# phase 15: the lane-wise kernels' shapes (the main paths' and a little
+# beyond: msm_many stacks B MSMs of L lanes under 1,024, interleaves K
+# entries of n lanes, complete_square(_many) runs endo and pneg over a
+# prover's lanes or lockstep's 16 x 16, normalize3 K results) and the
+# functions the library-remainder profile swaps for their plain versions
+LANE_OPS = ("select_small", "endo", "pneg", "normalize3")
+SELECT_BATCHES = (1, 2, 6, 66)
+SELECT_LANES = (16, 64, 128, 512)
+ENDO_STACKS = ((2, 8), (3, 32), (5, 128), (66, 16))  # (K, n)
+NEG_LANES = (16, 32, 64, 128, 256, 512)
+NORMALIZE_K = (1, 2, 6, 66, 130)
+# the shapes of phase 15's timed rows, among those checked: (B, L), (K, n), K
+SELECT_TIMED = ((2, 16), (1, 512))
+ENDO_TIMED = ((2, 8), (1, 2048))
+NORMALIZE_TIMED = (2, 130)
 MEASURE_L = 65536  # the measurement tools' width (32,768 points)
 SR_CASES = ((1024, 128, False), (1024, 128, True), (512, 128, False), (512, 256, False),
             (1024, 256, False), (2048, 128, False), (2048, 256, False))
@@ -420,9 +454,12 @@ def compare(name, kernel_out, plain_out):
 
 
 def same_raw(name, a, b):
-    """Raises unless the two outputs are equal word for word."""
+    """Largest difference of the two outputs word for word; raises unless
+    they are equal."""
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
         raise AssertionError(f"{name}: the outputs differ word for word")
+    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max().item())
+               for x, y in zip(a, b))
 
 
 def designs_in_turns(name, label, by_design, picked, reps):
@@ -1625,9 +1662,10 @@ def check_affine(dev):
 def affine_phase(dev):
     """Phase 13 (b): counted from 0, the affine path at AFFINE_LANES lanes
     alone: one TorchEngine.fold_bases and one shared_mul (fold 2,
-    table_flat 4, to_affine 2, nothing else).  Only after the counts are
-    read: both equal to their route before device affine conversion (the
-    fold's lanes normalized, copied and inverted on the host,
+    table_flat 4, to_affine 2, endo 1 (shared_mul's phi), nothing else).
+    Only after the counts are read: both equal to their route before device
+    affine conversion (the fold's lanes normalized, copied and inverted on
+    the host,
     ``DevicePoints.to_host``) and to the JAX package's route through the
     port's field (limb.batch_inv of the fold's Z, then limb.inv of 16
     lanes); the walls of both routes logged in turns, with the seconds of
@@ -1662,7 +1700,7 @@ def affine_phase(dev):
     got = {name: routes[name]() for name in ("fold_bases", "shared_mul")}
     torch.cuda.synchronize()
     launches, shapes = kernels.counts(), kernels.shape_counts()
-    want = {"fold": 2, "table_flat": 4, "to_affine": 2}
+    want = {"fold": 2, "table_flat": 4, "to_affine": 2, "endo": 1}
     if {name: c for name, c in launches.items() if c} != want:
         raise AssertionError(f"the affine path launched {launches}, want {want} and nothing else")
     for name in ("fold_bases", "shared_mul"):
@@ -1690,6 +1728,161 @@ def affine_phase(dev):
         f"and to limb.batch_inv / limb.inv; wall seconds in turns {json.dumps(walls)}; the {n} "
         f"host inverses alone {host_s:.4f} s; launches on the affine path {launches}")
     return shapes
+
+
+def lanes_equal(name, got, want):
+    """Largest difference of the kernel's (16, *batch) planes and the plain
+    version's after normalization; raises unless the kernel's are strict
+    and the difference is 0."""
+    from bulletproofspp_tpu_torch.ops import limb
+
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or int(g.min()) < 0 or int(g.max()) > limb.MASK:
+            raise AssertionError(f"kernel {name}: output not strict or of another shape")
+        err = max(err, int((limb.normalize(g.reshape(16, -1)) - limb.normalize(w.reshape(16, -1)))
+                           .abs().max().item()))
+    if err:
+        raise AssertionError(f"kernel {name} disagrees with its plain version: max |diff| {err}")
+    return err
+
+
+def check_lane_ops(dev):
+    """Phase 15 (a): the four kernels of csrc/lanes.cu against their plain
+    versions, ``edge_planes`` lanes (0, Q, Q - 1, [Q, 2^256), saturated
+    limbs) among the inputs: select_small at B x L of SELECT_BATCHES x
+    SELECT_LANES (row 0 zero digits with sign 1) word for word; endo with
+    the interleave at 8 to 2,048 lanes and at ENDO_STACKS, endo and pneg at
+    NEG_LANES and lockstep's (16, 16, 16), after normalization, strict out
+    (the interleave's P lanes word for word); normalize3 at NORMALIZE_K word
+    for word.  Each timed at the main paths' commonest shapes
+    (SELECT_TIMED, ENDO_TIMED, L = 16, NORMALIZE_TIMED) on the inputs it
+    was checked on there, whose max |diff| is the row's (CUDA ms back to
+    back, the plain version's as the host sends it); select_small in turns
+    with select_plain's three torch.gather (its library call).  Returns the
+    kernel rows."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED + 15)
+
+    def points(shape, shift=0):
+        n = int(np.prod(shape))
+        return tuple(edge_planes(n, rng, dev, shift + s).reshape(16, *shape) for s in (5, 3, 0))
+
+    rows = []
+
+    def timed(name, err, fn, plain, shape, work):
+        rows.append((name, err, time_ms(fn, 20), time_ms(plain, 5, paced=True), shape, work))
+
+    for batch in SELECT_BATCHES:
+        tabs = kernels.table_flat(points((batch * max(SELECT_LANES),)))
+        for L in SELECT_LANES:
+            n = batch * L
+            tb = tuple(t[:, :n].contiguous() for t in tabs)
+            absd = torch.as_tensor(rng.integers(0, 9, size=(batch, ROWS, L)), device=dev)
+            sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, ROWS, L)), device=dev)
+            absd[:, 0], sgn[:, 0] = 0, 1
+            err = same_raw(f"select_small B={batch} L={L}", kernels.select_small(tb, absd, sgn),
+                           kernels.select_plain(tb, absd, sgn))
+            if (batch, L) in SELECT_TIMED:
+                means, both = in_turns({"kernel": lambda: kernels.select_small(tb, absd, sgn),
+                                        "library": lambda: kernels.select_plain(tb, absd, sgn)},
+                                       20)
+                log(f"select_small B={batch} L={L} in turns with select_plain (ms): "
+                    f"{json.dumps(both)}")
+                rows.append(("select_small", err, means["kernel"],
+                             time_ms(lambda: kernels.select_plain(tb, absd, sgn), 5, paced=True),
+                             f"B={batch} L={L} rows={ROWS}", bounds.select_small(absd, sgn),
+                             {"library_ms": means["library"]}))
+
+    stacks = [(1, n) for n in (8, 16, 32, 64, 128, 256, 512, 1024, 2048)] + list(ENDO_STACKS)
+    for k, n in stacks:
+        p = points((k, n) if k > 1 else (n,), k + n)
+        err = lanes_equal(f"endo K={k} n={n} interleave", kernels.endo(p, interleave=True),
+                          kernels.endo_plain(p, interleave=True))
+        if not torch.equal(kernels.endo(p, interleave=True)[0][..., 0::2], p[0]):
+            raise AssertionError(f"endo K={k} n={n}: the interleave's P lanes differ")
+        if (k, n) in ENDO_TIMED:
+            timed("endo", err, lambda: kernels.endo(p, interleave=True),
+                  lambda: kernels.endo_plain(p, interleave=True), f"K={k} n={n} interleave",
+                  bounds.endo(k * n, True))
+    for shape in [(n,) for n in NEG_LANES] + [(16, 16)]:
+        p = points(shape, len(shape))
+        errs = {name: lanes_equal(f"{name} {shape}", getattr(kernels, name)(p),
+                                  getattr(kernels, f"{name}_plain")(p))
+                for name in ("endo", "pneg")}
+        if shape == (16,):
+            timed("endo", errs["endo"], lambda: kernels.endo(p), lambda: kernels.endo_plain(p),
+                  "L=16", bounds.endo(16, False))
+            timed("pneg", errs["pneg"], lambda: kernels.pneg(p), lambda: kernels.pneg_plain(p),
+                  "L=16", bounds.pneg(16))
+    for K in NORMALIZE_K:
+        q = points((K,), K)
+        err = same_raw(f"normalize3 K={K}", (kernels.normalize3(*q),),
+                       (kernels.normalize3_plain(*q),))
+        if K in NORMALIZE_TIMED:
+            timed("normalize3", err, lambda: kernels.normalize3(*q),
+                  lambda: kernels.normalize3_plain(*q), f"K={K}", bounds.normalize3(K))
+    log(f"lane kernels against their plain versions: select_small at B = {SELECT_BATCHES} x L = "
+        f"{SELECT_LANES} word for word; endo interleaved at 8-2,048 lanes and {ENDO_STACKS}, endo "
+        f"and pneg at {NEG_LANES} and (16, 16, 16) after normalization, strict; normalize3 at K = "
+        f"{NORMALIZE_K} word for word (edge lanes in every input)")
+    return rows
+
+
+def library_remainder(dev):
+    """Phase 15 (b): ``engine_profile.profile_prove`` and ``profile_verify``
+    of examples/64bit, with the lane kernels and with LANE_OPS swapped for
+    their plain versions (``engine_profile.plain_versions``, as
+    ``engine_profile --plain``): the device kernels no wrapper of
+    ops.kernels launches (``by_wrapper``'s "library": PyTorch's own
+    operators) in ms and launches, the four most launched of them, the
+    port's launches, the device seconds, the idle share and the wall
+    seconds.  Fails if a profile misses some of the port's launches
+    (``engine_profile.profile_complete``), if a route's proof is not golden
+    or if the kernels' route does not launch all four on the prove."""
+    from bulletproofspp_tpu_torch import engine_profile
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    out = {}
+    for route, names in (("kernels", ()), ("plain", LANE_OPS)):
+        with engine_profile.plain_versions(names):
+            eng = TorchEngine(dev)
+            out[route] = {"prove": engine_profile.profile_prove("64bit", eng),
+                          "verify": engine_profile.profile_verify("64bit", eng)}
+        if out[route]["prove"]["proof_sha256"] != golden()["64bit"][0]:
+            raise AssertionError(f"64bit proof bytes on the {route} route are not golden")
+        for step, p in out[route].items():
+            if not p["complete"]:
+                raise AssertionError(f"the profile of the {route} route's {step} misses some of "
+                                     f"its launches {p['launched']}")
+    if not set(LANE_OPS) <= set(out["kernels"]["prove"]["launched"]):
+        raise AssertionError(f"the 64bit prove did not launch every lane kernel: "
+                             f"{out['kernels']['prove']['launched']}")
+    keys = ("library_top", "device_s", "device_idle_share", "wall_s")
+    summary = {route: {step: {"library_ms_launches": p["by_wrapper"]["library"],
+                              "port_launches": sum(p["launched"].values()),
+                              **{k: p[k] for k in keys}} for step, p in steps.items()}
+               for route, steps in out.items()}
+    log(f"{card_line()}: library remainder of a 64bit prove and verify (ms, launches), with the "
+        f"lane kernels and with {', '.join(LANE_OPS)} plain: {json.dumps(summary)}")
+    return out
+
+
+def library_remainder_subprocess():
+    """Phase 15 (b) in a process of its own, whose profiles are its first
+    (in this one, late in the run, a profile has come back without some of
+    the launches it held: PERF.md section 7); its lines relayed."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, torch, chip_smoke; "
+         "chip_smoke.library_remainder(torch.device('cuda')); chip_smoke.require_port_only()"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"the library remainder's process: rc {proc.returncode}, stderr "
+                             f"{proc.stderr[-2000:]!r}")
 
 
 def reference_bench_keys(names) -> dict:
@@ -1859,6 +2052,9 @@ def main() -> int:
         affine = affine_phase(dev)
         require_port_only()
         bench_legs = bench_legs_phase(dev)
+        require_port_only()
+        checked.update(kernel_rows(check_lane_ops(dev)))  # phase 15
+        library_remainder_subprocess()
         require_port_only()
     finally:
         os.chdir(HERE)

@@ -87,6 +87,18 @@ def test_cuda_kernels_match_plain_versions():
     assert torch.equal(kernels.inv(z), kernels.inv_plain(z))
     for got, want in zip(kernels.to_affine(x, x, z), kernels.to_affine_plain(x, x, z)):
         assert torch.equal(got, want)
+    # the lane-wise functions (csrc/lanes.cu): two MSMs of 64 lanes' select,
+    # endo with and without the interleave, pneg, normalize3
+    tabs = kernels.table_flat(_points(2 * 64, 50, dev))
+    absd = torch.as_tensor(rng.integers(0, 9, size=(2, 33, 64)), device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(2, 33, 64)), device=dev)
+    assert all(torch.equal(a, b) for a, b in zip(kernels.select_small(tabs, absd, sgn),
+                                                 kernels.select_plain(tabs, absd, sgn)))
+    p = _points(64, 51, dev, (16, 2, 32))
+    assert _same(kernels.endo(p, interleave=True), kernels.endo_plain(p, interleave=True))
+    assert _same(kernels.endo(p), kernels.endo_plain(p))
+    assert _same(kernels.pneg(p), kernels.pneg_plain(p))
+    assert torch.equal(kernels.normalize3(*p), kernels.normalize3_plain(*p))
     launched = kernels.counts()
     assert all(launched[k] > 0 for k in launched if k not in ("sr_variant", "grid_copy", "chain"))
 

@@ -100,6 +100,11 @@ CALLS = {
     "decompress": lambda: kernels.decompress(_meta(16, 64), _meta(64)),
     "inv": lambda: kernels.inv(_meta(16, 64)),
     "to_affine": lambda: kernels.to_affine(*_pt(64)),
+    "select_small": lambda: kernels.select_small(_tables(2 * 64), _meta(2, 33, 64),
+                                                 _meta(2, 33, 64)),
+    "endo": lambda: kernels.endo(_pt(64), interleave=True),
+    "pneg": lambda: kernels.pneg(_pt(64)),
+    "normalize3": lambda: kernels.normalize3(*_pt(64)),
     "sr_variant": lambda: kernels.sr_variant(_tables(1024), _meta(3, 1024), _meta(3, 1024)),
     "grid_copy": lambda: kernels.grid_copy(_meta(16, 1024)),
     "chain": lambda: kernels.chain("padd", _pt(64), _pt(64)),

@@ -1,17 +1,18 @@
 """The bench's profile check: the device kernels a profile holds are matched
 to the port's wrappers by the ``__global__`` functions each wrapper's launch
 runs (``kernels.KERNELS[...].device_kernels``).  On the CPU: every listed
-function exists in its source file, and ``bench.profile_complete`` reads
-stubbed ``torch.profiler`` events as ``engine_profile.device_time`` keys
-them."""
+function exists in its source file, and ``engine_profile.profile_complete``
+reads stubbed ``torch.profiler`` events as ``engine_profile.device_time``
+keys them."""
 
 import os
 import re
 import types
 
 import pytest
+from torch.autograd import DeviceType
 
-from bulletproofspp_tpu_torch import bench
+from bulletproofspp_tpu_torch import engine_profile
 from bulletproofspp_tpu_torch.engine_profile import by_wrapper, device_time, wrappers_of
 from bulletproofspp_tpu_torch.ops import kernels
 
@@ -29,11 +30,15 @@ def test_device_kernels_are_global_functions_of_the_wrappers_source(name):
     assert listed and listed <= _globals(k.source)
 
 
-def _prof(*events):
-    """A finished profile stub: (key as the profiler demangles it, launches)."""
-    evs = [types.SimpleNamespace(key=key, self_device_time_total=10.0 * n, count=n)
-           for key, n in events]
-    evs.append(types.SimpleNamespace(key="aten::add", self_device_time_total=5.0, count=1))
+def _prof(*events, host=()):
+    """A finished profile stub: (key as the profiler demangles it, launches)
+    of the device's events, and of the host's (``host``: the profiler gives
+    them device time too)."""
+    evs = [types.SimpleNamespace(key=key, self_device_time_total=10.0 * n, count=n,
+                                 device_type=DeviceType.CUDA) for key, n in events]
+    evs += [types.SimpleNamespace(key=key, self_device_time_total=10.0 * n, count=n,
+                                  device_type=DeviceType.CPU)
+            for key, n in [("aten::add", 1), *host]]
     return types.SimpleNamespace(key_averages=lambda: evs)
 
 
@@ -80,17 +85,34 @@ CASES = {
 def test_profile_complete_matches_launches_by_device_kernel(case):
     launched, events, want = CASES[case]
     _, by_kernel = device_time(_prof(*events), top=None)
-    assert bench.profile_complete(launched, by_kernel) is want
+    assert engine_profile.profile_complete(launched, by_kernel) is want
 
 
 def test_device_time_by_wrapper_sums_both_designs():
     """engine_profile's by_wrapper: a wrapper's time and launches summed over
     its device kernels (both designs); a kernel two wrappers run counts for
-    both; library kernels and copies for none."""
+    both; library kernels for none of them but under "library", copies
+    nowhere."""
     _, by_kernel = device_time(_prof((_TF_WIDE, 1), (_TF_NARROW, 3), (_PADD_NARROW, 2),
                                      (_HORNER, 4), (_TAIL, 1), (_TORCH, 9), (_COPY, 3)), top=None)
     assert by_wrapper(by_kernel) == {"table_flat": [40.0 / 1e3, 4], "padd": [20.0 / 1e3, 2],
-                                     "horner": [40.0 / 1e3, 4], "tail_horner": [50.0 / 1e3, 5]}
+                                     "horner": [40.0 / 1e3, 4], "tail_horner": [50.0 / 1e3, 5],
+                                     "library": [90.0 / 1e3, 9]}
+    _, ours = device_time(_prof((_PADD_NARROW, 2), (_COPY, 3)), top=None)
+    assert by_wrapper(ours) == {"padd": [20.0 / 1e3, 2], "library": [0.0, 0]}
+
+
+def test_device_time_leaves_out_runtime_calls():
+    """A process's first profile gives ``cudaLaunchKernel`` a little device
+    time and one count a launch, and the profiler's buffer request some:
+    neither is a kernel, neither counts in the time or the library's
+    launches."""
+    device_s, by_kernel = device_time(_prof((_PADD_NARROW, 2), ("Activity Buffer Request", 1),
+                                            (_TORCH, 9), host=[("cudaLaunchKernel", 563)]),
+                                      top=None)
+    assert set(by_kernel) == {"padd_narrow_kernel", _TORCH.split("(")[0]}
+    assert device_s == (20.0 + 90.0) / 1e6
+    assert by_wrapper(by_kernel)["library"] == [90.0 / 1e3, 9]
 
 
 @pytest.mark.parametrize("event, want", [
@@ -108,3 +130,28 @@ def test_wrappers_of_a_profiled_kernel(event, want):
     runs it, for both ``profile_complete`` and ``by_wrapper``."""
     (key,) = device_time(_prof((event, 1)), top=None)[1]
     assert wrappers_of(key) == want
+
+
+def test_a_kernel_named_like_a_runtime_call_still_counts():
+    """What counts is where an event ran, not its name: a device kernel
+    whose name starts with "cuda" is device work and library time; a host
+    call with device time is neither."""
+    device_s, by_kernel = device_time(_prof(("cudaish_fill_kernel(long*)", 2),
+                                            host=[("cudaStreamSynchronize", 3)]), top=None)
+    assert by_kernel == {"cudaish_fill_kernel": [20.0 / 1e3, 2]}
+    assert device_s == 20.0 / 1e6
+    assert by_wrapper(by_kernel)["library"] == [20.0 / 1e3, 2]
+
+
+def test_plain_versions_swaps_the_wrappers_for_the_block():
+    """engine_profile.plain_versions: inside the block kernels.NAME is
+    NAME_plain, after it (also after an error) the wrapper again."""
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    names = ("select_small", "endo", "pneg", "normalize3")
+    wrappers = {name: getattr(kernels, name) for name in names}
+    with pytest.raises(RuntimeError):
+        with engine_profile.plain_versions(names):
+            assert all(getattr(kernels, n) is getattr(kernels, f"{n}_plain") for n in names)
+            raise RuntimeError
+    assert {name: getattr(kernels, name) for name in names} == wrappers
