@@ -312,6 +312,25 @@ def normalize3(n: int):
     return 0, n * 2 * PT_BYTES
 
 
+def assemble(n_in: int, n_out: int, interleave: bool):
+    """The segments' n_in lanes read once and the n_out output lanes (the
+    identity pads included) written once; with ``interleave`` one product
+    beta x a lane read.  The segment table (a few KB) is left out."""
+    return (n_in * FE_MUL if interleave else 0), (n_in + n_out) * PT_BYTES
+
+
+def reduce_lanes(batch: int, rows: int, L: int):
+    """(L - 1) additions a (MSM, row) pair; its L lanes in, its sum out."""
+    return batch * rows * (L - 1) * PT_ADD, batch * rows * (L + 1) * PT_BYTES
+
+
+def reduce_lanes_chain(L: int):
+    """reduce_lanes' chain, a pair's: the log2 L levels of its tree, one
+    addition of 2 product rounds each on a group of threads."""
+    levels = L.bit_length() - 1
+    return levels, 2 * levels
+
+
 def sr_variant(absd, sgn, blk: int, out_w: int, noselect: bool):
     factor = blk // out_w
     rows, L = absd.shape

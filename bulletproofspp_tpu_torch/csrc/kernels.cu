@@ -2,8 +2,9 @@
 //
 // padd, horner, reduce_block, tail_horner, table_flat and select_reduce
 // each replace one Pallas TPU kernel of bulletproofspp_tpu/ops/pallas_field.py;
-// fold replaces the XLA fold_mul_kernel of bulletproofspp_tpu/ops/msm.py, and
-// fold_many its vmap over the provers of a lockstep batch.
+// fold replaces the XLA fold_mul_kernel of bulletproofspp_tpu/ops/msm.py,
+// fold_many its vmap over the provers of a lockstep batch, and reduce_lanes
+// the XLA lane tree of its MSMs under 128 lanes (_reduce_lanes).
 // All keep the contract: (16, N) int64 planes of 16-bit limbs, strict limbs
 // in and out, projective (X:Y:Z) with identity (0:1:0).  Built by
 // ops/kernels.py with nvcc into a shared library with a plain C interface;
@@ -19,16 +20,17 @@
 // design is the simple one: one thread per independent lane, coalesced
 // limb-plane loads (neighbouring threads read neighbouring lanes), 8 x 32-bit
 // words in registers with 64-bit carry chains.  Making them fast (fewer
-// carries, madc chains, more lanes per SM) is later work.  Seven are
+// carries, madc chains, more lanes per SM) is later work.  Eight are
 // designed for this card instead: horner, tail_horner and fold, whose work
 // is one chain of dependent point operations per MSM or lane, bound by its
-// latency (they run it on a warp: curve_warp.cuh); padd, table_flat and
-// reduce_block, which at the narrow widths most of their calls have (16 to
-// a few thousand lanes) fill few SMs and wait on one thread's additions, so
-// below a lane count they run each addition on a group of kNarrowGroup
-// threads (curve_warp.cuh; reduce_block by the levels of its halving tree,
-// so an output lane waits on log2 F additions, not F - 1) and keep the
-// one-thread body for wide calls; and select_reduce, whose digit-chosen
+// latency (they run it on a warp: curve_warp.cuh); padd, table_flat,
+// reduce_block and reduce_lanes, which at the narrow widths most of their
+// calls have (16 to a few thousand lanes) fill few SMs and wait on one
+// thread's additions, so (below a lane count, or always for reduce_lanes)
+// they run each addition on a group of kNarrowGroup threads
+// (curve_warp.cuh; reduce_block and reduce_lanes by the levels of their
+// halving trees, so an output lane waits on log2 F additions, not F - 1)
+// and keep the one-thread body for wide calls; and select_reduce, whose digit-chosen
 // reads cost more than its adds until its lanes' tables stay close for all
 // rows: in shared memory, or in L2 (below).
 
@@ -193,6 +195,70 @@ __global__ void __launch_bounds__(kThreads)
       int64_t* const dst[3] = {ox, oy, oz};
       const Fe v[3] = {s.x, s.y, s.z};
       fe_store_group<kNarrowGroup>(dst, v, n_out, j);
+    }
+  }
+}
+
+// --- reduce_lanes: replaces _reduce_lanes (bulletproofspp_tpu/ops/msm.py:81),
+// which XLA fuses into the jitted msm_kernel of MSMs under 128 lanes.  Input
+// (16, B, rows, L) selected entries (select_small's output), L a power of
+// two under 128; output (16, B, rows) row sums for horner.  The tree is the
+// one the padd kernel ran level by level (pair q's lane t plus lane t + h,
+// h = L / 2, L / 4, ..., 1), so the words equal that route's; the JAX
+// package's radix-8 order adds other pairs (equal after affine conversion).
+//
+// What bounds it: the latency of log2 L dependent additions (4-6), far from
+// the multiplies and the bytes (at most 130 x 33 x 64 lanes, 105 MB).  The
+// eager route took log2 L padd launches, each after a copy of the halves.
+// Design, reduce_block_narrow_kernel's: a block carries `per` = max(1, 32 /
+// L) (MSM, row) pairs, so its first level has at least kNarrowLanes
+// additions; each addition of a level runs on a group of kNarrowGroup
+// threads (pt_add_warp<8>: 2 rounds of 6 products), the first level reads
+// its operands from device memory, each level leaves its sums in shared
+// memory (pair p's sum t in slot p L / 2 + t; addition t reads slots t and
+// t + h and writes slot t, which no other addition of its level touches),
+// and the last level's groups store the row sums (fe_store_group).  A
+// level's additions sit on the first groups; a warp with none skips it on
+// a uniform branch, and in a warp with some a group past the last one
+// repeats the last addition and stores nothing (every thread takes part in
+// the shuffles).
+constexpr int kLaneSlots = 32;  // points of shared memory: per * L / 2 <= 32 for L < 128
+
+__global__ void __launch_bounds__(kThreads)
+    reduce_lanes_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
+                        const int64_t* __restrict__ z, int64_t* __restrict__ ox,
+                        int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t pairs,
+                        int L) {
+  __shared__ Pt slot[kLaneSlots];
+  const int per = L < 32 ? 32 / L : 1, half = L / 2;
+  const int g = threadIdx.x / kNarrowGroup, first = threadIdx.x / 32 * (32 / kNarrowGroup);
+  const int64_t n = pairs * L;
+  for (int64_t q0 = blockIdx.x * (int64_t)per; q0 < pairs; q0 += (int64_t)gridDim.x * per) {
+    for (int h = half; h >= 1; h /= 2) {
+      const int adds = per * h;
+      for (int a0 = 0; a0 < adds; a0 += kNarrowLanes) {
+        if (a0 + first < adds) {  // uniform over the warp
+          const int a = a0 + g < adds ? a0 + g : adds - 1;
+          const int p = a / h, t = a % h;
+          const int64_t q = q0 + p < pairs ? q0 + p : pairs - 1;
+          Pt s;
+          if (h == half) {
+            s = pt_add_warp<kNarrowGroup>(pt_load(x, y, z, n, q * L + t),
+                                          pt_load(x, y, z, n, q * L + t + h));
+          } else {
+            const Pt u = slot[p * half + t], v = slot[p * half + t + h];
+            s = pt_add_warp<kNarrowGroup>(u, v);
+          }
+          if (a0 + g < adds && h > 1) {
+            slot[p * half + t] = s;  // the 8 threads of a group write the same words
+          } else if (a0 + g < adds && q0 + p < pairs) {
+            int64_t* const dst[3] = {ox, oy, oz};
+            const Fe v[3] = {s.x, s.y, s.z};
+            fe_store_group<kNarrowGroup>(dst, v, pairs, q0 + p);
+          }
+        }
+      }
+      __syncthreads();  // every write of this level before the next reads
     }
   }
 }
@@ -554,6 +620,18 @@ int bppp_reduce_block(const int64_t* x, const int64_t* y, const int64_t* z, int6
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// pairs: B rows (MSM, row) pairs of L lanes each, 2 <= L < 128 a power of two.
+int bppp_reduce_lanes(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* ox,
+                      int64_t* oy, int64_t* oz, int64_t pairs, int64_t L, void* stream) {
+  if (L < 2 || L >= 128 || (L & (L - 1))) return (int)cudaErrorInvalidValue;
+  if (pairs > 0) {
+    const int per = L < 32 ? 32 / (int)L : 1;
+    reduce_lanes_kernel<<<blocks_for(pairs, per), kThreads, 0, (cudaStream_t)stream>>>(
+        x, y, z, ox, oy, oz, pairs, (int)L);
+  }
+  return (int)cudaGetLastError();
 }
 
 int bppp_tail_horner(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* rx,

@@ -11,11 +11,23 @@
 //    -y a lane (fe_neg: strict, -0 may come out as 0 or Q);
 //  * normalize3_kernel replaces curve._normalize3 (bulletproofspp_tpu/ops/
 //    curve.py:124): three strict planes to one stacked (3, 16, n) canonical
-//    tensor, ready for one device-to-host copy.
+//    tensor, ready for one device-to-host copy;
+//  * assemble_kernel replaces the entry assembly that the JAX package
+//    compiles into its oracle step (_assemble_many_body, bulletproofspp_tpu/
+//    ops/engine.py:186, inlined by _msm_many_norm, :223) and into its
+//    lockstep fold (_assemble_fold, :159), with _dp_pad / _identity_cols
+//    (:97-117) and _split3 (:147): every entry's segments (slices of base
+//    vectors, any strides) end to end, padded with the identity to L lanes,
+//    entries stacked, and with `interleave` [P_j, phi(P_j)] at lanes 2j and
+//    2j + 1, in one launch where the eager route took a slice, a concat, a
+//    pad (three fills and a concat) and a stack each, then an endo launch.
 // Equal to ops/kernels.py: select_plain (word for word), endo_plain and
-// pneg_plain (after normalization) and normalize3_plain (word for word).
+// pneg_plain (after normalization), normalize3_plain (word for word) and
+// assemble_plain (word for word; the phi lanes after normalization, their
+// words endo_kernel's).
 //
-// What bounds them on the H100: a launch's fixed cost.  Each moves a few KB
+// What bounds them on the H100: a launch's fixed cost (assemble at the
+// 2^21-lane MSM: its bytes).  Each moves a few KB
 // to a few MB (a 16- to 512-lane MSM's selected entries, a few thousand
 // lanes of points), and endo's one field product a lane is far below the
 // multiply rate.  As plain PyTorch on the card each was a chain of 17 to 190
@@ -28,6 +40,18 @@
 // [Q, 2^256) and saturated 0xFFFF limbs occur).  Flat tables: entry e, limb i
 // of lane c at row 16 e + i of a (16 E, B L) plane (table_flat's layout);
 // digits (B, rows, L) int64, |d| in 0..8 and s in {0, 1}.
+//
+// assemble's table: the segments' addresses and strides are known only on
+// the host, and a 130-entry oracle step has up to 520 segments (57 KB:
+// more than a launch's parameters hold), so the wrapper sends the table
+// in one small host-to-device copy of the call's own (a pinned buffer per
+// call, non-blocking on the launch's stream: the card does not wait, and
+// threads sharing an engine never share a buffer).  One thread a unit:
+// output lane u of an entry, or with `interleave` lanes 2u and 2u + 1;
+// neighbouring threads hold neighbouring lanes, so every limb row is
+// written in whole sectors and read in whole (stride 1) or half (stride 2)
+// sectors.  P lanes, the interleave's y and z, and the identity's limbs are
+// copied as they are; phi's x is fe_mul(x, beta), endo_kernel's words.
 
 #include <cuda_runtime.h>
 
@@ -125,6 +149,70 @@ __global__ void normalize3_kernel(const int64_t* __restrict__ x, const int64_t* 
   }
 }
 
+// assemble's table (ops/kernels.py: _assemble_table): entry e's segments
+// are rows start[e] .. start[e + 1] - 1 of kSegWords int64 each, after the
+// n_entries + 1 starts: x, y and z addresses (the segment's first lane),
+// their row strides, their lane strides (elements), the lane count and the
+// segment's first lane in its entry.
+constexpr int kSegWords = 11;  // ops/kernels.py: SEG_WORDS
+
+// Output entry e = s K + k of the S (16, K, L) outputs lies at s 16 K L + k L,
+// limb rows K L apart.
+__global__ void assemble_kernel(const int64_t* __restrict__ table, int64_t* __restrict__ ox,
+                                int64_t* __restrict__ oy, int64_t* __restrict__ oz,
+                                int64_t n_entries, int64_t K, int64_t L, int interleave) {
+  const int64_t w = interleave ? 2 : 1, units = L / w, row = K * L;
+  const int64_t* segs = table + n_entries + 1;
+  int64_t* const out[3] = {ox, oy, oz};
+  for (int64_t q = first_lane(); q < n_entries * units; q += lane_stride()) {
+    const int64_t e = q / units, u = q % units;
+    const int64_t base = (e / K) * kLimbs * row + (e % K) * L + w * u;
+    const int64_t* seg = nullptr;
+    for (int64_t i = __ldg(table + e); i < __ldg(table + e + 1); i++) {
+      const int64_t* c = segs + kSegWords * i;
+      const int64_t first = __ldg(c + 10);
+      if (u >= first && u < first + __ldg(c + 9)) {
+        seg = c;
+        break;
+      }
+    }
+    if (seg == nullptr) {  // past the entry's segments: the identity (0 : 1 : 0)
+#pragma unroll
+      for (int i = 0; i < kLimbs; i++) {
+        for (int64_t t = 0; t < w; t++) {
+          ox[i * row + base + t] = 0;
+          oy[i * row + base + t] = i == 0;
+          oz[i * row + base + t] = 0;
+        }
+      }
+      continue;
+    }
+    const int64_t j = u - __ldg(seg + 10);
+#pragma unroll
+    for (int c = 0; c < 3; c++) {
+      const int64_t* src = reinterpret_cast<const int64_t*>(__ldg(seg + c)) + j * __ldg(seg + 6 + c);
+      const int64_t rs = __ldg(seg + 3 + c);
+      // all 16 limbs in flight before the first store: the compiler cannot
+      // tell that src never aliases an output, so a load after a store
+      // would wait for the one before it
+      int64_t v[kLimbs];
+#pragma unroll
+      for (int i = 0; i < kLimbs; i++) v[i] = src[i * rs];
+#pragma unroll
+      for (int i = 0; i < kLimbs; i++) {
+        out[c][i * row + base] = v[i];
+        if (interleave && c > 0) out[c][i * row + base + 1] = v[i];
+      }
+      if (interleave && c == 0) {  // phi's x: fe_load's words, times beta
+        Fe x;
+#pragma unroll
+        for (int k = 0; k < 8; k++) x.w[k] = ((u32)v[2 * k] & 0xffffu) | ((u32)v[2 * k + 1] << 16);
+        fe_store(ox + 1, row, base, fe_mul(x, fe_beta()));
+      }
+    }
+  }
+}
+
 int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   return (int)(b > 65535 * 16 ? 65535 * 16 : b);
@@ -162,6 +250,19 @@ int bppp_pneg(const int64_t* y, int64_t* out, int64_t n, void* stream) {
 int bppp_normalize3(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* out, int64_t n,
                     void* stream) {
   if (n > 0) normalize3_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(x, y, z, out, n);
+  return (int)cudaGetLastError();
+}
+
+// table: the call's segment table on the card (assemble_kernel); the
+// outputs: S = n_entries / K (16, K, L) planes of each coordinate.
+int bppp_assemble(const int64_t* table, int64_t* ox, int64_t* oy, int64_t* oz, int64_t n_entries,
+                  int64_t K, int64_t L, int interleave, void* stream) {
+  if (K < 1 || n_entries % K || L < 0 || (interleave && L % 2)) return (int)cudaErrorInvalidValue;
+  const int64_t units = n_entries * (interleave ? L / 2 : L);
+  if (units > 0) {
+    assemble_kernel<<<blocks_for(units), kThreads, 0, (cudaStream_t)stream>>>(
+        table, ox, oy, oz, n_entries, K, L, interleave);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,11 @@ the engine's device, for every size (there is no host shortcut).
 Base vectors are ``DevicePoints``: projective (16, n) strict planes that
 stay on the device across argument rounds.  Lane counts are padded to
 power-of-two buckets (at least 16) with identity lanes and zero digits.
-Results equal ``HostEngine``'s exactly.
+Every padding, concatenation, stacking, even/odd split and [P, phi(P)]
+interleave of base vectors runs in one ``kernels.assemble`` launch a call
+(the JAX package's compiled ``_assemble_many_body`` / ``_assemble_fold``;
+none where every base already is a contiguous bucket): slices stay views
+until it reads them.  Results equal ``HostEngine``'s exactly.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from .. import metrics, native
 from ..core import ec
 from ..core.fields import Q, R
-from . import curve, glv, limb, msm
+from . import curve, glv, kernels, limb, msm
 
 BV_CACHE_MAX = 64
 
@@ -61,15 +65,25 @@ class DevicePoints:
         return cls(*(limb.planes_from_numpy(a, device) for a in (x, y, z)))
 
 
-def _dp_cat(parts):
-    return DevicePoints(*(torch.cat([p.coords()[c] for p in parts], -1) for c in range(3)))
+def _assemble(outputs, L: int, interleave: bool = False):
+    """``kernels.assemble`` over DevicePoints: ``outputs`` holds S lists of K
+    entries, an entry a list of DevicePoints laid end to end; returns S
+    (16, K, L) coords, each entry padded with the identity (one launch)."""
+    return kernels.assemble([[[dp.coords() for dp in entry] for entry in entries]
+                             for entries in outputs], L, interleave)
+
+
+def _padded(dps, L: int) -> list:
+    """Each DevicePoints padded with the identity to L lanes, contiguous:
+    one assemble launch for all of them, or none where each already is
+    one."""
+    if all(len(dp) == L and all(c.is_contiguous() for c in dp.coords()) for dp in dps):
+        return list(dps)
+    return [DevicePoints(*(c[:, 0] for c in out)) for out in _assemble([[[dp]] for dp in dps], L)]
 
 
 def _dp_pad(dp: DevicePoints, m: int) -> DevicePoints:
-    k = m - len(dp)
-    if k <= 0:
-        return dp
-    return _dp_cat([dp, DevicePoints(*curve.identity((k,), dp.x.device))])
+    return dp if m <= len(dp) else _padded([dp], m)[0]
 
 
 def _dp_slice(dp: DevicePoints, n: int) -> DevicePoints:
@@ -78,9 +92,11 @@ def _dp_slice(dp: DevicePoints, n: int) -> DevicePoints:
     return DevicePoints(*(c[:, :n] for c in dp.coords()))
 
 
-def _dp_stack(parts, L: int):
-    """Each DevicePoints padded to L lanes, end to end: (16, B L) coords."""
-    return _dp_cat([_dp_pad(p, L) for p in parts]).coords()
+def _dp_stacks(stacks, L: int):
+    """Each list of DevicePoints of ``stacks`` padded to L lanes each, end to
+    end, in one assemble launch: a (16, B L) coords triple a list."""
+    return [tuple(c.reshape(limb.NLIMB, -1) for c in out)
+            for out in _assemble([[[dp] for dp in dps] for dps in stacks], L)]
 
 
 def _dp_unstack(coords, count: int, L: int, n: int):
@@ -154,10 +170,12 @@ class TorchEngine:
         return _dp_pad(self.basevec(bv), m)
 
     def bv_split(self, bv):
+        """Even and odd lanes, the odd padded to the even's count: both
+        halves read in place (stride 2) by one assemble launch."""
         bv = self.basevec(bv)
-        even = DevicePoints(*(c[:, 0::2] for c in bv.coords()))
-        odd = DevicePoints(*(c[:, 1::2] for c in bv.coords()))
-        return even, _dp_pad(odd, len(even))
+        even, odd = (DevicePoints(*(c[:, s::2] for c in bv.coords())) for s in (0, 1))
+        out = _assemble([[[even]], [[odd]]], len(even))
+        return tuple(DevicePoints(*(c[:, 0] for c in half)) for half in out)
 
     # -- msm -----------------------------------------------------------------
     def msm_groups(self, groups):
@@ -170,7 +188,8 @@ class TorchEngine:
         """K independent MSMs behind ONE stacked digit upload and ONE
         device-to-host copy of normalized planes; affine conversion on the
         host.  Entry assembly (slice, concatenate, [P, phi(P)] interleave,
-        identity padding, stacking) runs on the device."""
+        identity padding, stacking) is one assemble launch for all K
+        (``bulletproofspp_tpu/ops/engine.py:186-220``)."""
         entries = []
         empty = set()
         all_scalars: list = []
@@ -198,18 +217,14 @@ class TorchEngine:
         K = len(entries)
         L = _bucket(2 * max(c for _, c in entries))
         digits = np.zeros((2, K, glv.ROWS, L), np.uint8)  # 1/8 of int64's upload
-        lanes = []
         off = 0
         for k, (comps, count) in enumerate(entries):
             w = 2 * count
             digits[0, k, :, :w] = absd_all[:, 2 * off : 2 * off + w]
             digits[1, k, :, :w] = sgn_all[:, 2 * off : 2 * off + w]
             off += count
-            lanes.append(_dp_pad(_dp_cat([_dp_slice(bv, n) for bv, n in comps]), L // 2))
-        # one endomorphism over all K entries (identity padding maps to itself)
-        px, py, pz = _interleave_endo(
-            *(torch.stack([dp.coords()[c] for dp in lanes], 1) for c in range(3))
-        )
+        (px, py, pz), = _assemble(
+            [[[_dp_slice(bv, n) for bv, n in comps] for comps, _ in entries]], L, interleave=True)
         dig = torch.from_numpy(digits).to(self.device).to(torch.int64)
         acc = msm.msm(px, py, pz, dig[0], dig[1])
         pts = curve.affine_from_normalized(limb.planes_to_numpy(curve.normalize3(*acc)))
@@ -237,7 +252,8 @@ class TorchEngine:
         L = _bucket(n)
         de, se = native.recode_signed(int(b))
         do, so = native.recode_signed(int(a))
-        return (_dp_pad(even, L).coords(), _dp_pad(odd, L).coords(), de, se, do, so), n
+        pe, po = _padded([even, odd], L)
+        return (pe.coords(), po.coords(), de, se, do, so), n
 
     def fold_bv(self, b: int, a: int, even, odd):
         """b E_i + a O_i lanes, projective, kept on the device."""
@@ -246,16 +262,14 @@ class TorchEngine:
 
     def complete_square(self, r: int, g0s, g1s):
         """(g1 + r g0, g1 - r g0) as device base vectors."""
-        g0 = self.basevec(g0s)
-        g1 = self.bv_pad(self.basevec(g1s), len(g0))
+        g0, g1 = self.basevec(g0s), self.basevec(g1s)
         k1, k2 = glv.split(int(r) % R)
         de, se = native.recode_signed(k1)
         do, so = native.recode_signed(k2)
         n = len(g0)
         L = _bucket(n)
-        gx, hy = msm.complete_square(
-            _dp_pad(g0, L).coords(), _dp_pad(g1, L).coords(), de, se, do, so
-        )
+        p0, p1 = _padded([g0, g1], L)  # g1 padded to len(g0), then both to L
+        gx, hy = msm.complete_square(p0.coords(), p1.coords(), de, se, do, so)
         return _dp_slice(DevicePoints(*gx), n), _dp_slice(DevicePoints(*hy), n)
 
     # -- the same on host affine lists (``bulletproofspp_tpu/ops/engine.py:547-587``)
@@ -276,7 +290,7 @@ class TorchEngine:
             return []
         p = self.basevec(pts)
         n = len(p)
-        pe = _dp_pad(p, _bucket(n)).coords()
+        pe = _padded([p], _bucket(n))[0].coords()
         k1, k2 = glv.split(int(k) % R)
         out = msm.run_fold(pe, curve.endo(pe), *native.recode_signed(k1), *native.recode_signed(k2))
         return curve.affine_lanes_to_host(*out)[:n]
@@ -299,7 +313,7 @@ class TorchEngine:
             digits.append(np.stack([*native.recode_signed(int(b)), *native.recode_signed(int(a))]))
         n = len(evens[0])
         L = _bucket(n)
-        out = msm.fold_mul_many(_dp_stack(evens, L), _dp_stack(odds, L), np.stack(digits))
+        out = msm.fold_mul_many(*_dp_stacks([evens, odds], L), np.stack(digits))
         return _dp_unstack(out, len(calls), L, n)
 
     def complete_square_many(self, calls):
@@ -311,9 +325,10 @@ class TorchEngine:
             return [self.complete_square(*calls[0])]
         g0s, g1s, digits = [], [], []
         for r, g0, g1 in calls:
-            g0 = self.basevec(g0)
-            g1 = self.bv_pad(self.basevec(g1), len(g0))
-            if g0s and (len(g0) != len(g0s[0]) or len(g1) != len(g1s[0])):
+            g0, g1 = self.basevec(g0), self.basevec(g1)
+            # g1 counts as padded to len(g0), as in complete_square
+            shape = (len(g0), max(len(g0), len(g1)))
+            if g0s and shape != (len(g0s[0]), max(len(g0s[0]), len(g1s[0]))):
                 raise ValueError("lockstep complete_square requires identical shapes")
             g0s.append(g0)
             g1s.append(g1)
@@ -321,7 +336,7 @@ class TorchEngine:
             digits.append(np.stack([*native.recode_signed(k1), *native.recode_signed(k2)]))
         n = len(g0s[0])
         L = _bucket(n)
-        gx, hy = msm.complete_square_many(_dp_stack(g0s, L), _dp_stack(g1s, L), np.stack(digits))
+        gx, hy = msm.complete_square_many(*_dp_stacks([g0s, g1s], L), np.stack(digits))
         return list(zip(_dp_unstack(gx, len(calls), L, n), _dp_unstack(hy, len(calls), L, n)))
 
 

@@ -1,11 +1,11 @@
 """The port's hand-written CUDA kernels, their plain versions and launch counts.
 
-Nineteen kernels.  Seven replace Pallas TPU kernels of
+Twenty-one kernels.  Seven replace Pallas TPU kernels of
 ``bulletproofspp_tpu/ops/pallas_field.py`` (padd, horner, reduce_block,
 tail_horner, table_flat, select_reduce, and select_reduce_fused for MSMs
 of 2^21 lanes and more); three replace the Pallas kernels of the JAX
 package's measurement tools (sr_variant and grid_copy of
-``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); nine
+``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); eleven
 replace XLA-only functions: fold (``fold_mul_kernel`` of
 ``bulletproofspp_tpu/ops/msm.py``, basis folding in prove), fold_many
 (its vmap over the provers of a lockstep batch) and decompress
@@ -17,7 +17,14 @@ and inv and to_affine (``limb.inv`` / ``batch_inv`` and
 that every prove and verify runs: select_small (the table select of MSMs
 under 1,024 lanes), endo (GLV's phi, and the engine's [P, phi(P)]
 interleave), pneg and normalize3 (before each device-to-host copy of a
-result).  Each
+result), and the two device programs the JAX package compiles around
+its MSMs and folds: assemble (the oracle step's entry assembly,
+``_assemble_many_body`` / ``_assemble_fold`` of
+``bulletproofspp_tpu/ops/engine.py``: slices, concatenation, identity
+padding, stacking and the [P, phi(P)] interleave in one launch, also
+``csrc/lanes.cu``) and reduce_lanes (the lane tree of MSMs under 128
+lanes, ``_reduce_lanes`` of ``bulletproofspp_tpu/ops/msm.py``, in
+``csrc/kernels.cu``).  Each
 keeps the contract at the boundary:
 (16, N) int64 planes of 16-bit limbs, strict in and out (``ops.limb``);
 multiple tables are flat, entry e and limb i of lane j at row 16 e + i
@@ -135,6 +142,10 @@ KERNELS = {
                "bulletproofspp_tpu/ops/curve.py:87", ("pneg_kernel",)),
         Kernel("normalize3", "lanes.cu", "bppp_normalize3", [_P] * 4 + [_I64, _P],
                "bulletproofspp_tpu/ops/curve.py:124", ("normalize3_kernel",)),
+        Kernel("assemble", "lanes.cu", "bppp_assemble", [_P] * 4 + [_I64] * 3 + [_I32, _P],
+               "bulletproofspp_tpu/ops/engine.py:186 (and :159)", ("assemble_kernel",)),
+        Kernel("reduce_lanes", "kernels.cu", "bppp_reduce_lanes", [_P] * 6 + [_I64, _I64, _P],
+               "bulletproofspp_tpu/ops/msm.py:81", ("reduce_lanes_kernel",)),
         Kernel("sr_variant", "tools.cu", "bppp_sr_variant", [_P] * 8 + [_I64] * 4 + [_I32, _P],
                "tools/r5_experiments.py:115", ("sr_variant_kernel",)),
         Kernel("grid_copy", "tools.cu", "bppp_grid_copy", [_P] * 2 + [_I64] * 3 + [_P],
@@ -249,14 +260,15 @@ def build_seconds():
     return _state["build_seconds"]
 
 
-def _check(*planes) -> torch.device:
-    """The planes' one CUDA device; raises unless they are (16, ...) int64,
-    contiguous and on it."""
+def _check(*planes, contiguous: bool = True) -> torch.device:
+    """The planes' one CUDA device; raises unless they are (16, ...) int64
+    and on it, and, unless ``contiguous`` is False (a kernel that reads
+    strided views in place), contiguous."""
     dev = planes[0].device
     for t in planes:
         if t.dtype != torch.int64 or t.device != dev or t.shape[0] != limb.NLIMB:
             raise ValueError("kernel inputs must be (16, ...) int64 planes on one device")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs a CUDA tensor, got {dev}")
@@ -315,8 +327,9 @@ PADD_THREADS = (128, 256, 512, 1024)
 # from 16 to 3,168 lanes (the halving trees and complete_square), 1.00 at
 # 8,192, and 1.55-1.72 from 16,384 to 65,536.
 PADD_WIDE_LANES = 8192
-# the widths both designs are held and timed at: the halving trees' (B x 33
-# x L/2 lanes) and complete_square's, then up to the measurement path's
+# the widths both designs are held and timed at: the lane trees' (B x 33 x
+# L/2 lanes, before reduce_lanes took them) and complete_square's, then up
+# to the measurement path's
 PADD_WIDTHS = (16, 66, 264, 1056, 3168, 8192, 16384, 32768, 65536)
 
 
@@ -907,6 +920,140 @@ def normalize3(x, y, z):
     out = torch.empty((3, limb.NLIMB, n), dtype=torch.int64, device=x.device)
     _launch("normalize3", f"K={n}", dev, *_ptrs(*flat, out), n)
     return out.reshape(3, *x.shape)
+
+
+# ---------------------------------------------------------------------------
+# 9d. the two device programs around the MSMs: the engine's entry assembly
+# (``csrc/lanes.cu``) and the lane tree of MSMs under 128 lanes
+# (``csrc/kernels.cu``)
+# ---------------------------------------------------------------------------
+
+
+def _segments_device(outputs):
+    """The device of the first segment of any entry; raises if there is none."""
+    for entries in outputs:
+        for segs in entries:
+            for seg in segs:
+                return seg[0].device
+    raise ValueError("assemble: no segment in any entry")
+
+
+def assemble_plain(outputs, L: int, interleave: bool = False):
+    """``outputs``: S lists of K entries each, an entry a list of (x, y, z)
+    segments ((16, n) planes, any strides).  Returns S (x, y, z) of (16, K,
+    L) planes: each entry's segments end to end, padded with the identity
+    (0 : 1 : 0) to L lanes; with ``interleave`` padded to L / 2 and then
+    [P, phi(P)] interleaved by ``endo_plain`` (the identity is its own
+    phi).  The engine's eager route: slices, ``torch.cat``, the identity
+    pad and ``torch.stack`` (``bulletproofspp_tpu/ops/engine.py:159-220``)."""
+    dev = _segments_device(outputs)
+    units = L // 2 if interleave else L
+    res = []
+    for entries in outputs:
+        rows = []
+        for segs in entries:
+            n = sum(seg[0].shape[-1] for seg in segs)
+            pad = curve.identity((units - n,), dev)
+            rows.append(tuple(torch.cat([seg[c] for seg in segs] + [pad[c]], -1) for c in range(3)))
+        planes = tuple(torch.stack([r[c] for r in rows], 1) for c in range(3))
+        res.append(endo_plain(planes, interleave=True) if interleave else planes)
+    return res
+
+
+# int64 words a segment takes in assemble's table (csrc/lanes.cu: kSegWords)
+SEG_WORDS = 11
+
+
+def _assemble_table(outputs, units: int) -> np.ndarray:
+    """assemble's table: S K + 1 segment starts (entry e's segments are rows
+    start[e] .. start[e + 1] - 1), then SEG_WORDS int64 a segment: its x, y
+    and z addresses (first lane included), their row strides and lane
+    strides in elements, its lane count and its first lane in the entry.
+    Raises unless every entry's segments fit in ``units`` lanes."""
+    starts, rows = [0], []
+    for entries in outputs:
+        for segs in entries:
+            off = 0
+            for seg in segs:
+                n = seg[0].shape[-1]
+                if any(c.dim() != 2 or c.shape[-1] != n for c in seg):
+                    raise ValueError("assemble: a segment's x, y and z must be (16, n) planes")
+                if n:
+                    rows.append([c.data_ptr() for c in seg] + [c.stride(0) for c in seg]
+                                + [c.stride(1) for c in seg] + [n, off])
+                off += n
+            if off > units:
+                raise ValueError(f"assemble: an entry of {off} lanes does not fit in {units}")
+            starts.append(len(rows))
+    return np.array(starts + [w for r in rows for w in r], dtype=np.int64)
+
+
+def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A small host int64 array on ``dev`` without waiting on the card: a
+    pinned copy of its own (PyTorch's caching host allocator keeps it until
+    the copy has run), sent on ``dev``'s current stream."""
+    return torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
+
+
+def assemble(outputs, L: int, interleave: bool = False):
+    """``assemble_plain`` on the card in one launch (csrc/lanes.cu:
+    assemble_kernel), equal to it word for word but for the phi lanes,
+    which equal ``endo``'s words (and the plain version's after
+    normalization).  The segments are read where they lie, whatever their
+    strides: a slice ``c[:, :n]`` or ``bv_split``'s ``c[:, 0::2]`` is
+    not copied first.  Their addresses and strides go to the kernel in a
+    table of this call's own (``_assemble_table``, one small host-to-device
+    copy a call), so threads that share an engine never share one.  The S
+    outputs are views of one (S, 16, K, L) allocation."""
+    S, K = len(outputs), len(outputs[0]) if outputs else 0
+    if S == 0 or K == 0 or any(len(entries) != K for entries in outputs):
+        raise ValueError("assemble: every output needs the same number K >= 1 of entries")
+    if L < 0 or (interleave and L % 2):
+        raise ValueError(f"assemble: L = {L} lanes (even with interleave)")
+    table = _assemble_table(outputs, L // 2 if interleave else L)  # also checks the fit
+    where = _segments_device(outputs)
+    if where.type == "cpu":
+        return assemble_plain(outputs, L, interleave)
+    dev = _check(*(c for entries in outputs for segs in entries for seg in segs for c in seg),
+                 contiguous=False)
+    out = tuple(torch.empty((S, limb.NLIMB, K, L), dtype=torch.int64, device=where)
+                for _ in range(3))
+    if S * K * L:
+        tab = _to_device(table, dev)  # referenced until the launch is enqueued
+        _launch("assemble", f"S={S} K={K} L={L}{' interleave' if interleave else ''}", dev,
+                tab.data_ptr(), *_ptrs(*out), S * K, K, L, int(interleave))
+    return [tuple(c[s] for c in out) for s in range(S)]
+
+
+def reduce_lanes_plain(p):
+    """(16, B, rows, L) selected entries, L a power of two -> (16, B, rows)
+    row sums: a halving tree (lane t plus lane t + h for h = L / 2, L / 4,
+    ..., 1), ``padd_plain`` a level; the JAX package's ``_reduce_lanes``
+    adds the same lanes in another order (``bulletproofspp_tpu/ops/msm.py:81``)."""
+    width = p[0].shape[-1]
+    while width > 1:
+        h = width // 2
+        p = padd_plain(tuple(t[..., :h] for t in p), tuple(t[..., h:] for t in p))
+        width = h
+    return tuple(t[..., 0] for t in p)
+
+
+def reduce_lanes(p):
+    """``reduce_lanes_plain`` on the card in one launch (csrc/kernels.cu:
+    reduce_lanes_kernel), 2 <= L < 128: the same additions in the same
+    order as the padd kernel's halving tree, so the same words."""
+    L = p[0].shape[-1]
+    if p[0].dim() != 4 or L < 2 or L >= 128 or L & (L - 1):
+        raise ValueError(f"reduce_lanes: (16, B, rows, L) planes with L a power of two in "
+                         f"[2, 128), got {tuple(p[0].shape)}")
+    if p[0].device.type == "cpu":
+        return reduce_lanes_plain(p)
+    p = tuple(t.contiguous() for t in p)
+    dev = _check(*p)
+    batch, rows = p[0].shape[1:3]
+    out = _empty((limb.NLIMB, batch, rows), p[0])
+    _launch("reduce_lanes", f"B={batch} L={L}", dev, *_ptrs(*p, *out), batch * rows, L)
+    return out
 
 
 # ---------------------------------------------------------------------------

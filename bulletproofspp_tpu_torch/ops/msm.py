@@ -10,8 +10,9 @@ from there inside select_reduce.  The selected points are summed over lanes
 and the 33 row sums combined by Horner, by lane count L as in the JAX
 package (``msm.py:105-196``):
 
-  * under 128 lanes: a halving lane tree through the padd kernel, then
-    the horner kernel;
+  * under 128 lanes: the lane tree of each row in one reduce_lanes launch
+    (the halving order: lane t plus lane t + L/2, ...), then the horner
+    kernel;
   * 128 to 512 lanes: the reduce_block chain (8:1 per launch) down to 128
     lanes per row, then tail_horner;
   * from 1,024 lanes: the select_reduce kernel (select and the first 8:1
@@ -61,12 +62,7 @@ def msm(px, py, pz, absd, sgn):
         return msm_tabled(kernels.table_flat(p), absd, sgn)
     sel = kernels.select_small(kernels.table_flat(p), absd, sgn)
     if L < 128:
-        width = L
-        while width > 1:
-            h = width // 2
-            sel = curve.padd(tuple(t[..., :h] for t in sel), tuple(t[..., h:] for t in sel))
-            width = h
-        return kernels.horner(*(t[..., 0] for t in sel))
+        return kernels.horner(*kernels.reduce_lanes(sel))
     return _narrow(_flat(sel), L, batch, rows)
 
 

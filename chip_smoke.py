@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify, multiparty, shard, convert, measure, bench.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, prove, verify, batch-verify, multiparty, shard, convert, measure, bench, assemble.
 
     python3 chip_smoke.py
 
@@ -164,13 +164,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      lanes and lockstep's 16 x 16, equal after normalization and strict;
      normalize3 at K = 1, 2, 6, 66, 130 word for word; each timed at the
      main paths' commonest shapes, select_small in turns with
-     select_plain's three torch.gather (its ``library_ms``); (b) in a
-     process of its own, one 64bit prove and verify under
-     ``torch.profiler`` (a profile missing some of the port's launches
-     taken again, up to 3 times) with the lane kernels and
-     with the four swapped for their plain versions: the library
-     remainder (device kernels no wrapper launches) in ms and launches, the
-     port's launches and the wall of each, logged on one line.
+     select_plain's three torch.gather (its ``library_ms``); (b) the
+     library remainder: 16 (c).
+  16. the engine's assembly and the small MSMs' lane tree: (a) assemble
+     against its plain version with edge lanes (``edge_planes``) in every
+     input, word for word but for the phi lanes (strict, equal after
+     normalization): msm_many's K = 1, 2, 3, 66 and 130 entries of 1-4
+     groups whose active counts are not powers of two, at every lane
+     bucket phase 3 gave that K; bv_split's halves of 33 and 4,095 lanes;
+     lockstep's two stacks of 16 x 16; a 4,096-lane fold_bases' two bases;
+     (b) reduce_lanes at L = 16, 32, 64 and B = 1, 2, 6, 66, 130 MSMs of
+     33 rows (identity rows, P + (-P) and P + P), equal word for word to
+     the padd kernel's tree it replaces and to its plain version after
+     normalization; each timed at the shape phase 3 launched most,
+     reduce_lanes beside the padd tree's time; (c) in a process of its own
+     for each route, one 64bit verify and prove under ``torch.profiler``
+     with every kernel, with assemble and reduce_lanes swapped for their
+     plain versions, and with those and the four lane kernels swapped: the
+     library remainder (device kernels no wrapper launches) in ms and
+     launches, the port's launches, device seconds, idle share and the
+     wall of each, logged on one line a route; the kernels' route at most
+     120 library launches in the prove.
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
@@ -183,7 +197,8 @@ decompress at 16 lanes, cli test's smallest, and 16,384; fold_many at B =
 2 and 16 of L = 16 and 512; inv and to_affine at 16, 4,096 and 65,536;
 select_small at B = 2, L = 16 and B = 1, L = 512; endo interleaved at K =
 2 of 8 lanes and 2,048 lanes, and at 16 lanes; pneg at 16; normalize3 at
-K = 2 and 130), the kernel's
+K = 2 and 130; assemble and reduce_lanes at the shape phase 3 launched
+most), the kernel's
 launch count (summed over the main-path runs of phases 3, 6, 7, 8, 9, 10,
 11, 12, 13 and 14, each counted from 0) in all, by path (``launches_by_path``: cli_test,
 msm_2_21, batch_verify, measurement, prove_batch, serve, multiparty, sharded,
@@ -196,8 +211,8 @@ over 3.35 TB/s; for chain's ten launches the sum of theirs) and, for grid_copy, 
 computes the same function (``library_ms``; for select_small
 select_plain's three torch.gather; null where there is none).
 The kernel lines of phase 2, and the JSON line (``chain``), also give, for
-tail_horner, horner, fold, fold_many, select_reduce_fused, padd, table_flat and
-reduce_block, the time per point operation and per product round of the
+tail_horner, horner, fold, fold_many, select_reduce_fused, padd, table_flat,
+reduce_block and reduce_lanes, the time per point operation and per product round of the
 kernel's longest dependent chain (``bounds.*_chain``; padd's, table_flat's
 and reduce_block's by design), and for decompress, inv and to_affine the
 time per dependent field product of its chain;
@@ -252,7 +267,8 @@ AFFINE_LANES = 4096
 # phase 14: the kernels each proof leg of the bench must launch, and the
 # size of the batch leg's run as a subprocess
 BENCH_REQUIRED = {
-    "proofs": {"fold", "fold_many", "padd", "table_flat", "horner", "tail_horner"},
+    "proofs": {"fold", "fold_many", "table_flat", "horner", "tail_horner", "assemble",
+               "reduce_lanes"},
     "mixed": set(),
     "serve": {"fold_many", "decompress"},
     "batch": {"decompress", "table_flat", "select_reduce", "reduce_block", "tail_horner"},
@@ -274,6 +290,19 @@ NORMALIZE_K = (1, 2, 6, 66, 130)
 SELECT_TIMED = ((2, 16), (1, 512))
 ENDO_TIMED = ((2, 8), (1, 2048))
 NORMALIZE_TIMED = (2, 130)
+# phase 16: msm_many's entry counts (each at the lane buckets phase 3 gave
+# it), the groups an entry and the widths of the other assembly calls; the
+# lane tree's widths and MSM counts; the library remainder's routes (no
+# route: the kernels)
+ASSEMBLE_K = (1, 2, 3, 66, 130)
+ASSEMBLE_GROUPS = 4
+SPLIT_LANES = (33, 4095)  # bv_split of an odd count
+REDUCE_LANES_L = (16, 32, 64)
+REDUCE_LANES_B = (1, 2, 6, 66, 130)
+ASSEMBLY_OPS = ("assemble", "reduce_lanes")
+REMAINDER_ROUTES = {"kernels": (), "plain_assembly": ASSEMBLY_OPS,
+                    "plain_lanes_and_assembly": LANE_OPS + ASSEMBLY_OPS}
+REMAINDER_MAX = 120  # library launches a 64bit prove may make on the kernels' route
 MEASURE_L = 65536  # the measurement tools' width (32,768 points)
 SR_CASES = ((1024, 128, False), (1024, 128, True), (512, 128, False), (512, 256, False),
             (1024, 256, False), (2048, 128, False), (2048, 256, False))
@@ -1831,58 +1860,231 @@ def check_lane_ops(dev):
     return rows
 
 
-def library_remainder(dev):
-    """Phase 15 (b): ``engine_profile.profile_prove`` and ``profile_verify``
-    of examples/64bit, with the lane kernels and with LANE_OPS swapped for
-    their plain versions (``engine_profile.plain_versions``, as
-    ``engine_profile --plain``): the device kernels no wrapper of
-    ops.kernels launches (``by_wrapper``'s "library": PyTorch's own
-    operators) in ms and launches, the four most launched of them, the
-    port's launches, the device seconds, the idle share and the wall
-    seconds.  Fails if a profile misses some of the port's launches
-    (``engine_profile.profile_complete``), if a route's proof is not golden
-    or if the kernels' route does not launch all four on the prove."""
+def assemble_equal(name, got, want, interleave: bool) -> int:
+    """assemble's outputs against assemble_plain's: word for word, but for
+    the phi lanes' x (the odd lanes of an interleave), which must be strict
+    and equal after normalization.  Returns the max |diff| (0)."""
+    from bulletproofspp_tpu_torch.ops import limb
+
+    for g, w in zip(got, want):
+        for c, (a, b) in enumerate(zip(g, w)):
+            if a.shape != b.shape or not a.is_contiguous():
+                raise AssertionError(f"assemble {name}: an output of another shape or strided")
+            if interleave and c == 0:
+                phi = a[..., 1::2]
+                if int(phi.min()) < 0 or int(phi.max()) > limb.MASK:
+                    raise AssertionError(f"assemble {name}: phi lanes not strict")
+                lanes_equal(f"assemble {name} phi", (phi,), (b[..., 1::2],))
+                a, b = a[..., 0::2], b[..., 0::2]
+            if not torch.equal(a, b):
+                raise AssertionError(f"assemble {name}: coordinate {c} differs from its plain "
+                                     "version word for word")
+    return 0
+
+
+def parse_shape(shape: str) -> dict:
+    """"S=2 K=16 L=16 interleave" -> {"S": 2, "K": 16, "L": 16, "interleave": True}."""
+    words = shape.split()
+    out = {k: int(v) for k, v in (w.split("=") for w in words if "=" in w)}
+    out["interleave"] = "interleave" in words
+    return out
+
+
+def commonest(by_shape: dict) -> str:
+    return max(sorted(by_shape), key=by_shape.get)
+
+
+def msm_entries(K: int, L: int, pool, rng):
+    """K msm_many entries of 1-ASSEMBLE_GROUPS groups whose active counts
+    are not powers of two, at most L / 2 lanes an entry: each group a slice
+    of the (16, M) ``pool`` planes (the row stride M, not the count), entry
+    0's first at lane 0 (the pool's edge lanes).  Returns the entries and
+    their lanes."""
+    M = pool[0].shape[1]
+    units = L // 2
+    entries, lanes = [], 0
+    for k in range(K):
+        total = int(rng.integers(max(1, units // 2), units + 1))
+        if total > 2 and total & (total - 1) == 0:
+            total -= 1
+        g = int(rng.integers(1, min(ASSEMBLE_GROUPS, total) + 1))
+        cuts = sorted(rng.choice(np.arange(1, total), size=g - 1, replace=False)) if g > 1 else []
+        counts = np.diff([0, *cuts, total])
+        segs = []
+        for i, n in enumerate(counts):
+            off = 0 if k == i == 0 else int(rng.integers(0, M - n + 1))
+            segs.append(tuple(c[:, off:off + n] for c in pool))
+        entries.append(segs)
+        lanes += total
+    return entries, lanes
+
+
+def check_assembly(dev, cli_shapes):
+    """Phase 16 (a): assemble against assemble_plain (``assemble_equal``)
+    at the main paths' shapes, every input holding ``edge_planes`` lanes
+    (0, 1, Q, Q - 1, [Q, 2^256), saturated limbs): msm_many's K of
+    ASSEMBLE_K entries of 1-4 groups whose active counts are not powers of
+    two, interleaved, at each lane bucket phase 3's ``cli test`` gave that K
+    (64 where it gave none); bv_split's stride-2 halves of SPLIT_LANES
+    (odd) lanes; lockstep's two stacks of 16 provers' 13 lanes to 16; the
+    two 4,095-lane bases of a 4,096-lane fold_bases.  Then reduce_lanes
+    against the padd kernel's tree word for word and against
+    reduce_lanes_plain after normalization, at L of REDUCE_LANES_L and B
+    of REDUCE_LANES_B MSMs of ROWS rows (``wide_points``; in every MSM row 0
+    all identity lanes, in row 1 lane t + L/2 the negation of lane t, in row
+    2 the same point with another Z).  Each timed at the shape phase 3
+    launched most (CUDA ms back to back, the plain version's as the host
+    sends it), reduce_lanes also beside the padd route's time.  Returns the
+    kernel rows."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import kernels, limb
+
+    rng = np.random.default_rng(SEED + 16)
+    pool = tuple(edge_planes(8192, rng, dev, s) for s in (5, 3, 0))
+    seen = collections.defaultdict(set)
+    for shape in cli_shapes["assemble"]:
+        d = parse_shape(shape)
+        if d["interleave"]:
+            seen[d["K"]].add(d["L"])
+    cases = []  # (label, outputs, L, interleave)
+    for K in ASSEMBLE_K:
+        for L in sorted(seen[K]) or [64]:
+            cases.append((f"msm_many K={K} L={L}" + ("" if seen[K] else " (not in phase 3)"),
+                          [msm_entries(K, L, pool, rng)[0]], L, True))
+    for n in SPLIT_LANES:
+        full = tuple(c[:, 1:n + 1] for c in pool)  # a slice of an odd count
+        cases.append((f"bv_split n={n}", [[[tuple(c[:, s::2] for c in full)]] for s in (0, 1)],
+                      (n + 1) // 2, False))
+    stacks = [[[tuple(c[:, 16 * b + s:16 * b + s + 13] for c in pool)] for b in range(16)]
+              for s in (0, 1)]
+    cases.append(("lockstep 16 x 13 to 16", stacks, 16, False))
+    cases.append(("fold_bases 2 x 4,095 to 4,096", [[[tuple(c[:, s:s + 4095] for c in pool)]]
+                                                     for s in (0, 1)], 4096, False))
+    for label, outputs, L, interleave in cases:
+        err = assemble_equal(label, kernels.assemble(outputs, L, interleave),
+                             kernels.assemble_plain(outputs, L, interleave), interleave)
+    log(f"assemble against its plain version (phi lanes after normalization, strict; every other "
+        f"word equal): {', '.join(c[0] for c in cases)}")
+
+    rows = []
+    timed = parse_shape(commonest(cli_shapes["assemble"]))
+    S, K, L, interleave = timed["S"], timed["K"], timed["L"], timed["interleave"]
+    outputs = [msm_entries(K, L if interleave else 2 * L, pool, rng)[0] for _ in range(S)]
+    n_in = sum(seg[0].shape[1] for entries in outputs for segs in entries for seg in segs)
+    err = assemble_equal("timed", kernels.assemble(outputs, L, interleave),
+                         kernels.assemble_plain(outputs, L, interleave), interleave)
+    rows.append(("assemble", err, time_ms(lambda: kernels.assemble(outputs, L, interleave), 20),
+                 time_ms(lambda: kernels.assemble_plain(outputs, L, interleave), 5, paced=True),
+                 f"S={S} K={K} L={L}{' interleave' if interleave else ''} ({n_in} lanes in)",
+                 bounds.assemble(n_in, S * K * L, interleave)))
+
+    def tree_route(p):
+        width = p[0].shape[-1]
+        while width > 1:
+            h = width // 2
+            p = kernels.padd(tuple(t[..., :h] for t in p), tuple(t[..., h:] for t in p))
+            width = h
+        return tuple(t[..., 0] for t in p)
+
+    def tree_lanes(B, L):
+        x, y, z = (c.reshape(16, B, ROWS, L) for c in wide_points(B * ROWS * L, rng, dev))
+        h = L // 2
+        x[:, :, 0], z[:, :, 0] = 0, 0
+        k = torch.as_tensor(rng.integers(1, 1 << 16, size=(limb.NLIMB, B, 2, h)), device=dev)
+        x[:, :, 1:3, h:] = limb.mul(x[:, :, 1:3, :h], k)
+        z[:, :, 1:3, h:] = limb.mul(z[:, :, 1:3, :h], k)
+        y[:, :, 1:3, h:] = limb.mul(y[:, :, 1:3, :h], k)
+        y[:, :, 1, h:] = limb.neg(y[:, :, 1, h:])
+        return x, y, z
+
+    def sums_equal(label, p):
+        """reduce_lanes against the padd route raw, against its plain version
+        normalized (``compare`` takes (16, N) planes)."""
+        got = kernels.reduce_lanes(p)
+        same_raw(f"{label} against the padd route", got, tree_route(p))
+        return compare(label, tuple(t.reshape(16, -1) for t in got),
+                       tuple(t.reshape(16, -1) for t in kernels.reduce_lanes_plain(p)))
+
+    for L in REDUCE_LANES_L:
+        for B in REDUCE_LANES_B:
+            sums_equal(f"reduce_lanes B={B} L={L}", tree_lanes(B, L))
+    log(f"reduce_lanes at L = {REDUCE_LANES_L} x B = {REDUCE_LANES_B} MSMs of {ROWS} rows (identity, "
+        "cancelling and doubling rows): equal to the padd route word for word, to its plain "
+        "version after normalization")
+    timed = parse_shape(commonest(cli_shapes["reduce_lanes"]))
+    B, L = timed["B"], timed["L"]
+    p = tree_lanes(B, L)
+    err = sums_equal(f"reduce_lanes B={B} L={L} (timed)", p)
+    ms = time_ms(lambda: kernels.reduce_lanes(p), 20)
+    log(f"reduce_lanes B={B} L={L}: {ms:.4f} ms back to back; the padd route it replaces "
+        f"{time_ms(lambda: tree_route(p), 5, paced=True):.4f} ms as the host sends it")
+    rows.append(("reduce_lanes", err, ms,
+                 time_ms(lambda: kernels.reduce_lanes_plain(p), 5, paced=True),
+                 f"B={B} L={L} rows={ROWS}", bounds.reduce_lanes(B, ROWS, L),
+                 {"chain": bounds.reduce_lanes_chain(L)}))
+    return rows
+
+
+def library_remainder(dev, route: str):
+    """Phases 15 (b) and 16 (c), one route of REMAINDER_ROUTES (the kernels;
+    assemble and reduce_lanes; those and LANE_OPS, swapped for their plain
+    versions by ``engine_profile.plain_versions``, as ``engine_profile
+    --plain``): ``engine_profile.profile_verify`` and then ``profile_prove``
+    of examples/64bit: the device kernels no wrapper of ops.kernels
+    launches (``by_wrapper``'s "library": PyTorch's own operators) in ms and
+    launches, the four most launched of them, the port's launches, the
+    device seconds, the idle share and the wall seconds, logged on one
+    line.  Fails if a profile misses some of the port's launches
+    (``engine_profile.profile_complete``) or if the proof is not golden;
+    on the kernels' route also if the prove does not launch all six lane
+    and assembly kernels or makes more than REMAINDER_MAX library
+    launches."""
     from bulletproofspp_tpu_torch import engine_profile
     from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
-    out = {}
-    for route, names in (("kernels", ()), ("plain", LANE_OPS)):
-        with engine_profile.plain_versions(names):
-            eng = TorchEngine(dev)
-            out[route] = {"prove": engine_profile.profile_prove("64bit", eng),
-                          "verify": engine_profile.profile_verify("64bit", eng)}
-        if out[route]["prove"]["proof_sha256"] != golden()["64bit"][0]:
-            raise AssertionError(f"64bit proof bytes on the {route} route are not golden")
-        for step, p in out[route].items():
-            if not p["complete"]:
-                raise AssertionError(f"the profile of the {route} route's {step} misses some of "
-                                     f"its launches {p['launched']}")
-    if not set(LANE_OPS) <= set(out["kernels"]["prove"]["launched"]):
-        raise AssertionError(f"the 64bit prove did not launch every lane kernel: "
-                             f"{out['kernels']['prove']['launched']}")
+    with engine_profile.plain_versions(REMAINDER_ROUTES[route]):
+        eng = TorchEngine(dev)
+        out = {"verify": engine_profile.profile_verify("64bit", eng),
+               "prove": engine_profile.profile_prove("64bit", eng)}
+    if out["prove"]["proof_sha256"] != golden()["64bit"][0]:
+        raise AssertionError(f"64bit proof bytes on the {route} route are not golden")
+    for step, p in out.items():
+        if not p["complete"]:
+            raise AssertionError(f"the profile of the {route} route's {step} misses some of its "
+                                 f"launches {p['launched']}")
+    if route == "kernels":
+        if not set(LANE_OPS + ASSEMBLY_OPS) <= set(out["prove"]["launched"]):
+            raise AssertionError(f"the 64bit prove did not launch every lane and assembly "
+                                 f"kernel: {out['prove']['launched']}")
+        library = out["prove"]["by_wrapper"]["library"][1]
+        if library > REMAINDER_MAX:
+            raise AssertionError(f"the 64bit prove made {library} library launches on the "
+                                 f"kernels' route, more than {REMAINDER_MAX}")
     keys = ("library_top", "device_s", "device_idle_share", "wall_s")
-    summary = {route: {step: {"library_ms_launches": p["by_wrapper"]["library"],
-                              "port_launches": sum(p["launched"].values()),
-                              **{k: p[k] for k in keys}} for step, p in steps.items()}
-               for route, steps in out.items()}
-    log(f"{card_line()}: library remainder of a 64bit prove and verify (ms, launches), with the "
-        f"lane kernels and with {', '.join(LANE_OPS)} plain: {json.dumps(summary)}")
+    summary = {step: {"library_ms_launches": p["by_wrapper"]["library"],
+                      "port_launches": sum(p["launched"].values()), **{k: p[k] for k in keys}}
+               for step, p in out.items()}
+    log(f"{card_line()}: library remainder of a 64bit prove and verify (ms, launches), route "
+        f"{route} (plain: {', '.join(REMAINDER_ROUTES[route]) or 'none'}): {json.dumps(summary)}")
     return out
 
 
 def library_remainder_subprocess():
-    """Phase 15 (b) in a process of its own, whose profiles are its first
-    (in this one, late in the run, a profile has come back without some of
-    the launches it held: PERF.md section 7); its lines relayed."""
-    proc = subprocess.run(
-        [sys.executable, "-c", "import sys, torch, chip_smoke; "
-         "chip_smoke.library_remainder(torch.device('cuda')); chip_smoke.require_port_only()"],
-        cwd=HERE, capture_output=True, text=True, timeout=600)
-    for line in proc.stdout.splitlines():
-        log(line)
-    if proc.returncode != 0:
-        raise AssertionError(f"the library remainder's process: rc {proc.returncode}, stderr "
-                             f"{proc.stderr[-2000:]!r}")
+    """Phases 15 (b) and 16 (c): ``library_remainder`` of each route in a
+    process of its own, whose profiles are its first (in a process that has
+    profiled tens of thousands of launches before, a profile has come back
+    without some of the launches it held: PERF.md section 7); their lines
+    relayed."""
+    for route in REMAINDER_ROUTES:
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, torch, chip_smoke; chip_smoke.library_remainder("
+             f"torch.device('cuda'), {route!r}); chip_smoke.require_port_only()"],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            log(line)
+        if proc.returncode != 0:
+            raise AssertionError(f"the library remainder's process ({route}): rc "
+                                 f"{proc.returncode}, stderr {proc.stderr[-2000:]!r}")
 
 
 def reference_bench_keys(names) -> dict:
@@ -2035,11 +2237,12 @@ def main() -> int:
         batch, batch_blobs = batch_1024(dev, work)
         prove_batch, batch_items = prove_batch_phase(dev, work)
         require_launched("prove-batch", {k: sum(v.values()) for k, v in prove_batch.items()},
-                         {"padd", "horner", "tail_horner", "table_flat", "fold_many"})
+                         {"padd", "horner", "tail_horner", "table_flat", "fold_many",
+                          *ASSEMBLY_OPS})
         require_port_only()
         served = serve_phase(dev, batch_items)
         require_launched("serve", {k: sum(v.values()) for k, v in served.items()},
-                         {"padd", "table_flat", "fold_many", "decompress"})
+                         {"padd", "table_flat", "fold_many", "decompress", *ASSEMBLY_OPS})
         require_port_only()
         multiparty = multiparty_phase(
             dev, work, {k for k, n in by_example[MP_EXAMPLE].items() if n})
@@ -2054,6 +2257,7 @@ def main() -> int:
         bench_legs = bench_legs_phase(dev)
         require_port_only()
         checked.update(kernel_rows(check_lane_ops(dev)))  # phase 15
+        checked.update(kernel_rows(check_assembly(dev, cli_shapes)))  # phase 16
         library_remainder_subprocess()
         require_port_only()
     finally:

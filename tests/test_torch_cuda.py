@@ -99,6 +99,13 @@ def test_cuda_kernels_match_plain_versions():
     assert _same(kernels.endo(p), kernels.endo_plain(p))
     assert _same(kernels.pneg(p), kernels.pneg_plain(p))
     assert torch.equal(kernels.normalize3(*p), kernels.normalize3_plain(*p))
+    # the engine's assembly (a slice padded to 64 lanes, word for word) and
+    # the lane tree of two MSMs of 16 lanes
+    segs = [[[tuple(c[:, 3:40] for c in _points(64, 52, dev))]]]
+    for got, want in zip(kernels.assemble(segs, 64), kernels.assemble_plain(segs, 64)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    sel = _points(2 * 33 * 16, 53, dev, (16, 2, 33, 16))
+    assert _same(kernels.reduce_lanes(sel), kernels.reduce_lanes_plain(sel))
     launched = kernels.counts()
     assert all(launched[k] > 0 for k in launched if k not in ("sr_variant", "grid_copy", "chain"))
 
@@ -532,3 +539,126 @@ def test_cuda_two_party_rec_test_equals_host_engine():
     assert kernels.counts()["fold"] > 0
     assert got == run(HostEngine())
     assert rpm.verify(setup, rpm.decode_proof(setup, *got, engine=eng), eng)
+
+
+def _strict_planes(shape, seed: int, dev):
+    """(16, *shape) strict planes of numpy-seeded limbs over the full
+    256-bit range (not canonical), the first lanes 0, 1, Q, Q - 1 and
+    2^256 - 1."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    t = torch.as_tensor(rng.integers(0, 1 << 16, size=(16, n)), device=dev)
+    edge = [0, 1, Q, Q - 1, (1 << 256) - 1][:n]
+    t[:, :len(edge)] = limb.from_ints(edge, dev)
+    return t.reshape(16, *shape)
+
+
+def _segment(n: int, seed: int, dev, step: int = 1, first: int = 0):
+    """(x, y, z) views of n lanes, each a slice (a row stride wider than n,
+    lanes ``step`` apart from ``first``) of a wider plane."""
+    return tuple(_strict_planes((first + step * n + 5,), seed + c, dev)[:, first::step][:, :n]
+                 for c in range(3))
+
+
+def _assemble_same(got, want, interleave):
+    """P lanes, pads and the interleave's y and z word for word; the phi
+    lanes' x after normalization, strict."""
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.shape == b.shape and a.is_contiguous()
+        if not interleave:
+            assert all(torch.equal(a, b) for a, b in zip(g, w))
+            continue
+        assert torch.equal(g[0][..., 0::2], w[0][..., 0::2])
+        assert torch.equal(g[1], w[1]) and torch.equal(g[2], w[2])
+        phi = g[0][..., 1::2]
+        assert int(phi.min()) >= 0 and int(phi.max()) <= limb.MASK
+        assert torch.equal(limb.normalize(phi.reshape(16, -1)),
+                           limb.normalize(w[0][..., 1::2].reshape(16, -1)))
+
+
+# (outputs, K, groups an entry, lanes, interleave): msm_many's stacks of 1-4
+# groups whose counts are not powers of two; fold's and complete_square's
+# two padded bases; bv_split's stride-2 halves of an odd count; lockstep's
+# 16 x 16
+ASSEMBLE_CASES = [(1, 1, (3,), 16, True), (1, 2, (5, 11), 64, True),
+                  (1, 3, (7, 1, 13, 2), 128, True), (2, 1, (13,), 16, False),
+                  (2, 16, (11,), 16, False), (1, 1, (1000,), 1024, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,K,groups,L,interleave", ASSEMBLE_CASES)
+def test_cuda_assemble_matches_plain_version(S, K, groups, L, interleave):
+    dev = _card()
+    outputs = [[[_segment(n - k % 2, 100 * s + 10 * k + g, dev, 1, g)
+                 for g, n in enumerate(groups)] for k in range(K)] for s in range(S)]
+    kernels.reset_counts()
+    got = kernels.assemble(outputs, L, interleave)
+    _assemble_same(got, kernels.assemble_plain(outputs, L, interleave), interleave)
+    assert kernels.counts()["assemble"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 31, 40])
+def test_cuda_assemble_stride_two_halves(n):
+    """bv_split's even and odd halves (lane stride 2) of an odd or even
+    count, the odd padded to the even's count."""
+    dev = _card()
+    full = _segment(n, n, dev)
+    halves = [[[tuple(c[:, s::2] for c in full)]] for s in (0, 1)]
+    got = kernels.assemble(halves, (n + 1) // 2)
+    _assemble_same(got, kernels.assemble_plain(halves, (n + 1) // 2), False)
+
+
+def _tree_route(p):
+    """The lane tree as the padd kernel ran it before reduce_lanes."""
+    width = p[0].shape[-1]
+    while width > 1:
+        h = width // 2
+        p = kernels.padd(tuple(t[..., :h] for t in p), tuple(t[..., h:] for t in p))
+        width = h
+    return tuple(t[..., 0] for t in p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_cuda_reduce_lanes_matches_plain_version(L, batch):
+    """(16, B, 33, L) lanes (every 7th the identity; row 1 cancels lane t
+    with lane t + L/2, row 2 doubles it): equal word for word to the padd
+    kernel's tree, and to the plain version after normalization."""
+    dev = _card()
+    rows = 33
+    x, y, z = _points(batch * rows * L, L + batch, dev, (16, batch, rows, L))
+    h = L // 2
+    for r, sign in ((1, -1), (2, 1)):
+        x[:, :, r, h:], z[:, :, r, h:] = x[:, :, r, :h], z[:, :, r, :h]
+        y[:, :, r, h:] = y[:, :, r, :h] if sign > 0 else limb.neg(y[:, :, r, :h])
+    kernels.reset_counts()
+    got = kernels.reduce_lanes((x, y, z))
+    assert kernels.counts()["reduce_lanes"] == 1
+    assert all(g.shape == (16, batch, rows) for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, _tree_route((x, y, z))))
+    assert _same(got, kernels.reduce_lanes_plain((x, y, z)))
+
+
+@pytest.mark.cuda
+def test_cuda_prove_assembles_and_reduces_through_the_kernels():
+    """A 64bit prove on the card: golden bytes; assemble and reduce_lanes
+    launched, and no padd launch outside complete_square's two."""
+    import hashlib
+
+    from bulletproofspp_tpu_torch import engine_profile
+    from bulletproofspp_tpu_torch.core import range_proof as rpm
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    spec, setup, values = engine_profile._load("64bit")
+    eng = TorchEngine(_card())
+    kernels.reset_counts()
+    proof = rpm.prove(setup, values, spec.random_seed.encode(), eng)
+    _, proof_b = rpm.encode_proof(setup, proof)
+    assert hashlib.sha256(proof_b).hexdigest() == (
+        "fe39faef84b016b82b017a4ef07ba3f31c5237b0f79c0653376c86f5dbba8c5d")
+    counts = kernels.counts()
+    assert counts["assemble"] > 0 and counts["reduce_lanes"] > 0
+    assert counts["padd"] == 2 * counts["pneg"]

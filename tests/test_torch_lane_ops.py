@@ -263,10 +263,12 @@ class _Guard:
 
 def test_prove_and_verify_on_the_cpu_reach_the_four_wrappers(monkeypatch):
     """A 64bit prove and verify on TorchEngine("cpu") through counting stubs
-    on kernels.select_small, endo, pneg and normalize3: each is reached (no
+    on kernels.select_small, endo, pneg and normalize3 (and assemble, which
+    interleaves msm_many's [P, phi(P)] lanes itself): each is reached (no
     call site runs the plain limb functions directly), the bytes stay
-    golden and the proof verifies."""
-    reached = {name: 0 for name in ("select_small", "endo", "pneg", "normalize3")}
+    golden and the proof verifies; the verify's MSM selects, interleaves
+    (in assemble) and normalizes again."""
+    reached = {name: 0 for name in ("select_small", "endo", "pneg", "normalize3", "assemble")}
     for name in reached:
         inner = getattr(kernels, name)
 
@@ -284,7 +286,7 @@ def test_prove_and_verify_on_the_cpu_reach_the_four_wrappers(monkeypatch):
     proved = dict(reached)
     assert rpm.verify(setup, rpm.decode_proof(setup, coms_b, proof_b, engine=eng), eng)
     assert all(proved.values()), proved
-    assert all(reached[k] > proved[k] for k in ("select_small", "endo", "normalize3")), reached
+    assert all(reached[k] > proved[k] for k in ("select_small", "assemble", "normalize3")), reached
 
 
 @pytest.mark.cuda

@@ -143,15 +143,58 @@ def test_a_kernel_named_like_a_runtime_call_still_counts():
     assert by_wrapper(by_kernel)["library"] == [20.0 / 1e3, 2]
 
 
-def test_plain_versions_swaps_the_wrappers_for_the_block():
+@pytest.mark.parametrize("names", [("select_small", "endo", "pneg", "normalize3"),
+                                   ("assemble", "reduce_lanes")])
+def test_plain_versions_swaps_the_wrappers_for_the_block(names):
     """engine_profile.plain_versions: inside the block kernels.NAME is
     NAME_plain, after it (also after an error) the wrapper again."""
     from bulletproofspp_tpu_torch.ops import kernels
 
-    names = ("select_small", "endo", "pneg", "normalize3")
     wrappers = {name: getattr(kernels, name) for name in names}
     with pytest.raises(RuntimeError):
         with engine_profile.plain_versions(names):
             assert all(getattr(kernels, n) is getattr(kernels, f"{n}_plain") for n in names)
             raise RuntimeError
     assert {name: getattr(kernels, name) for name in names} == wrappers
+
+
+def test_plain_names_are_accepted_on_the_command_line():
+    """``--plain assemble --plain reduce_lanes`` parse (every kernel of
+    KERNELS is a choice); without a card the run then stops before it
+    profiles anything."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("runs the whole profile where a card is present")
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        engine_profile.main(["--plain", "assemble", "--plain", "reduce_lanes"])
+    with pytest.raises(SystemExit):
+        engine_profile.main(["--plain", "no_such_kernel"])
+
+
+def test_the_plain_route_of_the_two_reaches_their_plain_versions(monkeypatch):
+    """Inside ``plain_versions(("assemble", "reduce_lanes"))`` the engine's
+    assembly and the small MSMs' lane tree call assemble_plain and
+    reduce_lanes_plain (looked up at call time), and a 64bit prove on
+    TorchEngine("cpu") keeps its golden bytes."""
+    import hashlib
+
+    from bulletproofspp_tpu_torch.core import range_proof as rpm
+    from bulletproofspp_tpu_torch.ops import kernels
+    from bulletproofspp_tpu_torch.ops.engine import TorchEngine
+
+    reached = {"assemble_plain": 0, "reduce_lanes_plain": 0}
+    for name in reached:
+        inner = getattr(kernels, name)
+
+        def counted(*a, _inner=inner, _name=name, **k):
+            reached[_name] += 1
+            return _inner(*a, **k)
+
+        monkeypatch.setattr(kernels, name, counted)
+    spec, setup, values = engine_profile._load("64bit")
+    with engine_profile.plain_versions(("assemble", "reduce_lanes")):
+        proof = rpm.prove(setup, values, spec.random_seed.encode(), TorchEngine("cpu"))
+    assert hashlib.sha256(rpm.encode_proof(setup, proof)[1]).hexdigest() == (
+        "fe39faef84b016b82b017a4ef07ba3f31c5237b0f79c0653376c86f5dbba8c5d")
+    assert all(reached.values()), reached
