@@ -315,12 +315,22 @@ def normalize3(n: int):
 def assemble(n_in: int, n_out: int, interleave: bool):
     """The segments' n_in lanes read once and the n_out output lanes (the
     identity pads included) written once; with ``interleave`` one product
-    beta x a lane read.  The segment table (a few KB) is left out."""
+    beta x a lane read.  The segment table travels in the launch's
+    parameters, not through device memory."""
     return (n_in * FE_MUL if interleave else 0), (n_in + n_out) * PT_BYTES
 
 
-def reduce_lanes(batch: int, rows: int, L: int):
-    """(L - 1) additions a (MSM, row) pair; its L lanes in, its sum out."""
+def reduce_lanes(absd, sgn):
+    """The fused select and lane tree: (L - 1) additions a (MSM, row) pair;
+    the table entries its digits select (``_selected_bytes``, as
+    ``select_small``) and the digits in, its sum out."""
+    batch, rows, L = absd.shape
+    ops = batch * rows * (L - 1) * PT_ADD
+    return ops, _selected_bytes(absd, sgn) + absd.numel() * 16 + batch * rows * PT_BYTES
+
+
+def reduce_lanes_tree(batch: int, rows: int, L: int):
+    """The tree alone: its L selected lanes a pair in, its sum out."""
     return batch * rows * (L - 1) * PT_ADD, batch * rows * (L + 1) * PT_BYTES
 
 

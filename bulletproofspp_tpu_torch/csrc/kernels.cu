@@ -4,7 +4,8 @@
 // each replace one Pallas TPU kernel of bulletproofspp_tpu/ops/pallas_field.py;
 // fold replaces the XLA fold_mul_kernel of bulletproofspp_tpu/ops/msm.py,
 // fold_many its vmap over the provers of a lockstep batch, and reduce_lanes
-// the XLA lane tree of its MSMs under 128 lanes (_reduce_lanes).
+// the XLA table select and lane tree of its MSMs under 128 lanes (the
+// one-hot select and _reduce_lanes, one program there and one launch here).
 // All keep the contract: (16, N) int64 planes of 16-bit limbs, strict limbs
 // in and out, projective (X:Y:Z) with identity (0:1:0).  Built by
 // ops/kernels.py with nvcc into a shared library with a plain C interface;
@@ -29,7 +30,9 @@
 // thread's additions, so (below a lane count, or always for reduce_lanes)
 // they run each addition on a group of kNarrowGroup threads
 // (curve_warp.cuh; reduce_block and reduce_lanes by the levels of their
-// halving trees, so an output lane waits on log2 F additions, not F - 1)
+// halving trees, so an output lane waits on log2 F additions, not F - 1;
+// reduce_lanes hands a level's sums on through registers, shuffles and
+// named barriers instead of block-wide barriers)
 // and keep the one-thread body for wide calls; and select_reduce, whose digit-chosen
 // reads cost more than its adds until its lanes' tables stay close for all
 // rows: in shared memory, or in L2 (below).
@@ -199,67 +202,96 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// --- reduce_lanes: replaces _reduce_lanes (bulletproofspp_tpu/ops/msm.py:81),
-// which XLA fuses into the jitted msm_kernel of MSMs under 128 lanes.  Input
-// (16, B, rows, L) selected entries (select_small's output), L a power of
-// two under 128; output (16, B, rows) row sums for horner.  The tree is the
-// one the padd kernel ran level by level (pair q's lane t plus lane t + h,
-// h = L / 2, L / 4, ..., 1), so the words equal that route's; the JAX
-// package's radix-8 order adds other pairs (equal after affine conversion).
+// --- reduce_lanes: replaces msm_kernel under 128 lanes up to its Horner
+// step (bulletproofspp_tpu/ops/msm.py:105-184): the one-hot select of
+// msm._table's entries (:140-156) and _reduce_lanes (:81, :176), which XLA
+// compiles into one program.  Input: table_flat's flat tables of B L lanes
+// and the (B, rows, L) digits, L a power of two under 128; output (16, B,
+// rows) row sums for horner.  The first level gathers its two operands by
+// digit straight from the tables (X and Z entry |d|, Y entry |d| + 9 s:
+// select_small_kernel's words), so the selected points never reach device
+// memory.  With `from_tables` 0 it reads them from a (16, B, rows, L) plane
+// instead (the tree alone, for the smoke's comparison with select_small +
+// this tree).  The tree is the one the padd kernel ran level by level (pair
+// q's lane t plus lane t + h, h = L / 2, L / 4, ..., 1), so the words equal
+// select_small + that route's; the JAX package's radix-8 order adds other
+// pairs (equal after affine conversion).
 //
-// What bounds it: the latency of log2 L dependent additions (4-6), far from
-// the multiplies and the bytes (at most 130 x 33 x 64 lanes, 105 MB).  The
-// eager route took log2 L padd launches, each after a copy of the halves.
-// Design, reduce_block_narrow_kernel's: a block carries `per` = max(1, 32 /
-// L) (MSM, row) pairs, so its first level has at least kNarrowLanes
-// additions; each addition of a level runs on a group of kNarrowGroup
-// threads (pt_add_warp<8>: 2 rounds of 6 products), the first level reads
-// its operands from device memory, each level leaves its sums in shared
-// memory (pair p's sum t in slot p L / 2 + t; addition t reads slots t and
-// t + h and writes slot t, which no other addition of its level touches),
-// and the last level's groups store the row sums (fe_store_group).  A
-// level's additions sit on the first groups; a warp with none skips it on
-// a uniform branch, and in a warp with some a group past the last one
-// repeats the last addition and stores nothing (every thread takes part in
-// the shuffles).
-constexpr int kLaneSlots = 32;  // points of shared memory: per * L / 2 <= 32 for L < 128
-
-__global__ void __launch_bounds__(kThreads)
-    reduce_lanes_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
-                        const int64_t* __restrict__ z, int64_t* __restrict__ ox,
-                        int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t pairs,
-                        int L) {
-  __shared__ Pt slot[kLaneSlots];
-  const int per = L < 32 ? 32 / L : 1, half = L / 2;
-  const int g = threadIdx.x / kNarrowGroup, first = threadIdx.x / 32 * (32 / kNarrowGroup);
-  const int64_t n = pairs * L;
-  for (int64_t q0 = blockIdx.x * (int64_t)per; q0 < pairs; q0 += (int64_t)gridDim.x * per) {
-    for (int h = half; h >= 1; h /= 2) {
-      const int adds = per * h;
-      for (int a0 = 0; a0 < adds; a0 += kNarrowLanes) {
-        if (a0 + first < adds) {  // uniform over the warp
-          const int a = a0 + g < adds ? a0 + g : adds - 1;
-          const int p = a / h, t = a % h;
-          const int64_t q = q0 + p < pairs ? q0 + p : pairs - 1;
-          Pt s;
-          if (h == half) {
-            s = pt_add_warp<kNarrowGroup>(pt_load(x, y, z, n, q * L + t),
-                                          pt_load(x, y, z, n, q * L + t + h));
-          } else {
-            const Pt u = slot[p * half + t], v = slot[p * half + t + h];
-            s = pt_add_warp<kNarrowGroup>(u, v);
-          }
-          if (a0 + g < adds && h > 1) {
-            slot[p * half + t] = s;  // the 8 threads of a group write the same words
-          } else if (a0 + g < adds && q0 + p < pairs) {
-            int64_t* const dst[3] = {ox, oy, oz};
-            const Fe v[3] = {s.x, s.y, s.z};
-            fe_store_group<kNarrowGroup>(dst, v, pairs, q0 + p);
-          }
-        }
+// What bounds it: the latency of log2 L dependent additions (1-6 levels of
+// 2 product rounds), far from the multiplies and the bytes.  Each level
+// costs one addition's latency on a warp (~2.6 us on the H100 at B = 2, L =
+// 32); the design removes what a tree by levels through shared memory and
+// block-wide barriers adds on top of it, and the selected points' round
+// trip through device memory:
+//  * one (MSM, row) pair a block from L = 8 (L / 2 groups of kNarrowGroup
+//    threads, 4 L threads), 8 / L pairs in one warp below: all of a pair's
+//    first-level additions at once, and as many blocks as pairs (66 at B =
+//    2, 33 rows: half the SMs; more pairs a block would leave SMs idle);
+//  * the first level loads both operands' 96 limbs (after the 4 digits) and
+//    only then starts its first product;
+//  * a level's sum stays in its group's registers: of each addition's two
+//    operands the first is the group's own sum, the second comes from the
+//    group h above: through shared memory and a named barrier over the
+//    warps that still take part (bar.sync with their count) where that
+//    group is in another warp (h >= 4 groups), by __shfl_down_sync where it
+//    is in the same warp (the last two levels).  Warps whose groups are done
+//    leave; no level waits on a block-wide __syncthreads.
+// `levels` < log2 L stops after that many levels and stores each pair's
+// lane-0 partial sum (the smoke's per-level timing).
+template <int L>
+__global__ void __launch_bounds__(L >= 8 ? 4 * L : 32)
+    reduce_lanes_kernel(const int64_t* __restrict__ tx, const int64_t* __restrict__ ty2,
+                        const int64_t* __restrict__ tz, const int64_t* __restrict__ absd,
+                        const int64_t* __restrict__ sgn, int64_t* __restrict__ ox,
+                        int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch,
+                        int64_t rows, int levels, int from_tables) {
+  constexpr int half = L / 2, per = L >= 8 ? 1 : 8 / L;  // groups a pair, pairs a block
+  __shared__ Pt slot[half >= 8 ? half : 1];
+  const int g = threadIdx.x / kNarrowGroup, p = g / half, t = g % half;
+  const int wfirst = threadIdx.x / 32 * (32 / kNarrowGroup);  // the warp's first group
+  const int64_t pairs = batch * rows, q = blockIdx.x * (int64_t)per + p;
+  const int64_t qc = q < pairs ? q : pairs - 1;  // a pair past the last repeats it
+  Pt a, b;  // the level's two operands: the group's own sum and the one h groups above
+  if (from_tables) {
+    const int64_t n = batch * L, c = (qc / rows) * L + t, j = qc * L + t;
+    const int64_t d0 = absd[j], s0 = sgn[j], d1 = absd[j + half], s1 = sgn[j + half];
+    a = table_entry(tx, ty2, tz, n, c, d0, s0);
+    b = table_entry(tx, ty2, tz, n, c + half, d1, s1);
+  } else {
+    const int64_t m = pairs * L, j = qc * L + t;
+    a = pt_load(tx, ty2, tz, m, j);
+    b = pt_load(tx, ty2, tz, m, j + half);
+  }
+  // Not unrolled: one copy of the addition's code for every level, so a
+  // level after the first runs from a warm instruction cache (unrolled,
+  // each level's copy was fetched cold: 8-10 us a level on the H100).
+  Pt s;
+#pragma unroll 1
+  for (int h = half, level = 1;; h /= 2, level++) {
+    s = pt_add_warp<kNarrowGroup>(a, b);
+    if (h == 1 || level == levels) break;
+    const int hn = h / 2;
+    if (hn >= 4) {  // the partner group is in another warp (per == 1 here)
+      if (wfirst >= 2 * hn) return;  // done at an earlier level
+      if (t >= hn) slot[t] = s;  // the 8 threads of a group write the same words
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + level), "r"(16 * hn) : "memory");
+      if (t >= hn) return;  // whole warps: hn is a multiple of a warp's 4 groups
+      b = slot[t + hn];
+    } else {  // in this warp: every thread takes part in the shuffles
+      if (wfirst >= 4) return;
+#pragma unroll
+      for (int k = 0; k < 8; k++) {
+        b.x.w[k] = __shfl_down_sync(0xffffffffu, s.x.w[k], kNarrowGroup * hn);
+        b.y.w[k] = __shfl_down_sync(0xffffffffu, s.y.w[k], kNarrowGroup * hn);
+        b.z.w[k] = __shfl_down_sync(0xffffffffu, s.z.w[k], kNarrowGroup * hn);
       }
-      __syncthreads();  // every write of this level before the next reads
     }
+    a = s;
+  }
+  if (t == 0 && q < pairs) {
+    int64_t* const dst[3] = {ox, oy, oz};
+    const Fe v[3] = {s.x, s.y, s.z};
+    fe_store_group<kNarrowGroup>(dst, v, pairs, q);
   }
 }
 
@@ -623,14 +655,34 @@ int bppp_reduce_block(const int64_t* x, const int64_t* y, const int64_t* z, int6
 }
 
 // pairs: B rows (MSM, row) pairs of L lanes each, 2 <= L < 128 a power of two.
-int bppp_reduce_lanes(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* ox,
-                      int64_t* oy, int64_t* oz, int64_t pairs, int64_t L, void* stream) {
-  if (L < 2 || L >= 128 || (L & (L - 1))) return (int)cudaErrorInvalidValue;
-  if (pairs > 0) {
-    const int per = L < 32 ? 32 / (int)L : 1;
-    reduce_lanes_kernel<<<blocks_for(pairs, per), kThreads, 0, (cudaStream_t)stream>>>(
-        x, y, z, ox, oy, oz, pairs, (int)L);
+// tx, ty2, tz: the flat tables of batch L lanes and absd, sgn the (batch,
+// rows, L) digits; with from_tables 0, tx, ty2, tz the (16, batch rows L)
+// selected planes and absd, sgn unused.  levels: log2 L for the row sums.
+int bppp_reduce_lanes(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
+                      const int64_t* absd, const int64_t* sgn, int64_t* ox, int64_t* oy,
+                      int64_t* oz, int64_t batch, int64_t rows, int64_t L, int64_t levels,
+                      int from_tables, void* stream) {
+  if (L < 2 || L >= 128 || (L & (L - 1)) || levels < 1 || batch < 0 || rows < 0) {
+    return (int)cudaErrorInvalidValue;
   }
+  const int64_t pairs = batch * rows, per = L >= 8 ? 1 : 8 / L;  // one block each `per` pairs
+  if (pairs == 0) return (int)cudaGetLastError();
+  if ((pairs + per - 1) / per > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)((pairs + per - 1) / per);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int lv = (int)(levels < 64 ? levels : 64);
+#define BPPP_REDUCE_LANES(N)                                                                   \
+  reduce_lanes_kernel<N><<<blocks, N >= 8 ? 4 * N : 32, 0, s>>>(tx, ty2, tz, absd, sgn, ox, oy, \
+                                                              oz, batch, rows, lv, from_tables)
+  switch (L) {
+    case 2: BPPP_REDUCE_LANES(2); break;
+    case 4: BPPP_REDUCE_LANES(4); break;
+    case 8: BPPP_REDUCE_LANES(8); break;
+    case 16: BPPP_REDUCE_LANES(16); break;
+    case 32: BPPP_REDUCE_LANES(32); break;
+    default: BPPP_REDUCE_LANES(64); break;
+  }
+#undef BPPP_REDUCE_LANES
   return (int)cudaGetLastError();
 }
 

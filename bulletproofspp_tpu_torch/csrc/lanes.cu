@@ -1,8 +1,10 @@
 // lanes: the small lane-wise device functions of the main paths, which the
 // JAX package compiles into its device programs (XLA, no Pallas):
-//  * select_small_kernel replaces msm_kernel's table select under 1,024
-//    lanes, msm._table's entries picked by digit (bulletproofspp_tpu/ops/
-//    msm.py:145-156, onehot_select): entry |d| of X and Z, |d| + 9 s of Y;
+//  * select_small_kernel replaces msm_kernel's table select from 128 to
+//    1,023 lanes, msm._table's entries picked by digit (bulletproofspp_tpu/
+//    ops/msm.py:145-156, onehot_select): entry |d| of X and Z, |d| + 9 s of
+//    Y (under 128 lanes reduce_lanes_kernel, csrc/kernels.cu, selects the
+//    same words itself);
 //  * endo_kernel replaces curve.endo (bulletproofspp_tpu/ops/curve.py:251),
 //    phi(x, y, z) = (beta x, y, z), and with `interleave` the engine's
 //    _interleave_endo (bulletproofspp_tpu/ops/engine.py:119): [P_j, phi(P_j)]
@@ -19,8 +21,10 @@
 //    (:97-117) and _split3 (:147): every entry's segments (slices of base
 //    vectors, any strides) end to end, padded with the identity to L lanes,
 //    entries stacked, and with `interleave` [P_j, phi(P_j)] at lanes 2j and
-//    2j + 1, in one launch where the eager route took a slice, a concat, a
-//    pad (three fills and a concat) and a stack each, then an endo launch.
+//    2j + 1, in one launch (one a run of consecutive entries where the
+//    table outgrows a launch's parameters) where the eager route took a
+//    slice, a concat, a pad (three fills and a concat) and a stack each,
+//    then an endo launch.
 // Equal to ops/kernels.py: select_plain (word for word), endo_plain and
 // pneg_plain (after normalization), normalize3_plain (word for word) and
 // assemble_plain (word for word; the phi lanes after normalization, their
@@ -42,20 +46,31 @@
 // digits (B, rows, L) int64, |d| in 0..8 and s in {0, 1}.
 //
 // assemble's table: the segments' addresses and strides are known only on
-// the host, and a 130-entry oracle step has up to 520 segments (57 KB:
-// more than a launch's parameters hold), so the wrapper sends the table
-// in one small host-to-device copy of the call's own (a pinned buffer per
-// call, non-blocking on the launch's stream: the card does not wait, and
-// threads sharing an engine never share a buffer).  One thread a unit:
-// output lane u of an entry, or with `interleave` lanes 2u and 2u + 1;
-// neighbouring threads hold neighbouring lanes, so every limb row is
-// written in whole sectors and read in whole (stride 1) or half (stride 2)
-// sectors.  P lanes, the interleave's y and z, and the identity's limbs are
-// copied as they are; phi's x is fe_mul(x, beta), endo_kernel's words.
+// the host, so they travel in the launch itself: a __grid_constant__ struct
+// in parameter space (AssembleTable), read through the constant cache, with
+// no device buffer, no host-to-device copy and nothing whose lifetime must
+// outlast the enqueue.  The table is compact (32-bit strides, counts and
+// starts: 56 bytes a segment) and comes in three size tiers, so the
+// commonest call (2-3 segments, under 256 bytes) does not push the largest
+// struct.  The largest is what the toolkit allows: 32,764 bytes of
+// parameters from CUDA 12.1 on (sm_70 and later), else 4,096; a call whose
+// table does not fit is split by the wrapper into launches over consecutive
+// entries, which are independent (ops/kernels.py: _assemble_launches; a
+// 130-entry oracle step of 4 groups an entry, ~520 segments, fits in one).
+// One thread a unit: output lane u of an entry, or with `interleave` lanes
+// 2u and 2u + 1; neighbouring threads hold neighbouring lanes, so every
+// limb row is written in whole sectors and read in whole (stride 1) or half
+// (stride 2) sectors.  A thread finds its segment among its entry's by the
+// starts and counts in the struct (the threads of a warp read the words of
+// one or a few entries: broadcasts), then issues all 48 limbs of its point before its
+// first store.  P lanes, the interleave's y and z, and the identity's limbs
+// are copied as they are; phi's x is fe_mul(x, beta), endo_kernel's words.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
+#include <cstring>
 
 #include "field.cuh"
 
@@ -76,6 +91,11 @@ __device__ __forceinline__ Fe fe_beta() {
 #pragma unroll
   for (int k = 0; k < 8; k++) r.w[k] = w[k];
   return r;
+}
+
+int blocks_for(int64_t n) {
+  int64_t b = (n + kThreads - 1) / kThreads;
+  return (int)(b > 65535 * 16 ? 65535 * 16 : b);
 }
 
 __device__ __forceinline__ int64_t first_lane() {
@@ -149,73 +169,106 @@ __global__ void normalize3_kernel(const int64_t* __restrict__ x, const int64_t* 
   }
 }
 
-// assemble's table (ops/kernels.py: _assemble_table): entry e's segments
-// are rows start[e] .. start[e + 1] - 1 of kSegWords int64 each, after the
-// n_entries + 1 starts: x, y and z addresses (the segment's first lane),
-// their row strides, their lane strides (elements), the lane count and the
-// segment's first lane in its entry.
-constexpr int kSegWords = 11;  // ops/kernels.py: SEG_WORDS
+// assemble's table (ops/kernels.py: _assemble_launches packs it), bytes
+// of a little-endian image: int32 start[n_entries + 1] (entry e's segments
+// are start[e] .. start[e + 1] - 1 of this launch), padded to 8 bytes,
+// then one Seg a segment.
+struct Seg {
+  const int64_t* c[3];   // the first lane's limb 0 of x, y and z
+  int32_t rs[3], ls[3];  // their row and lane strides, in elements
+  int32_t n, first;      // lanes, and the first one's lane in its entry
+};
+static_assert(sizeof(Seg) == 56, "ops/kernels.py: _SEG");
 
-// Output entry e = s K + k of the S (16, K, L) outputs lies at s 16 K L + k L,
+#if CUDART_VERSION >= 12010
+constexpr int kParamLimit = 32764;  // kernel parameters from CUDA 12.1 (sm_70 and later)
+#else
+constexpr int kParamLimit = 4096;
+#endif
+
+// The launch's one parameter: outputs and shape, then the table.  Output
+// entry e = s K + k of the S (16, K, L) outputs lies at s 16 K L + k L,
 // limb rows K L apart.
-__global__ void assemble_kernel(const int64_t* __restrict__ table, int64_t* __restrict__ ox,
-                                int64_t* __restrict__ oy, int64_t* __restrict__ oz,
-                                int64_t n_entries, int64_t K, int64_t L, int interleave) {
-  const int64_t w = interleave ? 2 : 1, units = L / w, row = K * L;
-  const int64_t* segs = table + n_entries + 1;
-  int64_t* const out[3] = {ox, oy, oz};
-  for (int64_t q = first_lane(); q < n_entries * units; q += lane_stride()) {
-    const int64_t e = q / units, u = q % units;
-    const int64_t base = (e / K) * kLimbs * row + (e % K) * L + w * u;
-    const int64_t* seg = nullptr;
-    for (int64_t i = __ldg(table + e); i < __ldg(table + e + 1); i++) {
-      const int64_t* c = segs + kSegWords * i;
-      const int64_t first = __ldg(c + 10);
-      if (u >= first && u < first + __ldg(c + 9)) {
-        seg = c;
+template <int kBytes>
+struct AssembleTable {
+  int64_t* out[3];
+  int32_t entry0, n_entries, K, L, interleave, pad;
+  alignas(8) unsigned char bytes[kBytes];
+};
+constexpr int kHeader = sizeof(AssembleTable<8>) - 8;
+constexpr int kMaxTable = (kParamLimit - kHeader) / 8 * 8;  // ops/kernels.py: assemble_capacity
+constexpr int kTiers[3] = {256, 2048, kMaxTable};
+static_assert(sizeof(AssembleTable<kMaxTable>) <= kParamLimit, "parameter space");
+
+template <int kBytes>
+__global__ void __launch_bounds__(kThreads)
+    assemble_kernel(const __grid_constant__ AssembleTable<kBytes> t) {
+  const int64_t w = t.interleave ? 2 : 1, units = t.L / w, row = (int64_t)t.K * t.L;
+  const int32_t* start = reinterpret_cast<const int32_t*>(t.bytes);
+  const Seg* segs = reinterpret_cast<const Seg*>(t.bytes + ((t.n_entries + 1) * 4 + 7) / 8 * 8);
+  for (int64_t q = first_lane(); q < t.n_entries * units; q += lane_stride()) {
+    const int64_t el = q / units, u = q % units, e = t.entry0 + el;
+    const int64_t base = (e / t.K) * kLimbs * row + (e % t.K) * t.L + w * u;
+    int s = -1;
+    for (int i = start[el]; i < start[el + 1]; i++) {
+      if (u >= segs[i].first && u < segs[i].first + segs[i].n) {
+        s = i;
         break;
       }
     }
-    if (seg == nullptr) {  // past the entry's segments: the identity (0 : 1 : 0)
+    if (s < 0) {  // past the entry's segments: the identity (0 : 1 : 0)
 #pragma unroll
       for (int i = 0; i < kLimbs; i++) {
-        for (int64_t t = 0; t < w; t++) {
-          ox[i * row + base + t] = 0;
-          oy[i * row + base + t] = i == 0;
-          oz[i * row + base + t] = 0;
+        for (int64_t k = 0; k < w; k++) {
+          t.out[0][i * row + base + k] = 0;
+          t.out[1][i * row + base + k] = i == 0;
+          t.out[2][i * row + base + k] = 0;
         }
       }
       continue;
     }
-    const int64_t j = u - __ldg(seg + 10);
+    const Seg& g = segs[s];
+    const int64_t j = u - g.first;
+    // all 48 limbs in flight before the first store: the compiler cannot
+    // tell that a source never aliases an output, so a load after a store
+    // would wait for the one before it
+    int64_t v[3][kLimbs];
 #pragma unroll
     for (int c = 0; c < 3; c++) {
-      const int64_t* src = reinterpret_cast<const int64_t*>(__ldg(seg + c)) + j * __ldg(seg + 6 + c);
-      const int64_t rs = __ldg(seg + 3 + c);
-      // all 16 limbs in flight before the first store: the compiler cannot
-      // tell that src never aliases an output, so a load after a store
-      // would wait for the one before it
-      int64_t v[kLimbs];
+      const int64_t* src = g.c[c] + j * g.ls[c];
 #pragma unroll
-      for (int i = 0; i < kLimbs; i++) v[i] = src[i * rs];
+      for (int i = 0; i < kLimbs; i++) v[c][i] = src[i * g.rs[c]];
+    }
+#pragma unroll
+    for (int c = 0; c < 3; c++) {
 #pragma unroll
       for (int i = 0; i < kLimbs; i++) {
-        out[c][i * row + base] = v[i];
-        if (interleave && c > 0) out[c][i * row + base + 1] = v[i];
+        t.out[c][i * row + base] = v[c][i];
+        if (t.interleave && c > 0) t.out[c][i * row + base + 1] = v[c][i];
       }
-      if (interleave && c == 0) {  // phi's x: fe_load's words, times beta
-        Fe x;
+    }
+    if (t.interleave) {  // phi's x: fe_load's words, times beta
+      Fe x;
 #pragma unroll
-        for (int k = 0; k < 8; k++) x.w[k] = ((u32)v[2 * k] & 0xffffu) | ((u32)v[2 * k + 1] << 16);
-        fe_store(ox + 1, row, base, fe_mul(x, fe_beta()));
+      for (int k = 0; k < 8; k++) {
+        x.w[k] = ((u32)v[0][2 * k] & 0xffffu) | ((u32)v[0][2 * k + 1] << 16);
       }
+      fe_store(t.out[0] + 1, row, base, fe_mul(x, fe_beta()));
     }
   }
 }
 
-int blocks_for(int64_t n) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  return (int)(b > 65535 * 16 ? 65535 * 16 : b);
+template <int kBytes>
+int launch_assemble(const void* table, int64_t bytes, int64_t* ox, int64_t* oy, int64_t* oz,
+                    int64_t entry0, int64_t n_entries, int64_t K, int64_t L, int interleave,
+                    cudaStream_t stream, int64_t units) {
+  AssembleTable<kBytes> t;
+  t.out[0] = ox, t.out[1] = oy, t.out[2] = oz;
+  t.entry0 = (int32_t)entry0, t.n_entries = (int32_t)n_entries, t.K = (int32_t)K;
+  t.L = (int32_t)L, t.interleave = interleave, t.pad = 0;
+  std::memcpy(t.bytes, table, bytes);
+  assemble_kernel<kBytes><<<blocks_for(units), kThreads, 0, stream>>>(t);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -253,17 +306,29 @@ int bppp_normalize3(const int64_t* x, const int64_t* y, const int64_t* z, int64_
   return (int)cudaGetLastError();
 }
 
-// table: the call's segment table on the card (assemble_kernel); the
-// outputs: S = n_entries / K (16, K, L) planes of each coordinate.
-int bppp_assemble(const int64_t* table, int64_t* ox, int64_t* oy, int64_t* oz, int64_t n_entries,
-                  int64_t K, int64_t L, int interleave, void* stream) {
-  if (K < 1 || n_entries % K || L < 0 || (interleave && L % 2)) return (int)cudaErrorInvalidValue;
-  const int64_t units = n_entries * (interleave ? L / 2 : L);
-  if (units > 0) {
-    assemble_kernel<<<blocks_for(units), kThreads, 0, (cudaStream_t)stream>>>(
-        table, ox, oy, oz, n_entries, K, L, interleave);
+// The bytes of segment table one launch carries (the largest tier).
+int64_t bppp_assemble_capacity() { return kMaxTable; }
+
+// table: `bytes` of this launch's segment table on the host (AssembleTable's
+// layout), copied into the launch's
+// parameter struct of the smallest tier that holds it; the launch writes
+// entries entry0 .. entry0 + n_entries - 1 of the S (16, K, L) planes of
+// each coordinate.
+int bppp_assemble(const void* table, int64_t bytes, int64_t* ox, int64_t* oy, int64_t* oz,
+                  int64_t entry0, int64_t n_entries, int64_t K, int64_t L, int interleave,
+                  void* stream) {
+  if (K < 1 || entry0 < 0 || n_entries < 0 || L < 0 || (interleave && L % 2) || bytes < 0 ||
+      bytes > kMaxTable || entry0 + n_entries > INT32_MAX || K > INT32_MAX || L > INT32_MAX) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const int64_t units = n_entries * (interleave ? L / 2 : L);
+  if (units == 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+#define BPPP_ASSEMBLE(B) \
+  launch_assemble<B>(table, bytes, ox, oy, oz, entry0, n_entries, K, L, interleave, s, units)
+  return bytes <= kTiers[0] ? BPPP_ASSEMBLE(kTiers[0])
+       : bytes <= kTiers[1] ? BPPP_ASSEMBLE(kTiers[1]) : BPPP_ASSEMBLE(kTiers[2]);
+#undef BPPP_ASSEMBLE
 }
 
 }  // extern "C"

@@ -14,7 +14,8 @@ and ``verify``.  Then one prove and one verify of each run under
 ``torch.profiler``: the device time of each kernel, their sum, the device
 time and launches of each wrapper of ``ops.kernels`` (``by_wrapper``, with
 ``"library"``: the kernels no wrapper launches, PyTorch's own operators),
-whether the profile holds every launch of the port's kernels, and the
+the memory copies by kind, ms and count (``copies``: host-to-device,
+pinned or pageable, and device-to-host), whether the profile holds every launch of the port's kernels, and the
 device's idle share against the wall time of the same call without the
 profiler.
 
@@ -344,7 +345,8 @@ def _profile_call(label, fn):
     the device seconds, the idle share against the timed wall, the eight
     kernels with the most device time, the device ms and launches by
     wrapper (``by_wrapper``), the four library kernels launched most, the
-    port's launches and whether the profile holds them all."""
+    memory copies by kind (``copies``), the port's launches and whether the
+    profile holds them all."""
     fn()
     t0 = time.perf_counter()
     fn()
@@ -357,7 +359,7 @@ def _profile_call(label, fn):
             "device_idle_share": 1 - p["device_s"] / wall,
             "top_kernels_ms_launches": dict(list(every.items())[:8]),
             "by_wrapper": by_wrapper(every), "library_top": {k[:72]: v for k, v in library[:4]},
-            "launched": p["launched"], "complete": p["complete"]}
+            "copies": copies(every), "launched": p["launched"], "complete": p["complete"]}
 
 
 def profile_prove(name, eng):
@@ -420,6 +422,20 @@ def _owners(key: str) -> tuple:
     return () if key.startswith(("Memcpy", "Memset")) else ("library",)
 
 
+def copies(by_kernel: dict) -> dict:
+    """{kind: [ms, copies]} of the memory copies in a profile's kernels
+    (``device_time``'s keys), which ``by_wrapper`` leaves out: "HtoD
+    (Pinned -> Device)", "HtoD (Pageable -> Device)", "DtoH (Device ->
+    Pageable)", ..."""
+    out = {}
+    for key, (ms, n) in by_kernel.items():
+        if key.startswith("Memcpy "):
+            acc = out.setdefault(key[len("Memcpy "):], [0.0, 0])
+            acc[0] = round(acc[0] + ms, 4)
+            acc[1] += n
+    return out
+
+
 def by_wrapper(by_kernel: dict) -> dict:
     """{kernel: [ms, launches]} (``device_time``'s keys) -> {wrapper of
     ``ops.kernels``: [ms, launches]} (``wrappers_of``), and under
@@ -473,7 +489,9 @@ def device_time(prof, top: int | None = 8):
         if dev_us is None:
             dev_us = ev.self_cuda_time_total
         if dev_us > 0 and ev.device_type == DeviceType.CUDA and ev.key != PROFILER_OVERHEAD:
-            key = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+            key = ev.key.replace("(anonymous namespace)::", "")
+            if not key.startswith(("Memcpy", "Memset")):  # a copy's key keeps its kind
+                key = key.split("(")[0]
             per[key] += dev_us
             launches[key] += ev.count
     largest = {k: [round(v / 1e3, 4), launches[k]] for k, v in per.most_common(top)}

@@ -15,16 +15,17 @@ and inv and to_affine (``limb.inv`` / ``batch_inv`` and
 ``curve.to_affine``, the affine conversion of ``fold_bases`` and
 ``shared_mul``), and the four lane-wise functions of ``csrc/lanes.cu``
 that every prove and verify runs: select_small (the table select of MSMs
-under 1,024 lanes), endo (GLV's phi, and the engine's [P, phi(P)]
+of 128 to 1,023 lanes), endo (GLV's phi, and the engine's [P, phi(P)]
 interleave), pneg and normalize3 (before each device-to-host copy of a
 result), and the two device programs the JAX package compiles around
 its MSMs and folds: assemble (the oracle step's entry assembly,
 ``_assemble_many_body`` / ``_assemble_fold`` of
 ``bulletproofspp_tpu/ops/engine.py``: slices, concatenation, identity
 padding, stacking and the [P, phi(P)] interleave in one launch, also
-``csrc/lanes.cu``) and reduce_lanes (the lane tree of MSMs under 128
-lanes, ``_reduce_lanes`` of ``bulletproofspp_tpu/ops/msm.py``, in
-``csrc/kernels.cu``).  Each
+``csrc/lanes.cu``; its segment table by value in the launch) and
+reduce_lanes (the table select and lane tree of MSMs under 128 lanes, the
+one-hot select and ``_reduce_lanes`` of ``bulletproofspp_tpu/ops/msm.py``,
+in ``csrc/kernels.cu``).  Each
 keeps the contract at the boundary:
 (16, N) int64 planes of 16-bit limbs, strict in and out (``ops.limb``);
 multiple tables are flat, entry e and limb i of lane j at row 16 e + i
@@ -142,10 +143,13 @@ KERNELS = {
                "bulletproofspp_tpu/ops/curve.py:87", ("pneg_kernel",)),
         Kernel("normalize3", "lanes.cu", "bppp_normalize3", [_P] * 4 + [_I64, _P],
                "bulletproofspp_tpu/ops/curve.py:124", ("normalize3_kernel",)),
-        Kernel("assemble", "lanes.cu", "bppp_assemble", [_P] * 4 + [_I64] * 3 + [_I32, _P],
+        Kernel("assemble", "lanes.cu", "bppp_assemble",
+               [_P, _I64] + [_P] * 3 + [_I64] * 4 + [_I32, _P],
                "bulletproofspp_tpu/ops/engine.py:186 (and :159)", ("assemble_kernel",)),
-        Kernel("reduce_lanes", "kernels.cu", "bppp_reduce_lanes", [_P] * 6 + [_I64, _I64, _P],
-               "bulletproofspp_tpu/ops/msm.py:81", ("reduce_lanes_kernel",)),
+        Kernel("reduce_lanes", "kernels.cu", "bppp_reduce_lanes",
+               [_P] * 8 + [_I64] * 4 + [_I32, _P],
+               "bulletproofspp_tpu/ops/msm.py:81 (and the select, :140-156)",
+               ("reduce_lanes_kernel",)),
         Kernel("sr_variant", "tools.cu", "bppp_sr_variant", [_P] * 8 + [_I64] * 4 + [_I32, _P],
                "tools/r5_experiments.py:115", ("sr_variant_kernel",)),
         Kernel("grid_copy", "tools.cu", "bppp_grid_copy", [_P] * 2 + [_I64] * 3 + [_P],
@@ -251,6 +255,8 @@ def lib() -> dict:
                 fn = getattr(libs[k.source], k.entry)
                 fn.argtypes = k.argtypes
                 fn.restype = ctypes.c_int
+            libs["lanes.cu"].bppp_assemble_capacity.argtypes = []
+            libs["lanes.cu"].bppp_assemble_capacity.restype = ctypes.c_int64
             _state["libs"] = libs
         return _state["libs"]
 
@@ -815,7 +821,7 @@ def to_affine(x, y, z):
 
 # ---------------------------------------------------------------------------
 # 9c. the lane-wise functions of the main paths (``csrc/lanes.cu``): the table
-# select of MSMs under 1,024 lanes, endo, pneg and normalize3
+# select of MSMs of 128 to 1,023 lanes, endo, pneg and normalize3
 # ---------------------------------------------------------------------------
 
 
@@ -960,57 +966,106 @@ def assemble_plain(outputs, L: int, interleave: bool = False):
     return res
 
 
-# int64 words a segment takes in assemble's table (csrc/lanes.cu: kSegWords)
-SEG_WORDS = 11
+# assemble's segment table travels by value in the launch (csrc/lanes.cu:
+# AssembleTable): int32 starts, then one 56-byte record a segment (Seg).
+# The library copies it into the smallest of its struct sizes that holds it
+# (csrc/lanes.cu: kTiers); the largest is assemble_capacity().
+_SEG = np.dtype([("c", "<i8", (3,)), ("rs", "<i4", (3,)), ("ls", "<i4", (3,)), ("n", "<i4"),
+                 ("first", "<i4")])
+
+def assemble_capacity() -> int:
+    """Bytes of segment table one assemble launch carries (csrc/lanes.cu:
+    kMaxTable): 32,712 where the library was built by CUDA 12.1 or later
+    (32,764 bytes of kernel parameters), else 4,048."""
+    return int(lib()["lanes.cu"].bppp_assemble_capacity())
 
 
-def _assemble_table(outputs, units: int) -> np.ndarray:
-    """assemble's table: S K + 1 segment starts (entry e's segments are rows
-    start[e] .. start[e + 1] - 1), then SEG_WORDS int64 a segment: its x, y
-    and z addresses (first lane included), their row strides and lane
-    strides in elements, its lane count and its first lane in the entry.
-    Raises unless every entry's segments fit in ``units`` lanes."""
-    starts, rows = [0], []
-    for entries in outputs:
-        for segs in entries:
-            off = 0
-            for seg in segs:
-                n = seg[0].shape[-1]
-                if any(c.dim() != 2 or c.shape[-1] != n for c in seg):
+def _assemble_segments(outputs, units: int) -> list:
+    """Each entry's segments, entries in order (output s's entry k is entry
+    s K + k): lists of (x, y, z addresses (the first lane's), row strides,
+    lane strides, lane count, first lane in the entry); segments of no lanes
+    are left out.  Raises unless every entry's segments fit in ``units``
+    lanes and every stride and count fits 32 bits."""
+    entries = []
+    for out in outputs:
+        for segs in out:
+            off, rows = 0, []
+            for x, y, z in segs:
+                n = x.shape[-1]
+                if x.dim() != 2 or y.dim() != 2 or z.dim() != 2 or y.shape[-1] != n \
+                        or z.shape[-1] != n:
                     raise ValueError("assemble: a segment's x, y and z must be (16, n) planes")
                 if n:
-                    rows.append([c.data_ptr() for c in seg] + [c.stride(0) for c in seg]
-                                + [c.stride(1) for c in seg] + [n, off])
+                    (rx, lx), (ry, ly), (rz, lz) = x.stride(), y.stride(), z.stride()
+                    if max(rx, ry, rz, lx, ly, lz, off + n) >= 1 << 31:
+                        raise ValueError("assemble: a stride or a lane count past 32 bits")
+                    rows.append(((x.data_ptr(), y.data_ptr(), z.data_ptr()), (rx, ry, rz),
+                                 (lx, ly, lz), n, off))
                 off += n
             if off > units:
                 raise ValueError(f"assemble: an entry of {off} lanes does not fit in {units}")
-            starts.append(len(rows))
-    return np.array(starts + [w for r in rows for w in r], dtype=np.int64)
+            entries.append(rows)
+    return entries
 
 
-def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A small host int64 array on ``dev`` without waiting on the card: a
-    pinned copy of its own (PyTorch's caching host allocator keeps it until
-    the copy has run), sent on ``dev``'s current stream."""
-    return torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
+def _table_bytes(n_entries: int, n_segs: int) -> int:
+    return (4 * (n_entries + 1) + 7) // 8 * 8 + n_segs * _SEG.itemsize
+
+
+def _pack_table(entries) -> np.ndarray:
+    """One launch's table (csrc/lanes.cu: AssembleTable.bytes) as int64
+    words: pairs of int32 starts, then each segment's record (``_SEG``'s
+    layout; every 32-bit field is non-negative, so a word is low | high <<
+    32).  Built from Python ints in one numpy call: the host's time a call
+    is most of a small launch's."""
+    starts = [0]
+    for rows in entries:
+        starts.append(starts[-1] + len(rows))
+    if len(starts) % 2:
+        starts.append(0)
+    words = [starts[i] | starts[i + 1] << 32 for i in range(0, len(starts), 2)]
+    for rows in entries:
+        for (x, y, z), rs, ls, n, first in rows:
+            words += (x, y, z, rs[0] | rs[1] << 32, rs[2] | ls[0] << 32, ls[1] | ls[2] << 32,
+                      n | first << 32)
+    return np.array(words, dtype=np.int64)
+
+
+def _assemble_launches(entries, capacity: int) -> list:
+    """The launches of one call: [(first entry, entry count, table)] over
+    consecutive entries, each table at most ``capacity`` bytes (one launch
+    where the whole call's fits)."""
+    if _table_bytes(len(entries), sum(len(rows) for rows in entries)) <= capacity:
+        return [(0, len(entries), _pack_table(entries))]
+    launches, first, n_segs = [], 0, 0
+    for e, rows in enumerate(entries):
+        if _table_bytes(1, len(rows)) > capacity:
+            raise ValueError(f"assemble: an entry of {len(rows)} segments outgrows a launch")
+        if _table_bytes(e + 1 - first, n_segs + len(rows)) > capacity:
+            launches.append((first, e - first, _pack_table(entries[first:e])))
+            first, n_segs = e, 0
+        n_segs += len(rows)
+    launches.append((first, len(entries) - first, _pack_table(entries[first:])))
+    return launches
 
 
 def assemble(outputs, L: int, interleave: bool = False):
-    """``assemble_plain`` on the card in one launch (csrc/lanes.cu:
-    assemble_kernel), equal to it word for word but for the phi lanes,
-    which equal ``endo``'s words (and the plain version's after
-    normalization).  The segments are read where they lie, whatever their
-    strides: a slice ``c[:, :n]`` or ``bv_split``'s ``c[:, 0::2]`` is
-    not copied first.  Their addresses and strides go to the kernel in a
-    table of this call's own (``_assemble_table``, one small host-to-device
-    copy a call), so threads that share an engine never share one.  The S
-    outputs are views of one (S, 16, K, L) allocation."""
+    """``assemble_plain`` on the card (csrc/lanes.cu: assemble_kernel), equal
+    to it word for word but for the phi lanes, which equal ``endo``'s words
+    (and the plain version's after normalization).  The segments are read
+    where they lie, whatever their strides: a slice ``c[:, :n]`` or
+    ``bv_split``'s ``c[:, 0::2]`` is not copied first.  Their addresses
+    and strides travel by value in the launch (``_assemble_launches``): no
+    pinned buffer, no host-to-device copy.  One launch a call, or one a run
+    of consecutive entries where the call's table outgrows
+    ``assemble_capacity()``.  The S outputs are views of one (S, 16, K, L)
+    allocation."""
     S, K = len(outputs), len(outputs[0]) if outputs else 0
     if S == 0 or K == 0 or any(len(entries) != K for entries in outputs):
         raise ValueError("assemble: every output needs the same number K >= 1 of entries")
     if L < 0 or (interleave and L % 2):
         raise ValueError(f"assemble: L = {L} lanes (even with interleave)")
-    table = _assemble_table(outputs, L // 2 if interleave else L)  # also checks the fit
+    entries = _assemble_segments(outputs, L // 2 if interleave else L)  # also checks the fit
     where = _segments_device(outputs)
     if where.type == "cpu":
         return assemble_plain(outputs, L, interleave)
@@ -1019,40 +1074,93 @@ def assemble(outputs, L: int, interleave: bool = False):
     out = tuple(torch.empty((S, limb.NLIMB, K, L), dtype=torch.int64, device=where)
                 for _ in range(3))
     if S * K * L:
-        tab = _to_device(table, dev)  # referenced until the launch is enqueued
-        _launch("assemble", f"S={S} K={K} L={L}{' interleave' if interleave else ''}", dev,
-                tab.data_ptr(), *_ptrs(*out), S * K, K, L, int(interleave))
+        shape = f"S={S} K={K} L={L}{' interleave' if interleave else ''}"
+        for first, count, table in _assemble_launches(entries, assemble_capacity()):
+            _launch("assemble", shape, dev, table.ctypes.data, table.nbytes, *_ptrs(*out),
+                    first, count, K, L, int(interleave))
     return [tuple(c[s] for c in out) for s in range(S)]
 
 
-def reduce_lanes_plain(p):
+def reduce_lanes_tree_plain(p, levels=None):
     """(16, B, rows, L) selected entries, L a power of two -> (16, B, rows)
     row sums: a halving tree (lane t plus lane t + h for h = L / 2, L / 4,
     ..., 1), ``padd_plain`` a level; the JAX package's ``_reduce_lanes``
-    adds the same lanes in another order (``bulletproofspp_tpu/ops/msm.py:81``)."""
-    width = p[0].shape[-1]
-    while width > 1:
+    adds the same lanes in another order (``bulletproofspp_tpu/ops/msm.py:81``).
+    ``levels``: stop after that many levels, lane 0's partial sums."""
+    width, level = p[0].shape[-1], 0
+    while width > 1 and (levels is None or level < levels):
         h = width // 2
         p = padd_plain(tuple(t[..., :h] for t in p), tuple(t[..., h:] for t in p))
-        width = h
+        width, level = h, level + 1
     return tuple(t[..., 0] for t in p)
 
 
-def reduce_lanes(p):
+def reduce_lanes_plain(tables, absd, sgn, levels=None):
+    """Flat tables of B L lanes and (B, rows, L) digits -> (16, B, rows) row
+    sums: ``reduce_lanes_tree_plain(select_plain(tables, absd, sgn))``, the
+    JAX package's one-hot select and ``_reduce_lanes`` (``msm.py:140-176``)
+    in the padd tree's order."""
+    return reduce_lanes_tree_plain(select_plain(tables, absd, sgn), levels)
+
+
+def _levels(L: int, levels) -> int:
+    full = L.bit_length() - 1
+    if levels is not None and not 1 <= levels <= full:
+        raise ValueError(f"reduce_lanes: levels = {levels} outside 1..{full}")
+    return full if levels is None else levels
+
+
+def _lane_width(L: int, shape) -> None:
+    if L < 2 or L >= 128 or L & (L - 1):
+        raise ValueError(f"reduce_lanes: L a power of two in [2, 128), got {tuple(shape)}")
+
+
+def reduce_lanes(tables, absd, sgn, levels=None):
     """``reduce_lanes_plain`` on the card in one launch (csrc/kernels.cu:
-    reduce_lanes_kernel), 2 <= L < 128: the same additions in the same
-    order as the padd kernel's halving tree, so the same words."""
+    reduce_lanes_kernel), 2 <= L < 128: the first level gathers its operands
+    by digit from the tables, then the same additions in the same order as
+    the padd kernel's halving tree, so the words equal ``select_small`` and
+    that route's.  ``levels`` (the smoke's per-level timing): stop after
+    that many levels.  The digits' range is not checked (``select_small``)."""
+    batch, rows, L = absd.shape
+    _lane_width(L, absd.shape)
+    lv = _levels(L, levels)
+    if tables[0].device.type == "cpu":
+        return reduce_lanes_plain(tables, absd, sgn, levels)
+    n = batch * L
+    tables = [t.contiguous() for t in tables]
+    if [t.shape for t in tables] != [(limb.NLIMB * TABLE, n), (2 * limb.NLIMB * TABLE, n),
+                                     (limb.NLIMB * TABLE, n)]:
+        raise ValueError(f"reduce_lanes: tables of {n} lanes must be (144, {n}), (288, {n}), "
+                         f"(144, {n})")
+    dev = _check(*(t[:limb.NLIMB] for t in tables))
+    absd, sgn = absd.contiguous(), sgn.contiguous()
+    if any(d.dtype != torch.int64 or d.device != tables[0].device or d.shape != absd.shape
+           for d in (absd, sgn)):
+        raise ValueError("reduce_lanes digits must be (B, ROWS, L) int64 on the tables' device")
+    out = _empty((limb.NLIMB, batch, rows), tables[0])
+    _launch("reduce_lanes", f"B={batch} L={L}" + (f" levels={lv}" if levels else ""), dev,
+            *_ptrs(*tables, absd, sgn, *out), batch, rows, L, lv, 1)
+    return out
+
+
+def reduce_lanes_tree(p, levels=None):
+    """``reduce_lanes_tree_plain`` on the card: the reduce_lanes kernel with
+    its first-level operands read from (16, B, rows, L) planes (the tree
+    alone, which the smoke holds the fused route against)."""
     L = p[0].shape[-1]
-    if p[0].dim() != 4 or L < 2 or L >= 128 or L & (L - 1):
-        raise ValueError(f"reduce_lanes: (16, B, rows, L) planes with L a power of two in "
-                         f"[2, 128), got {tuple(p[0].shape)}")
+    if p[0].dim() != 4:
+        raise ValueError(f"reduce_lanes: (16, B, rows, L) planes, got {tuple(p[0].shape)}")
+    _lane_width(L, p[0].shape)
+    lv = _levels(L, levels)
     if p[0].device.type == "cpu":
-        return reduce_lanes_plain(p)
+        return reduce_lanes_tree_plain(p, levels)
     p = tuple(t.contiguous() for t in p)
     dev = _check(*p)
     batch, rows = p[0].shape[1:3]
     out = _empty((limb.NLIMB, batch, rows), p[0])
-    _launch("reduce_lanes", f"B={batch} L={L}", dev, *_ptrs(*p, *out), batch * rows, L)
+    _launch("reduce_lanes", f"B={batch} L={L} tree" + (f" levels={lv}" if levels else ""), dev,
+            *_ptrs(*p), 0, 0, *_ptrs(*out), batch, rows, L, lv, 0)
     return out
 
 

@@ -5,16 +5,17 @@ and recoded on the host (``ops.glv`` / ``native``) as 33 signed base-16
 digit rows per lane; each lane's multiples 0P..8P and their negated Y come
 from the table_flat kernel, and every (row, lane) picks its entry by
 direct indexing (a Hopper GPU gathers natively, so the TPU's one-hot
-select is not carried over): under 1,024 lanes the select_small kernel,
-from there inside select_reduce.  The selected points are summed over lanes
-and the 33 row sums combined by Horner, by lane count L as in the JAX
-package (``msm.py:105-196``):
+select is not carried over): under 128 lanes inside reduce_lanes, from 128
+to 1,023 lanes the select_small kernel, from there inside select_reduce.
+The selected points are summed over lanes and the 33 row sums combined by
+Horner, by lane count L as in the JAX package (``msm.py:105-196``):
 
-  * under 128 lanes: the lane tree of each row in one reduce_lanes launch
-    (the halving order: lane t plus lane t + L/2, ...), then the horner
-    kernel;
-  * 128 to 512 lanes: the reduce_block chain (8:1 per launch) down to 128
-    lanes per row, then tail_horner;
+  * under 128 lanes: the select and the lane tree of each row in one
+    reduce_lanes launch (the halving order: lane t plus lane t + L/2, ...;
+    the JAX package compiles its select and ``_reduce_lanes`` into one
+    program too), then the horner kernel;
+  * 128 to 512 lanes: select_small, the reduce_block chain (8:1 per
+    launch) down to 128 lanes per row, then tail_horner;
   * from 1,024 lanes: the select_reduce kernel (select and the first 8:1
     narrowing in one launch), then the same chain and tail_horner;
   * from SCRATCH_TABLE_MIN_L = 2^21 lanes: the select_reduce_fused
@@ -60,9 +61,9 @@ def msm(px, py, pz, absd, sgn):
         return _narrow(kernels.select_reduce_fused(p, absd, sgn), L // 8, batch, rows)
     if L >= 1024:
         return msm_tabled(kernels.table_flat(p), absd, sgn)
-    sel = kernels.select_small(kernels.table_flat(p), absd, sgn)
     if L < 128:
-        return kernels.horner(*kernels.reduce_lanes(sel))
+        return kernels.horner(*kernels.reduce_lanes(kernels.table_flat(p), absd, sgn))
+    sel = kernels.select_small(kernels.table_flat(p), absd, sgn)
     return _narrow(_flat(sel), L, batch, rows)
 
 

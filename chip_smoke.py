@@ -166,25 +166,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      main paths' commonest shapes, select_small in turns with
      select_plain's three torch.gather (its ``library_ms``); (b) the
      library remainder: 16 (c).
-  16. the engine's assembly and the small MSMs' lane tree: (a) assemble
-     against its plain version with edge lanes (``edge_planes``) in every
-     input, word for word but for the phi lanes (strict, equal after
-     normalization): msm_many's K = 1, 2, 3, 66 and 130 entries of 1-4
-     groups whose active counts are not powers of two, at every lane
+  16. the engine's assembly and the small MSMs' select and lane tree: (a)
+     assemble against its plain version with edge lanes (``edge_planes``)
+     in every input, word for word but for the phi lanes (strict, equal
+     after normalization): msm_many's K = 1, 2, 3, 66 and 130 entries of
+     1-4 groups whose active counts are not powers of two, at every lane
      bucket phase 3 gave that K; bv_split's halves of 33 and 4,095 lanes;
      lockstep's two stacks of 16 x 16; a 4,096-lane fold_bases' two bases;
-     (b) reduce_lanes at L = 16, 32, 64 and B = 1, 2, 6, 66, 130 MSMs of
-     33 rows (identity rows, P + (-P) and P + P), equal word for word to
-     the padd kernel's tree it replaces and to its plain version after
-     normalization; each timed at the shape phase 3 launched most,
-     reduce_lanes beside the padd tree's time; (c) in a process of its own
-     for each route, one 64bit verify and prove under ``torch.profiler``
-     with every kernel, with assemble and reduce_lanes swapped for their
-     plain versions, and with those and the four lane kernels swapped: the
-     library remainder (device kernels no wrapper launches) in ms and
-     launches, the port's launches, device seconds, idle share and the
-     wall of each, logged on one line a route; the kernels' route at most
-     120 library launches in the prove.
+     two calls whose segment table must split into launches by entries (260
+     entries of 4 groups; 130 of 4 at the pre-12.1 limit's 4,048 bytes a
+     launch), each launching more than once; timed at the shape phase 3
+     launched most; (b) the fused reduce_lanes (the select by digit and the
+     lane tree in one launch) at L = 16, 32, 64 and B = 1, 2, 6, 66, 130
+     MSMs of 33 rows (zero digits with sign 1, rows of P + (-P) and P + P,
+     identity lanes), equal word for word to select_small + the padd
+     kernel's tree and to select_small + its own tree alone (the plane
+     route), and to its plain version after normalization; at the shape
+     phase 3 launched most timed back to back, in turns with select_small
+     + its tree alone, and stopped after each level in turns (the
+     per-level figure); (c) in a process of its own for each route, one
+     64bit verify and prove under ``torch.profiler`` with every kernel, with
+     assemble and reduce_lanes swapped for their plain versions, and with
+     those and the four lane kernels swapped: the library remainder (device
+     kernels no wrapper launches) in ms and launches, the memory copies by
+     kind (host-to-device pinned and pageable, device-to-host) in ms and
+     count, the port's launches, device seconds, idle share and the wall of
+     each, logged on one line a route; the kernels' route at most 120
+     library launches in the prove and no pinned host-to-device copy.
+  Over all the main paths' launches: select_small only at 128 to 1,023
+  lanes, reduce_lanes only under 128.
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
@@ -198,7 +208,8 @@ decompress at 16 lanes, cli test's smallest, and 16,384; fold_many at B =
 select_small at B = 2, L = 16 and B = 1, L = 512; endo interleaved at K =
 2 of 8 lanes and 2,048 lanes, and at 16 lanes; pneg at 16; normalize3 at
 K = 2 and 130; assemble and reduce_lanes at the shape phase 3 launched
-most), the kernel's
+most, reduce_lanes with its unfused route's time in turns and its time
+stopped after each level), the kernel's
 launch count (summed over the main-path runs of phases 3, 6, 7, 8, 9, 10,
 11, 12, 13 and 14, each counted from 0) in all, by path (``launches_by_path``: cli_test,
 msm_2_21, batch_verify, measurement, prove_batch, serve, multiparty, sharded,
@@ -297,6 +308,8 @@ NORMALIZE_TIMED = (2, 130)
 ASSEMBLE_K = (1, 2, 3, 66, 130)
 ASSEMBLE_GROUPS = 4
 SPLIT_LANES = (33, 4095)  # bv_split of an odd count
+ASSEMBLE_SPLIT_K = 260  # entries of 4 groups: a table past one launch's parameters
+ASSEMBLE_SMALL_CAPACITY = 4048  # table bytes a launch carries under CUDA before 12.1
 REDUCE_LANES_L = (16, 32, 64)
 REDUCE_LANES_B = (1, 2, 6, 66, 130)
 ASSEMBLY_OPS = ("assemble", "reduce_lanes")
@@ -789,7 +802,8 @@ def kernel_rows(rows):
         bound_ms, bound_by = bounds.bound_sum(work if isinstance(work, list) else [work], mhz)
         library_ms = extra.get("library_ms")
         row = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+               **{k: v for k, v in extra.items() if k not in ("library_ms", "products", "chain")}}
         lib_s = f"  library {library_ms:.4f} ms" if library_ms is not None else ""
         chain_s = ""
         if "products" in extra:
@@ -1927,17 +1941,20 @@ def check_assembly(dev, cli_shapes):
     two, interleaved, at each lane bucket phase 3's ``cli test`` gave that K
     (64 where it gave none); bv_split's stride-2 halves of SPLIT_LANES
     (odd) lanes; lockstep's two stacks of 16 provers' 13 lanes to 16; the
-    two 4,095-lane bases of a 4,096-lane fold_bases.  Then reduce_lanes
-    against the padd kernel's tree word for word and against
-    reduce_lanes_plain after normalization, at L of REDUCE_LANES_L and B
-    of REDUCE_LANES_B MSMs of ROWS rows (``wide_points``; in every MSM row 0
-    all identity lanes, in row 1 lane t + L/2 the negation of lane t, in row
-    2 the same point with another Z).  Each timed at the shape phase 3
-    launched most (CUDA ms back to back, the plain version's as the host
-    sends it), reduce_lanes also beside the padd route's time.  Returns the
-    kernel rows."""
+    two 4,095-lane bases of a 4,096-lane fold_bases; and two calls whose
+    table must split into launches by entries: ASSEMBLE_SPLIT_K entries of
+    4 groups at the library's capacity, and 130 entries of 4 groups at the
+    pre-12.1 parameter limit's (ASSEMBLE_SMALL_CAPACITY), each launching
+    more than once.  Timed at the shape phase 3 launched most (CUDA ms back
+    to back, the plain version's as the host sends it).
+    (b) the fused reduce_lanes (``reduce_lanes_equal``) at L of
+    REDUCE_LANES_L and B of REDUCE_LANES_B MSMs of ROWS rows, then timed at
+    the shape phase 3 launched most: in turns with the unfused route it
+    replaces (select_small, then the same kernel's tree alone on the
+    selected planes), and stopped after each level (``levels``), in
+    turns, for the per-level figure.  Returns the kernel rows."""
     from bulletproofspp_tpu_torch import bounds
-    from bulletproofspp_tpu_torch.ops import kernels, limb
+    from bulletproofspp_tpu_torch.ops import kernels
 
     rng = np.random.default_rng(SEED + 16)
     pool = tuple(edge_planes(8192, rng, dev, s) for s in (5, 3, 0))
@@ -1946,25 +1963,43 @@ def check_assembly(dev, cli_shapes):
         d = parse_shape(shape)
         if d["interleave"]:
             seen[d["K"]].add(d["L"])
-    cases = []  # (label, outputs, L, interleave)
+    cases = []  # (label, outputs, L, interleave, capacity)
     for K in ASSEMBLE_K:
         for L in sorted(seen[K]) or [64]:
             cases.append((f"msm_many K={K} L={L}" + ("" if seen[K] else " (not in phase 3)"),
-                          [msm_entries(K, L, pool, rng)[0]], L, True))
+                          [msm_entries(K, L, pool, rng)[0]], L, True, None))
     for n in SPLIT_LANES:
         full = tuple(c[:, 1:n + 1] for c in pool)  # a slice of an odd count
         cases.append((f"bv_split n={n}", [[[tuple(c[:, s::2] for c in full)]] for s in (0, 1)],
-                      (n + 1) // 2, False))
+                      (n + 1) // 2, False, None))
     stacks = [[[tuple(c[:, 16 * b + s:16 * b + s + 13] for c in pool)] for b in range(16)]
               for s in (0, 1)]
-    cases.append(("lockstep 16 x 13 to 16", stacks, 16, False))
+    cases.append(("lockstep 16 x 13 to 16", stacks, 16, False, None))
     cases.append(("fold_bases 2 x 4,095 to 4,096", [[[tuple(c[:, s:s + 4095] for c in pool)]]
-                                                     for s in (0, 1)], 4096, False))
-    for label, outputs, L, interleave in cases:
-        err = assemble_equal(label, kernels.assemble(outputs, L, interleave),
-                             kernels.assemble_plain(outputs, L, interleave), interleave)
+                                                     for s in (0, 1)], 4096, False, None))
+    split = [[[tuple(c[:, 7 * k + g:7 * k + g + 5 + g] for c in pool) for g in range(4)]
+              for k in range(ASSEMBLE_SPLIT_K)]]
+    cases.append((f"split: {ASSEMBLE_SPLIT_K} x 4 groups", split, 64, True, None))
+    cases.append((f"split: 130 x 4 groups at {ASSEMBLE_SMALL_CAPACITY} bytes a launch",
+                  [split[0][:130]], 64, True, ASSEMBLE_SMALL_CAPACITY))
+    capacity = kernels.assemble_capacity
+    launches = {}
+    for label, outputs, L, interleave, cap in cases:
+        kernels.reset_counts()
+        if cap:
+            kernels.assemble_capacity = lambda: cap
+        try:
+            got = kernels.assemble(outputs, L, interleave)
+        finally:
+            kernels.assemble_capacity = capacity
+        launches[label] = kernels.counts()["assemble"]
+        err = assemble_equal(label, got, kernels.assemble_plain(outputs, L, interleave),
+                             interleave)
+        if label.startswith("split") and launches[label] < 2:
+            raise AssertionError(f"assemble {label}: {launches[label]} launch, not split")
     log(f"assemble against its plain version (phi lanes after normalization, strict; every other "
-        f"word equal): {', '.join(c[0] for c in cases)}")
+        f"word equal), launches a call: {json.dumps(launches)}; {capacity()} bytes of table a "
+        f"launch at most")
 
     rows = []
     timed = parse_shape(commonest(cli_shapes["assemble"]))
@@ -1978,51 +2013,92 @@ def check_assembly(dev, cli_shapes):
                  f"S={S} K={K} L={L}{' interleave' if interleave else ''} ({n_in} lanes in)",
                  bounds.assemble(n_in, S * K * L, interleave)))
 
-    def tree_route(p):
-        width = p[0].shape[-1]
-        while width > 1:
-            h = width // 2
-            p = kernels.padd(tuple(t[..., :h] for t in p), tuple(t[..., h:] for t in p))
-            width = h
-        return tuple(t[..., 0] for t in p)
-
-    def tree_lanes(B, L):
-        x, y, z = (c.reshape(16, B, ROWS, L) for c in wide_points(B * ROWS * L, rng, dev))
-        h = L // 2
-        x[:, :, 0], z[:, :, 0] = 0, 0
-        k = torch.as_tensor(rng.integers(1, 1 << 16, size=(limb.NLIMB, B, 2, h)), device=dev)
-        x[:, :, 1:3, h:] = limb.mul(x[:, :, 1:3, :h], k)
-        z[:, :, 1:3, h:] = limb.mul(z[:, :, 1:3, :h], k)
-        y[:, :, 1:3, h:] = limb.mul(y[:, :, 1:3, :h], k)
-        y[:, :, 1, h:] = limb.neg(y[:, :, 1, h:])
-        return x, y, z
-
-    def sums_equal(label, p):
-        """reduce_lanes against the padd route raw, against its plain version
-        normalized (``compare`` takes (16, N) planes)."""
-        got = kernels.reduce_lanes(p)
-        same_raw(f"{label} against the padd route", got, tree_route(p))
-        return compare(label, tuple(t.reshape(16, -1) for t in got),
-                       tuple(t.reshape(16, -1) for t in kernels.reduce_lanes_plain(p)))
-
     for L in REDUCE_LANES_L:
         for B in REDUCE_LANES_B:
-            sums_equal(f"reduce_lanes B={B} L={L}", tree_lanes(B, L))
-    log(f"reduce_lanes at L = {REDUCE_LANES_L} x B = {REDUCE_LANES_B} MSMs of {ROWS} rows (identity, "
-        "cancelling and doubling rows): equal to the padd route word for word, to its plain "
-        "version after normalization")
+            reduce_lanes_equal(f"reduce_lanes B={B} L={L}", *msm_operands(B, L, rng, dev))
+    log(f"reduce_lanes at L = {REDUCE_LANES_L} x B = {REDUCE_LANES_B} MSMs of {ROWS} rows (zero "
+        "digits with sign 1, cancelling and doubling rows, identity lanes): equal word for word to "
+        "select_small + the padd route and to select_small + its tree alone, to its plain version "
+        "after normalization")
     timed = parse_shape(commonest(cli_shapes["reduce_lanes"]))
     B, L = timed["B"], timed["L"]
-    p = tree_lanes(B, L)
-    err = sums_equal(f"reduce_lanes B={B} L={L} (timed)", p)
-    ms = time_ms(lambda: kernels.reduce_lanes(p), 20)
+    tabs, absd, sgn = msm_operands(B, L, rng, dev)
+    err = reduce_lanes_equal(f"reduce_lanes B={B} L={L} (timed)", tabs, absd, sgn)
+    fused = lambda: kernels.reduce_lanes(tabs, absd, sgn)  # noqa: E731
+    unfused = lambda: kernels.reduce_lanes_tree(kernels.select_small(tabs, absd, sgn))  # noqa: E731
+    means, both = in_turns({"fused": fused, "unfused": unfused}, 20)
+    log(f"reduce_lanes B={B} L={L} in turns with select_small + its tree alone (ms): "
+        f"{json.dumps(both)}")
+    levels = L.bit_length() - 1
+    per_level, by_level = in_turns(
+        {k: (lambda k=k: kernels.reduce_lanes(tabs, absd, sgn, levels=k))
+         for k in range(1, levels + 1)}, 20)
+    steps = [per_level[k + 1] - per_level[k] for k in range(1, levels)]
+    log(f"reduce_lanes B={B} L={L} stopped after 1..{levels} levels, in turns (ms): "
+        f"{json.dumps(by_level)}; each level past the first "
+        f"{json.dumps([round(v, 5) for v in steps])} ms")
+    ms = time_ms(fused, 20)
     log(f"reduce_lanes B={B} L={L}: {ms:.4f} ms back to back; the padd route it replaces "
-        f"{time_ms(lambda: tree_route(p), 5, paced=True):.4f} ms as the host sends it")
+        f"{time_ms(lambda: tree_route(kernels.select_small(tabs, absd, sgn)), 5, paced=True):.4f} "
+        f"ms as the host sends it")
     rows.append(("reduce_lanes", err, ms,
-                 time_ms(lambda: kernels.reduce_lanes_plain(p), 5, paced=True),
-                 f"B={B} L={L} rows={ROWS}", bounds.reduce_lanes(B, ROWS, L),
-                 {"chain": bounds.reduce_lanes_chain(L)}))
+                 time_ms(lambda: kernels.reduce_lanes_plain(tabs, absd, sgn), 5, paced=True),
+                 f"B={B} L={L} rows={ROWS}", bounds.reduce_lanes(absd, sgn),
+                 {"chain": bounds.reduce_lanes_chain(L), "unfused_ms": means["unfused"],
+                  "fused_in_turns_ms": means["fused"],
+                  "levels_ms": [per_level[k] for k in range(1, levels + 1)],
+                  "per_level_ms": sum(steps) / len(steps)}))
     return rows
+
+
+def tree_route(p):
+    """The lane tree as the padd kernel ran it before reduce_lanes."""
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    width = p[0].shape[-1]
+    while width > 1:
+        h = width // 2
+        p = kernels.padd(tuple(t[..., :h] for t in p), tuple(t[..., h:] for t in p))
+        width = h
+    return tuple(t[..., 0] for t in p)
+
+
+def msm_operands(B: int, L: int, rng, dev):
+    """table_flat's tables of B MSMs of L lanes (``wide_points``; in each MSM
+    lane t + L/2 the point of lane t with another Z) and their (B, ROWS, L)
+    digits: row 0 zero digits with sign 1, in row 1 lane t + L/2 the digit
+    of lane t with the other sign (the first level adds P and -P), in row 2
+    with the same sign (P + P), the rest random."""
+    from bulletproofspp_tpu_torch.ops import kernels, limb
+
+    x, y, z = (c.reshape(16, B, L) for c in wide_points(B * L, rng, dev))
+    h = L // 2
+    k = torch.as_tensor(rng.integers(1, 1 << 16, size=(limb.NLIMB, B, h)), device=dev)
+    for c in (x, y, z):
+        c[:, :, h:] = limb.mul(c[:, :, :h], k)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(B, ROWS, L)), device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(B, ROWS, L)), device=dev)
+    absd[:, 0], sgn[:, 0] = 0, 1
+    absd[:, 1:3, h:] = absd[:, 1:3, :h]
+    sgn[:, 1, h:], sgn[:, 2, h:] = 1 - sgn[:, 1, :h], sgn[:, 2, :h]
+    return kernels.table_flat(tuple(c.reshape(16, -1) for c in (x, y, z))), absd, sgn
+
+
+def reduce_lanes_equal(label, tabs, absd, sgn) -> int:
+    """The fused reduce_lanes against select_small + the padd route and
+    against select_small + its tree alone, raw, and against its plain
+    version after normalization (``compare`` takes (16, N) planes); the
+    cancelling rows' sums must be the identity.  Returns the max |diff|."""
+    from bulletproofspp_tpu_torch.ops import curve, kernels
+
+    got = kernels.reduce_lanes(tabs, absd, sgn)
+    sel = kernels.select_small(tabs, absd, sgn)
+    same_raw(f"{label} against select_small + the padd route", got, tree_route(sel))
+    same_raw(f"{label} against select_small + its tree alone", got, kernels.reduce_lanes_tree(sel))
+    if int(curve.normalize3(*got)[2, :, :, 1].abs().sum()):
+        raise AssertionError(f"{label}: a row of P + (-P) does not sum to the identity")
+    return compare(label, tuple(t.reshape(16, -1) for t in got),
+                   tuple(t.reshape(16, -1) for t in kernels.reduce_lanes_plain(tabs, absd, sgn)))
 
 
 def library_remainder(dev, route: str):
@@ -2034,11 +2110,14 @@ def library_remainder(dev, route: str):
     launches (``by_wrapper``'s "library": PyTorch's own operators) in ms and
     launches, the four most launched of them, the port's launches, the
     device seconds, the idle share and the wall seconds, logged on one
-    line.  Fails if a profile misses some of the port's launches
+    line, with the memory copies by kind (``engine_profile.copies``: ms and
+    count).  Fails if a profile misses some of the port's launches
     (``engine_profile.profile_complete``) or if the proof is not golden;
-    on the kernels' route also if the prove does not launch all six lane
-    and assembly kernels or makes more than REMAINDER_MAX library
-    launches."""
+    on the kernels' route also if the prove does not launch the lane and
+    assembly kernels (select_small in the verify: the prove's MSMs are all
+    under 128 lanes, where reduce_lanes selects), makes more than
+    REMAINDER_MAX library launches, or the prove or the verify makes a
+    pinned host-to-device copy (assemble's tables were the only ones)."""
     from bulletproofspp_tpu_torch import engine_profile
     from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
@@ -2053,15 +2132,21 @@ def library_remainder(dev, route: str):
             raise AssertionError(f"the profile of the {route} route's {step} misses some of its "
                                  f"launches {p['launched']}")
     if route == "kernels":
-        if not set(LANE_OPS + ASSEMBLY_OPS) <= set(out["prove"]["launched"]):
-            raise AssertionError(f"the 64bit prove did not launch every lane and assembly "
-                                 f"kernel: {out['prove']['launched']}")
+        if not (set(LANE_OPS + ASSEMBLY_OPS) - {"select_small"} <= set(out["prove"]["launched"])
+                and "select_small" in out["verify"]["launched"]):
+            raise AssertionError(f"the 64bit prove and verify did not launch every lane and "
+                                 f"assembly kernel: {out['prove']['launched']}, "
+                                 f"{out['verify']['launched']}")
+        for step, p in out.items():
+            if "HtoD (Pinned -> Device)" in p["copies"]:
+                raise AssertionError(f"the 64bit {step} made pinned host-to-device copies: "
+                                     f"{p['copies']}")
         library = out["prove"]["by_wrapper"]["library"][1]
         if library > REMAINDER_MAX:
             raise AssertionError(f"the 64bit prove made {library} library launches on the "
                                  f"kernels' route, more than {REMAINDER_MAX}")
     keys = ("library_top", "device_s", "device_idle_share", "wall_s")
-    summary = {step: {"library_ms_launches": p["by_wrapper"]["library"],
+    summary = {step: {"library_ms_launches": p["by_wrapper"]["library"], "copies": p["copies"],
                       "port_launches": sum(p["launched"].values()), **{k: p[k] for k in keys}}
                for step, p in out.items()}
     log(f"{card_line()}: library remainder of a 64bit prove and verify (ms, launches), route "
@@ -2273,6 +2358,10 @@ def main() -> int:
             shapes[k].update(by_shape)
     launches = {k: sum(v.values()) for k, v in shapes.items()}
     require_launched("the main paths", launches, set(launches) - {"inv"})  # inv: on no path
+    narrow = {k: [sh for sh in shapes[k] if not lo <= parse_shape(sh)["L"] < hi]
+              for k, (lo, hi) in (("select_small", (128, 1024)), ("reduce_lanes", (2, 128)))}
+    if any(narrow.values()):  # under 128 lanes reduce_lanes selects, from there select_small
+        raise AssertionError(f"launches outside their lane counts: {narrow}")
     by_path = {k: {path: sum(run[k].values()) for path, run in paths.items()} for k in launches}
     by_design = {k: {path: designs(run[k]) for path, run in paths.items()}
                  for k in ("padd", "table_flat", "reduce_block", "select_reduce")}

@@ -100,12 +100,14 @@ def test_cuda_kernels_match_plain_versions():
     assert _same(kernels.pneg(p), kernels.pneg_plain(p))
     assert torch.equal(kernels.normalize3(*p), kernels.normalize3_plain(*p))
     # the engine's assembly (a slice padded to 64 lanes, word for word) and
-    # the lane tree of two MSMs of 16 lanes
+    # the small MSMs' select and lane tree (two MSMs of 64 lanes), also the
+    # tree alone over 16 lanes
     segs = [[[tuple(c[:, 3:40] for c in _points(64, 52, dev))]]]
     for got, want in zip(kernels.assemble(segs, 64), kernels.assemble_plain(segs, 64)):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _same(kernels.reduce_lanes(tabs, absd, sgn), kernels.reduce_lanes_plain(tabs, absd, sgn))
     sel = _points(2 * 33 * 16, 53, dev, (16, 2, 33, 16))
-    assert _same(kernels.reduce_lanes(sel), kernels.reduce_lanes_plain(sel))
+    assert _same(kernels.reduce_lanes_tree(sel), kernels.reduce_lanes_tree_plain(sel))
     launched = kernels.counts()
     assert all(launched[k] > 0 for k in launched if k not in ("sr_variant", "grid_copy", "chain"))
 
@@ -599,6 +601,23 @@ def test_cuda_assemble_matches_plain_version(S, K, groups, L, interleave):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [None, 4048])
+def test_cuda_assemble_oracle_step_in_one_launch_or_split(monkeypatch, capacity):
+    """msm_many's largest call, 130 entries of 4 groups, interleaved: one
+    launch at the library's capacity, several when it is the pre-12.1
+    parameter limit's (4,048 bytes): the same words either way."""
+    dev = _card()
+    outputs = [[[_segment(5 + (k + g) % 3, 1000 + 10 * k + g, dev, 1, g) for g in range(4)]
+                for k in range(130)]]
+    if capacity:
+        monkeypatch.setattr(kernels, "assemble_capacity", lambda: capacity)
+    kernels.reset_counts()
+    got = kernels.assemble(outputs, 64, True)
+    _assemble_same(got, kernels.assemble_plain(outputs, 64, True), True)
+    assert (kernels.counts()["assemble"] > 1) == bool(capacity)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 2, 31, 40])
 def test_cuda_assemble_stride_two_halves(n):
     """bv_split's even and odd halves (lane stride 2) of an odd or even
@@ -624,22 +643,38 @@ def _tree_route(p):
 @pytest.mark.parametrize("L", [2, 4, 8, 16, 32, 64])
 @pytest.mark.parametrize("batch", [1, 3])
 def test_cuda_reduce_lanes_matches_plain_version(L, batch):
-    """(16, B, 33, L) lanes (every 7th the identity; row 1 cancels lane t
-    with lane t + L/2, row 2 doubles it): equal word for word to the padd
-    kernel's tree, and to the plain version after normalization."""
+    """B MSMs of L lanes (every 7th the identity; in MSM 0 lane t + L/2 the
+    point of lane t, and in row 1 its digit with the other sign: the first
+    level adds P and -P; row 2 the same sign: P + P; row 0 zero digits with
+    sign 1): the fused kernel equal word for word to select_small + the
+    padd kernel's tree and to select_small + the kernel's tree alone, and
+    to its plain version after normalization; one launch.  Stopped after
+    each level, equal to the plain version stopped there."""
     dev = _card()
-    rows = 33
-    x, y, z = _points(batch * rows * L, L + batch, dev, (16, batch, rows, L))
-    h = L // 2
-    for r, sign in ((1, -1), (2, 1)):
-        x[:, :, r, h:], z[:, :, r, h:] = x[:, :, r, :h], z[:, :, r, :h]
-        y[:, :, r, h:] = y[:, :, r, :h] if sign > 0 else limb.neg(y[:, :, r, :h])
+    rows, h = 33, L // 2
+    x, y, z = _points(batch * L, L + batch, dev)
+    z[:, h:L] = limb.mul(z[:, :h], limb.from_ints([3] * h, dev))
+    x[:, h:L] = limb.mul(x[:, :h], limb.from_ints([3] * h, dev))
+    y[:, h:L] = limb.mul(y[:, :h], limb.from_ints([3] * h, dev))
+    tabs = kernels.table_flat((x, y, z))
+    rng = np.random.default_rng(L * batch)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(batch, rows, L)), device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, rows, L)), device=dev)
+    absd[:, 0], sgn[:, 0] = 0, 1
+    absd[0, 1:3, h:] = absd[0, 1:3, :h]
+    sgn[0, 1, h:], sgn[0, 2, h:] = 1 - sgn[0, 1, :h], sgn[0, 2, :h]
     kernels.reset_counts()
-    got = kernels.reduce_lanes((x, y, z))
+    got = kernels.reduce_lanes(tabs, absd, sgn)
     assert kernels.counts()["reduce_lanes"] == 1
     assert all(g.shape == (16, batch, rows) for g in got)
-    assert all(torch.equal(a, b) for a, b in zip(got, _tree_route((x, y, z))))
-    assert _same(got, kernels.reduce_lanes_plain((x, y, z)))
+    sel = kernels.select_small(tabs, absd, sgn)
+    assert all(torch.equal(a, b) for a, b in zip(got, _tree_route(sel)))
+    assert all(torch.equal(a, b) for a, b in zip(got, kernels.reduce_lanes_tree(sel)))
+    assert _same(got, kernels.reduce_lanes_plain(tabs, absd, sgn))
+    assert int(curve.normalize3(*got)[2, :, 0, 1].abs().sum()) == 0  # P + (-P): z = 0
+    for levels in range(1, L.bit_length() - 1):
+        assert _same(kernels.reduce_lanes(tabs, absd, sgn, levels=levels),
+                     kernels.reduce_lanes_plain(tabs, absd, sgn, levels=levels))
 
 
 @pytest.mark.cuda

@@ -2,9 +2,8 @@
 stream, whatever the process's current device is.  On the CPU: the kernel
 libraries and the torch.cuda calls are stubbed, the entries record the
 device guard they ran under and the stream they were given, and every
-wrapper runs on meta tensors that its device check places on cuda:1 (and
-assemble's segment table, which goes to the card in a copy of its own,
-on a meta tensor)."""
+wrapper runs on meta tensors that its device check places on cuda:1
+(assemble's segment table travels by value in the launch: no tensor)."""
 
 import types
 
@@ -48,9 +47,9 @@ def launches(monkeypatch):
             return 0
         return call
 
-    lib = types.SimpleNamespace(**{k.entry: entry(k.entry) for k in kernels.KERNELS.values()})
+    lib = types.SimpleNamespace(**{k.entry: entry(k.entry) for k in kernels.KERNELS.values()},
+                                bppp_assemble_capacity=lambda: 32712)
     monkeypatch.setattr(kernels, "lib", lambda: {src: lib for src in kernels.SOURCES})
-    monkeypatch.setattr(kernels, "_to_device", lambda arr, dev: torch.from_numpy(arr).to("meta"))
     monkeypatch.setattr(torch.cuda, "device", Device)
     monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
     kernels.reset_counts()
@@ -109,7 +108,8 @@ CALLS = {
     "pneg": lambda: kernels.pneg(_pt(64)),
     "normalize3": lambda: kernels.normalize3(*_pt(64)),
     "assemble": lambda: kernels.assemble([[[tuple(c[:, 1::2] for c in _pt(40))]] * 3], 64, True),
-    "reduce_lanes": lambda: kernels.reduce_lanes(_pt(2, 33, 16)),
+    "reduce_lanes": lambda: kernels.reduce_lanes(_tables(2 * 16), _meta(2, 33, 16),
+                                                 _meta(2, 33, 16)),
     "sr_variant": lambda: kernels.sr_variant(_tables(1024), _meta(3, 1024), _meta(3, 1024)),
     "grid_copy": lambda: kernels.grid_copy(_meta(16, 1024)),
     "chain": lambda: kernels.chain("padd", _pt(64), _pt(64)),

@@ -102,6 +102,19 @@ def test_device_time_by_wrapper_sums_both_designs():
     assert by_wrapper(ours) == {"padd": [20.0 / 1e3, 2], "library": [0.0, 0]}
 
 
+def test_copies_by_kind():
+    """engine_profile.copies: the memory copies by_wrapper leaves out, ms and
+    count by kind (assemble's tables were the pinned host-to-device copies
+    of a prove; the digits' uploads are pageable)."""
+    _, by_kernel = device_time(_prof((_COPY, 3), ("Memcpy HtoD (Pinned -> Device)", 2),
+                                     ("Memcpy DtoH (Device -> Pageable)", 1), (_TORCH, 9)),
+                               top=None)
+    assert engine_profile.copies(by_kernel) == {
+        "HtoD (Pageable -> Device)": [30.0 / 1e3, 3], "HtoD (Pinned -> Device)": [20.0 / 1e3, 2],
+        "DtoH (Device -> Pageable)": [10.0 / 1e3, 1]}
+    assert engine_profile.copies(device_time(_prof((_TORCH, 9)), top=None)[1]) == {}
+
+
 def test_device_time_leaves_out_runtime_calls():
     """A process's first profile gives ``cudaLaunchKernel`` a little device
     time and one count a launch, and the profiler's buffer request some:

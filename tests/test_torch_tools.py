@@ -340,7 +340,7 @@ ptxas info    : Used 27 registers, 384 bytes cmem[0]
 
 
 @pytest.mark.parametrize("module", ["bench", "tools.r5_experiments", "tools.phase_bench",
-                                    "tools.padd_timing"])
+                                    "tools.padd_timing", "tools.assemble_host"])
 def test_bench_and_tools_refuse_to_run_without_cuda(monkeypatch, capsys, module):
     mod = importlib.import_module(f"bulletproofspp_tpu_torch.{module}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
