@@ -200,10 +200,9 @@ def scalar_sets(n_points: int, n_sets: int) -> list:
 
 
 def digits(scalars, device):
-    """Host scalars -> (1, ROWS, L) int64 digit planes on ``device``."""
+    """Host scalars -> (1, ROWS, L) uint8 digit planes on ``device``."""
     absd, sgn = native.glv_recode_batch(scalars)
-    return tuple(torch.from_numpy(d.astype(np.uint8)).to(device).to(torch.int64)[None]
-                 for d in (absd, sgn))
+    return tuple(torch.from_numpy(d.astype(np.uint8)).to(device)[None] for d in (absd, sgn))
 
 
 def _msm_work(absd, sgn, tabled: bool, L: int):
@@ -222,7 +221,7 @@ def _msm_work(absd, sgn, tabled: bool, L: int):
         reads = bounds.select_reduce(absd, sgn)[1] - (rows * L // 8) * bounds.PT_BYTES
     else:
         ops += bounds.table_flat(L)[0]
-        reads = L * bounds.PT_BYTES + rows * L * 16
+        reads = L * bounds.PT_BYTES + rows * L * bounds.DIGIT_BYTES
     return ops, reads + bounds.PT_BYTES
 
 
@@ -264,7 +263,7 @@ def run() -> dict:
 
     def e2e_call(k):
         d = digits(sets[k % n_sets], dev)
-        return curve.normalize3(*msm.msm_tabled(tables, *d)).cpu()
+        return msm.msm_tabled(tables, *d, canonical=True).cpu()
 
     def padd_chain(k):
         p = (px, py, pz)

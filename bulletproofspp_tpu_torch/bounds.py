@@ -4,7 +4,8 @@ A kernel's bound is the larger of two times:
 
   * bytes: each input the function needs read once and each output
     written once, over the card's memory rate (3.35 TB/s, H100 SXM data
-    sheet).  Limb planes are int64: 128 B a field element, 384 B a point.
+    sheet).  Limb planes are int64: 128 B a field element, 384 B a point;
+    digits are uint8 planes, |d| and the sign: 2 B a (row, lane).
     Where the reads depend on the data (digit selection), the count is of
     what this run's digits select: each lane's distinct table entries
     (for select_reduce X, Y and Z of each distinct nonzero |d|, its -Y
@@ -47,6 +48,8 @@ IMAD_PER_CLOCK_PER_SM = 64
 
 FE_BYTES = 16 * 8
 PT_BYTES = 3 * FE_BYTES
+DIGIT_BYTES = 2  # |d| and the sign of one (row, lane), a byte each
+FE_CANON = 0  # fe_canon: one carry chain of additions and a select, no multiply
 FE_MUL = 2 * (64 + 8 + 1)
 FE_MUL_SMALL = 2 * (8 + 1)
 FE_ADD = 2
@@ -166,12 +169,26 @@ def padd(n: int):
     return n * PT_ADD, n * 3 * PT_BYTES
 
 
-def horner(batch: int, rows: int):
-    return batch * rows * (4 * PT_DBL + PT_ADD), (batch * rows + batch) * PT_BYTES
+def horner(batch: int, rows: int, canonical: bool = False):
+    """``canonical``: the last warp's 3 ``fe_canon`` an MSM (no multiply);
+    the same bytes out (three canonical planes)."""
+    ops = batch * rows * (4 * PT_DBL + PT_ADD) + (3 * batch * FE_CANON if canonical else 0)
+    return ops, (batch * rows + batch) * PT_BYTES
 
 
 def reduce_block(w: int, factor: int):
     return (w // factor) * (factor - 1) * PT_ADD, (w + w // factor) * PT_BYTES
+
+
+def reduce_block_tables(absd, sgn, factor: int):
+    """reduce_block whose first level selects from the flat tables (msm's
+    route from 256 to 1,023 lanes): its additions over the B rows L points
+    the (B, rows, L) digits select; the table entries they select
+    (``_selected_bytes``, as ``reduce_lanes``) and the digits in, the
+    partials out."""
+    w = absd.numel()
+    return ((w // factor) * (factor - 1) * PT_ADD,
+            _selected_bytes(absd, sgn) + w * DIGIT_BYTES + (w // factor) * PT_BYTES)
 
 
 def reduce_block_chain(factor: int, narrow: bool):
@@ -185,9 +202,20 @@ def reduce_block_chain(factor: int, narrow: bool):
     return factor - 1, ADD_PRODUCTS * (factor - 1)
 
 
-def tail_horner(batch: int, rows: int):
+def tail_horner(batch: int, rows: int, canonical: bool = False):
     ops = batch * rows * (127 * PT_ADD + 4 * PT_DBL + PT_ADD)
+    ops += 3 * batch * FE_CANON if canonical else 0
     return ops, (batch * rows * 128 + batch) * PT_BYTES
+
+
+def tail_horner_tables(absd, sgn, canonical: bool = False):
+    """tail_horner whose row trees select from the flat tables (msm's route
+    at 128 lanes): ``tail_horner``'s operations; the entries the (B, rows,
+    128) digits select (``_selected_bytes``) and the digits in, the result
+    out."""
+    batch, rows, _ = absd.shape
+    ops = tail_horner(batch, rows, canonical)[0]
+    return ops, _selected_bytes(absd, sgn) + absd.numel() * DIGIT_BYTES + batch * PT_BYTES
 
 
 def tail_horner_chain(rows: int):
@@ -245,7 +273,7 @@ def select_reduce(absd, sgn, factor: int = 8):
     n = absd.numel()
     ops = (n // factor) * (factor - 1) * PT_ADD + int(sgn.sum()) * FE_SUB
     entries = _distinct(absd, 9) - int((absd == 0).any(1).sum())
-    return ops, 3 * entries * FE_BYTES + n * 16 + (n // factor) * PT_BYTES
+    return ops, 3 * entries * FE_BYTES + n * DIGIT_BYTES + (n // factor) * PT_BYTES
 
 
 def fold(n: int, digits):
@@ -271,7 +299,7 @@ def select_reduce_fused(absd, sgn):
     batch, rows, L = absd.shape
     n = absd.numel()
     ops = batch * L * 7 * PT_ADD + (n // 8) * 7 * PT_ADD + int(sgn.sum()) * FE_SUB
-    return ops, batch * L * PT_BYTES + n * 16 + (n // 8) * PT_BYTES
+    return ops, batch * L * PT_BYTES + n * DIGIT_BYTES + (n // 8) * PT_BYTES
 
 
 def decompress(n: int):
@@ -292,7 +320,7 @@ def select_small(absd, sgn):
     and Z by |d|, Y by |d| + 9 s), the digits, the selected points out; no
     multiplies."""
     n = absd.numel()
-    return 0, _selected_bytes(absd, sgn) + n * 16 + n * PT_BYTES
+    return 0, _selected_bytes(absd, sgn) + n * DIGIT_BYTES + n * PT_BYTES
 
 
 def endo(n: int, interleave: bool):
@@ -326,7 +354,7 @@ def reduce_lanes(absd, sgn):
     ``select_small``) and the digits in, its sum out."""
     batch, rows, L = absd.shape
     ops = batch * rows * (L - 1) * PT_ADD
-    return ops, _selected_bytes(absd, sgn) + absd.numel() * 16 + batch * rows * PT_BYTES
+    return ops, _selected_bytes(absd, sgn) + absd.numel() * DIGIT_BYTES + batch * rows * PT_BYTES
 
 
 def reduce_lanes_tree(batch: int, rows: int, L: int):
@@ -346,7 +374,7 @@ def sr_variant(absd, sgn, blk: int, out_w: int, noselect: bool):
     rows, L = absd.shape
     n = rows * L
     ops = (n // factor) * (factor - 1) * PT_ADD
-    reads = L * PT_BYTES if noselect else _selected_bytes(absd[None], sgn[None]) + n * 16
+    reads = L * PT_BYTES if noselect else _selected_bytes(absd[None], sgn[None]) + n * DIGIT_BYTES
     return ops, reads + (n // factor) * PT_BYTES
 
 

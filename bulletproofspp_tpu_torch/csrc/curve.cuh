@@ -49,6 +49,19 @@ __device__ __forceinline__ Pt table_entry(const int64_t* tx, const int64_t* ty2,
   return e;
 }
 
+// Selected point j = (b rows + r) L + l of an MSM route: the entry that
+// digit (b, r, l) of the (B, rows, L) uint8 planes picks (X and Z |d|, Y |d|
+// + 9 s) from lane b L + l of flat tables of n = B L lanes.  select_small
+// stores these points; reduce_lanes, reduce_block and tail_rows read them
+// here in their first level instead.  A digit past 8 reads outside the
+// tables (not checked: the recodings make none).
+__device__ __forceinline__ Pt selected_point(const int64_t* tx, const int64_t* ty2,
+                                             const int64_t* tz, const uint8_t* absd,
+                                             const uint8_t* sgn, int64_t n, int64_t rows,
+                                             int64_t L, int64_t j) {
+  return table_entry(tx, ty2, tz, n, (j / (rows * L)) * L + j % L, absd[j], sgn[j]);
+}
+
 __device__ __noinline__ Pt pt_add(const Pt& p, const Pt& q) {
   Fe t0 = fe_mul(p.x, q.x);
   Fe t1 = fe_mul(p.y, q.y);

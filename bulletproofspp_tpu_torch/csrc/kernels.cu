@@ -6,8 +6,14 @@
 // fold_many its vmap over the provers of a lockstep batch, and reduce_lanes
 // the XLA table select and lane tree of its MSMs under 128 lanes (the
 // one-hot select and _reduce_lanes, one program there and one launch here).
+// The MSM routes select inside their first reduction: reduce_lanes under 128
+// lanes, reduce_block (from 256) or tail_rows (at 128) up to 1,023, with
+// select_small's gather (curve.cuh: selected_point); and their last launch,
+// horner_warp_kernel, can store the result canonical, which the JAX package
+// compiles into the MSM's program (_normalize3).
 // All keep the contract: (16, N) int64 planes of 16-bit limbs, strict limbs
-// in and out, projective (X:Y:Z) with identity (0:1:0).  Built by
+// in and out, projective (X:Y:Z) with identity (0:1:0); digits (B, rows, L)
+// uint8 planes.  Built by
 // ops/kernels.py with nvcc into a shared library with a plain C interface;
 // every entry launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so that a refused launch is reported.
@@ -120,13 +126,35 @@ __device__ __forceinline__ void halve(Pt* v) {
   }
 }
 
+// Where a reduction's first level finds its operands: lane j of (16, w)
+// planes, or, with FromTables, selected point j of table_flat's flat tables
+// of n = B L lanes and the (B, rows, L) uint8 digits (w = B rows L;
+// curve.cuh: selected_point, select_small_kernel's words).  So the MSM
+// routes of 128 to 1,023 lanes select inside the launch that reduces: the
+// selected points (B rows L x 384 B) never reach device memory.
+template <bool FromTables>
+struct Operands {
+  const int64_t *x, *y, *z;   // planes, or the tables tx, ty2, tz
+  const uint8_t *absd, *sgn;  // FromTables: the digits
+  int64_t w, n, rows, L;      // lanes; FromTables: table lanes, rows, lanes an MSM
+  __device__ __forceinline__ Pt operator()(int64_t j) const {
+    if constexpr (FromTables) {
+      return selected_point(x, y, z, absd, sgn, n, rows, L, j);
+    } else {
+      return pt_load(x, y, z, w, j);
+    }
+  }
+};
+
 // --- reduce_block: replaces reduce_block_pallas / _reduce_block_kernel -----
 // (:490, :474).  Narrows (16, W) by F within blocks of 128 * F lanes: output
 // lane t of block k sums input lanes k*128F + t + m*128, m < F, in the Pallas
 // kernel's halving order (at level h = F/2, F/4, ..., 1 pair m with m + h),
-// so the projective outputs match it limb for limb.  Two designs, the same
-// words (the wrapper, ops/kernels.py: reduce_block, picks by output lanes a
-// call):
+// so the projective outputs match it limb for limb.  With FromTables the
+// input lanes are the points the digits select (Operands), the first
+// launch of the MSM route from 256 to 1,023 lanes, so the words equal
+// select_small + the kernel on its output.  Two designs, the same words (the
+// wrapper, ops/kernels.py: reduce_block, picks by output lanes a call):
 //  * reduce_block_kernel, wide: one thread per output lane, its F - 1
 //    additions one after another (12 (F - 1) dependent products: 84 at F =
 //    8).  For the wide calls, where one thread a lane fills the card.
@@ -136,18 +164,16 @@ __device__ __forceinline__ void halve(Pt* v) {
 //    log2 F rounds.  For the narrow calls (a few thousand output lanes:
 //    cli test's MSMs, the bench's second launch), where the wide design
 //    fills a few dozen blocks and waits on its chain.
-template <int F>
-__global__ void reduce_block_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
-                                    const int64_t* __restrict__ z, int64_t* __restrict__ ox,
-                                    int64_t* __restrict__ oy, int64_t* __restrict__ oz,
-                                    int64_t w) {
-  int64_t n_out = w / F;
+template <int F, bool FromTables>
+__global__ void reduce_block_kernel(const Operands<FromTables> in, int64_t* __restrict__ ox,
+                                    int64_t* __restrict__ oy, int64_t* __restrict__ oz) {
+  const int64_t n_out = in.w / F;
   for (int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; j < n_out;
        j += (int64_t)gridDim.x * blockDim.x) {
     int64_t base = (j / 128) * (128 * F) + (j % 128);
     Pt v[F];
 #pragma unroll
-    for (int m = 0; m < F; m++) v[m] = pt_load(x, y, z, w, base + m * 128);
+    for (int m = 0; m < F; m++) v[m] = in(base + m * 128);
     halve<F>(v);
     pt_store(ox, oy, oz, n_out, j, v[0]);
   }
@@ -164,26 +190,25 @@ constexpr int kReduceOuts = kNarrowLanes / (F / 2);
 // all or none of them, and one without skips the level on a uniform
 // branch), and a warp's groups hold neighbouring output lanes: its loads
 // and stores touch 4 neighbouring lanes of a limb row, one 32-byte sector.
-// The first level reads its operands from device memory; each level leaves
-// addition g's sum in slot g of shared memory, where addition g of level h
-// finds its two operands (slots g and g + outs * h); the last level's
-// groups store the output lanes (fe_store_group).  n_out = W / F is
-// a multiple of 128, so every block is whole.
-template <int F>
+// The first level reads its operands from device memory (with FromTables
+// by digit from the tables); each level leaves addition g's sum in slot g
+// of shared memory, where addition g of level h finds its two operands
+// (slots g and g + outs * h); the last level's groups store the output
+// lanes (fe_store_group).  n_out = W / F is a multiple of 128, so every
+// block is whole.
+template <int F, bool FromTables>
 __global__ void __launch_bounds__(kThreads)
-    reduce_block_narrow_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
-                               const int64_t* __restrict__ z, int64_t* __restrict__ ox,
-                               int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t w) {
+    reduce_block_narrow_kernel(const Operands<FromTables> in, int64_t* __restrict__ ox,
+                               int64_t* __restrict__ oy, int64_t* __restrict__ oz) {
   constexpr int outs = kReduceOuts<F>;
   constexpr int groups_a_warp = 32 / kNarrowGroup;
   __shared__ Pt sums[kNarrowLanes];
   const int g = threadIdx.x / kNarrowGroup, first = threadIdx.x / 32 * groups_a_warp;
   const int i = g % outs, m = g / outs;
-  const int64_t n_out = w / F;
+  const int64_t n_out = in.w / F;
   for (int64_t j0 = blockIdx.x * (int64_t)outs; j0 < n_out; j0 += (int64_t)gridDim.x * outs) {
     const int64_t j = j0 + i, base = (j / 128) * (128 * F) + j % 128;
-    Pt s = pt_add_warp<kNarrowGroup>(pt_load(x, y, z, w, base + m * 128),
-                                     pt_load(x, y, z, w, base + (m + F / 2) * 128));
+    Pt s = pt_add_warp<kNarrowGroup>(in(base + m * 128), in(base + (m + F / 2) * 128));
 #pragma unroll
     for (int h = F / 4; h >= 1; h /= 2) {
       sums[g] = s;  // the 8 threads of a group write the same words
@@ -208,9 +233,9 @@ __global__ void __launch_bounds__(kThreads)
 // compiles into one program.  Input: table_flat's flat tables of B L lanes
 // and the (B, rows, L) digits, L a power of two under 128; output (16, B,
 // rows) row sums for horner.  The first level gathers its two operands by
-// digit straight from the tables (X and Z entry |d|, Y entry |d| + 9 s:
-// select_small_kernel's words), so the selected points never reach device
-// memory.  With `from_tables` 0 it reads them from a (16, B, rows, L) plane
+// digit straight from the tables (curve.cuh: selected_point, X and Z entry
+// |d|, Y entry |d| + 9 s: select_small_kernel's words), so the selected
+// points never reach device memory.  With `from_tables` 0 it reads them from a (16, B, rows, L) plane
 // instead (the tree alone, for the smoke's comparison with select_small +
 // this tree).  The tree is the one the padd kernel ran level by level (pair
 // q's lane t plus lane t + h, h = L / 2, L / 4, ..., 1), so the words equal
@@ -241,8 +266,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int L>
 __global__ void __launch_bounds__(L >= 8 ? 4 * L : 32)
     reduce_lanes_kernel(const int64_t* __restrict__ tx, const int64_t* __restrict__ ty2,
-                        const int64_t* __restrict__ tz, const int64_t* __restrict__ absd,
-                        const int64_t* __restrict__ sgn, int64_t* __restrict__ ox,
+                        const int64_t* __restrict__ tz, const uint8_t* __restrict__ absd,
+                        const uint8_t* __restrict__ sgn, int64_t* __restrict__ ox,
                         int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch,
                         int64_t rows, int levels, int from_tables) {
   constexpr int half = L / 2, per = L >= 8 ? 1 : 8 / L;  // groups a pair, pairs a block
@@ -253,10 +278,9 @@ __global__ void __launch_bounds__(L >= 8 ? 4 * L : 32)
   const int64_t qc = q < pairs ? q : pairs - 1;  // a pair past the last repeats it
   Pt a, b;  // the level's two operands: the group's own sum and the one h groups above
   if (from_tables) {
-    const int64_t n = batch * L, c = (qc / rows) * L + t, j = qc * L + t;
-    const int64_t d0 = absd[j], s0 = sgn[j], d1 = absd[j + half], s1 = sgn[j + half];
-    a = table_entry(tx, ty2, tz, n, c, d0, s0);
-    b = table_entry(tx, ty2, tz, n, c + half, d1, s1);
+    const int64_t n = batch * L, j = qc * L + t;
+    a = selected_point(tx, ty2, tz, absd, sgn, n, rows, L, j);
+    b = selected_point(tx, ty2, tz, absd, sgn, n, rows, L, j + half);
   } else {
     const int64_t m = pairs * L, j = qc * L + t;
     a = pt_load(tx, ty2, tz, m, j);
@@ -306,22 +330,28 @@ __global__ void __launch_bounds__(L >= 8 ? 4 * L : 32)
 // or multiplies, so the design shortens the chain:
 //  * tail_rows_kernel: one block of 64 threads per (MSM, row), all rows at
 //    once; 7 dependent additions, the row sum to a (16, batch, rows)
-//    scratch;
+//    scratch.  With FromTables its input lanes are the points the digits
+//    select from the tables (Operands): the MSM route of 128 lanes selects
+//    here, and the words equal select_small + the plane route;
 //  * horner_warp_kernel, tail_horner's second launch and horner's only one:
 //    one warp per MSM runs Horner over the row sums with the
 //    warp-cooperative addition and doubling of curve_warp.cuh (10 rounds of
 //    one field product each a row, where one thread would run 44 products).
-__global__ void __launch_bounds__(64) tail_rows_kernel(const int64_t* __restrict__ x,
-                                                       const int64_t* __restrict__ y,
-                                                       const int64_t* __restrict__ z,
+//    With Canon, lanes 0-2 store fe_canon of X, Y and Z (ox, oy and oz the
+//    three planes of a stacked (3, 16, batch) tensor): every MSM's result
+//    leaves the route canonical, ready for one device-to-host copy, with no
+//    normalize3 launch after it (the JAX package compiles _normalize3 into
+//    the MSM's program).  The words equal normalize3 of the plain stores.
+template <bool FromTables>
+__global__ void __launch_bounds__(64) tail_rows_kernel(const Operands<FromTables> in,
                                                        int64_t* __restrict__ rx,
                                                        int64_t* __restrict__ ry,
                                                        int64_t* __restrict__ rz, int64_t n_rows) {
   __shared__ Pt lanes[64];
   const int t = threadIdx.x;
   const int64_t br = blockIdx.x;  // b * rows + r
-  const int64_t stride = n_rows * 128, base = br * 128;
-  lanes[t] = pt_add(pt_load(x, y, z, stride, base + t), pt_load(x, y, z, stride, base + t + 64));
+  const int64_t base = br * 128;
+  lanes[t] = pt_add(in(base + t), in(base + t + 64));
   __syncthreads();
   for (int h = 32; h >= 1; h /= 2) {
     if (t < h) lanes[t] = pt_add(lanes[t], lanes[t + h]);
@@ -330,6 +360,7 @@ __global__ void __launch_bounds__(64) tail_rows_kernel(const int64_t* __restrict
   if (t == 0) pt_store(rx, ry, rz, n_rows, br, lanes[0]);
 }
 
+template <bool Canon>
 __global__ void __launch_bounds__(32) horner_warp_kernel(
     const int64_t* __restrict__ rx, const int64_t* __restrict__ ry,
     const int64_t* __restrict__ rz, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
@@ -340,7 +371,14 @@ __global__ void __launch_bounds__(32) horner_warp_kernel(
   for (int64_t r = lane; r < rows; r += 32) rowsum[r] = pt_load(rx, ry, rz, batch * rows, b * rows + r);
   __syncwarp();
   const Pt acc = horner_rows_warp(rowsum, rows);
-  if (lane == 0) pt_store(ox, oy, oz, batch, b, acc);
+  if constexpr (Canon) {
+    if (lane < 3) {  // coordinate `lane`, picked by selects (no local memory)
+      const Fe v[3] = {acc.x, acc.y, acc.z};
+      fe_store(lane == 0 ? ox : lane == 1 ? oy : oz, batch, b, fe_canon(fe_pick(v, lane)));
+    }
+  } else if (lane == 0) {
+    pt_store(ox, oy, oz, batch, b, acc);
+  }
 }
 
 // --- table_flat: replaces table_flat_pallas / _table_flat_kernel -----------
@@ -428,8 +466,8 @@ __global__ void __launch_bounds__(kThreads)
 //    than gathering from L2.
 __global__ void __launch_bounds__(kSrThreads, 2)
     select_reduce_kernel(const int64_t* __restrict__ tx, const int64_t* __restrict__ ty2,
-                         const int64_t* __restrict__ tz, const int64_t* __restrict__ absd,
-                         const int64_t* __restrict__ sgn, int64_t* __restrict__ ox,
+                         const int64_t* __restrict__ tz, const uint8_t* __restrict__ absd,
+                         const uint8_t* __restrict__ sgn, int64_t* __restrict__ ox,
                          int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch,
                          int64_t rows, int64_t L) {
   extern __shared__ u32 tab[];  // [entry 1..8][24 words][128 lanes]
@@ -462,8 +500,8 @@ __global__ void __launch_bounds__(kSrThreads, 2)
 __global__ void select_reduce_rows_kernel(const int64_t* __restrict__ tx,
                                           const int64_t* __restrict__ ty2,
                                           const int64_t* __restrict__ tz,
-                                          const int64_t* __restrict__ absd,
-                                          const int64_t* __restrict__ sgn,
+                                          const uint8_t* __restrict__ absd,
+                                          const uint8_t* __restrict__ sgn,
                                           int64_t* __restrict__ ox, int64_t* __restrict__ oy,
                                           int64_t* __restrict__ oz, int64_t batch, int64_t rows,
                                           int64_t L) {
@@ -582,17 +620,48 @@ inline int fold_blocks(int64_t lanes) {
   return (int)(b > 65535 * 16 ? 65535 * 16 : b);
 }
 
-template <int F>
-int reduce_block_launch(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* ox,
-                        int64_t* oy, int64_t* oz, int64_t w, int narrow, cudaStream_t s) {
-  const int64_t n_out = w / F;
+// The first level's operands: (16, w) planes x, y, z, or with FromTables
+// flat tables x, y, z of w / rows lanes and (w / (rows L), rows, L) digits.
+template <bool FromTables>
+Operands<FromTables> operands(const int64_t* x, const int64_t* y, const int64_t* z,
+                              const uint8_t* absd, const uint8_t* sgn, int64_t w, int64_t rows,
+                              int64_t L) {
+  return {x, y, z, absd, sgn, w, FromTables ? w / rows : 0, rows, L};
+}
+
+template <int F, bool FromTables>
+int reduce_block_launch(const Operands<FromTables>& in, int64_t* ox, int64_t* oy, int64_t* oz,
+                        int narrow, cudaStream_t s) {
+  const int64_t n_out = in.w / F;
   if (n_out > 0 && narrow) {
-    reduce_block_narrow_kernel<F><<<blocks_for(n_out, kReduceOuts<F>), kThreads, 0, s>>>(
-        x, y, z, ox, oy, oz, w);
+    reduce_block_narrow_kernel<F, FromTables>
+        <<<blocks_for(n_out, kReduceOuts<F>), kThreads, 0, s>>>(in, ox, oy, oz);
   } else if (n_out > 0) {
-    reduce_block_kernel<F><<<blocks_for(n_out), kThreads, 0, s>>>(x, y, z, ox, oy, oz, w);
+    reduce_block_kernel<F, FromTables><<<blocks_for(n_out), kThreads, 0, s>>>(in, ox, oy, oz);
   }
   return (int)cudaGetLastError();
+}
+
+template <bool FromTables>
+int reduce_block_factor(const Operands<FromTables>& in, int64_t* ox, int64_t* oy, int64_t* oz,
+                        int factor, int narrow, cudaStream_t s) {
+  switch (factor) {
+    case 2: return reduce_block_launch<2>(in, ox, oy, oz, narrow, s);
+    case 4: return reduce_block_launch<4>(in, ox, oy, oz, narrow, s);
+    case 8: return reduce_block_launch<8>(in, ox, oy, oz, narrow, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+void horner_launch(const int64_t* rx, const int64_t* ry, const int64_t* rz, int64_t* ox,
+                   int64_t* oy, int64_t* oz, int64_t batch, int64_t rows, int canon,
+                   cudaStream_t s) {
+  const size_t smem = rows * sizeof(Pt);
+  if (canon) {
+    horner_warp_kernel<true><<<(unsigned)batch, 32, smem, s>>>(rx, ry, rz, ox, oy, oz, batch, rows);
+  } else {
+    horner_warp_kernel<false><<<(unsigned)batch, 32, smem, s>>>(rx, ry, rz, ox, oy, oz, batch, rows);
+  }
 }
 
 }  // namespace
@@ -629,29 +698,29 @@ int bppp_padd(const int64_t* x1, const int64_t* y1, const int64_t* z1, const int
   return (int)cudaGetLastError();
 }
 
+// canon: 1 stores fe_canon of X, Y and Z (ox, oy, oz: the planes of one
+// stacked (3, 16, batch) tensor), 0 the projective sum.
 int bppp_horner(const int64_t* rx, const int64_t* ry, const int64_t* rz, int64_t* ox,
-                int64_t* oy, int64_t* oz, int64_t batch, int64_t rows, void* stream) {
-  if (batch > 0) {
-    horner_warp_kernel<<<(unsigned)batch, 32, rows * sizeof(Pt), (cudaStream_t)stream>>>(
-        rx, ry, rz, ox, oy, oz, batch, rows);
-  }
+                int64_t* oy, int64_t* oz, int64_t batch, int64_t rows, int canon, void* stream) {
+  if (batch > 0) horner_launch(rx, ry, rz, ox, oy, oz, batch, rows, canon, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
-// narrow: 1 runs the narrow design, 0 the wide one.
-int bppp_reduce_block(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* ox,
-                      int64_t* oy, int64_t* oz, int64_t w, int factor, int narrow,
-                      void* stream) {
-  switch (factor) {
-    case 2:
-      return reduce_block_launch<2>(x, y, z, ox, oy, oz, w, narrow, (cudaStream_t)stream);
-    case 4:
-      return reduce_block_launch<4>(x, y, z, ox, oy, oz, w, narrow, (cudaStream_t)stream);
-    case 8:
-      return reduce_block_launch<8>(x, y, z, ox, oy, oz, w, narrow, (cudaStream_t)stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+// narrow: 1 runs the narrow design, 0 the wide one.  absd null: x, y, z
+// are (16, w) planes (rows and L unused); else the flat tables of w / rows
+// lanes and absd, sgn the (w / (rows L), rows, L) uint8 digits, the w input
+// lanes the points they select.
+int bppp_reduce_block(const int64_t* x, const int64_t* y, const int64_t* z, const uint8_t* absd,
+                      const uint8_t* sgn, int64_t* ox, int64_t* oy, int64_t* oz, int64_t rows,
+                      int64_t L, int64_t w, int factor, int narrow, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (!absd) {
+    return reduce_block_factor(operands<false>(x, y, z, absd, sgn, w, rows, L), ox, oy, oz, factor,
+                               narrow, s);
   }
+  if (rows < 1 || L < 1 || w % (rows * L)) return (int)cudaErrorInvalidValue;
+  return reduce_block_factor(operands<true>(x, y, z, absd, sgn, w, rows, L), ox, oy, oz, factor,
+                             narrow, s);
 }
 
 // pairs: B rows (MSM, row) pairs of L lanes each, 2 <= L < 128 a power of two.
@@ -659,7 +728,7 @@ int bppp_reduce_block(const int64_t* x, const int64_t* y, const int64_t* z, int6
 // rows, L) digits; with from_tables 0, tx, ty2, tz the (16, batch rows L)
 // selected planes and absd, sgn unused.  levels: log2 L for the row sums.
 int bppp_reduce_lanes(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
-                      const int64_t* absd, const int64_t* sgn, int64_t* ox, int64_t* oy,
+                      const uint8_t* absd, const uint8_t* sgn, int64_t* ox, int64_t* oy,
                       int64_t* oz, int64_t batch, int64_t rows, int64_t L, int64_t levels,
                       int from_tables, void* stream) {
   if (L < 2 || L >= 128 || (L & (L - 1)) || levels < 1 || batch < 0 || rows < 0) {
@@ -686,14 +755,25 @@ int bppp_reduce_lanes(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
   return (int)cudaGetLastError();
 }
 
-int bppp_tail_horner(const int64_t* x, const int64_t* y, const int64_t* z, int64_t* rx,
-                     int64_t* ry, int64_t* rz, int64_t* ox, int64_t* oy, int64_t* oz,
-                     int64_t batch, int64_t rows, void* stream) {
+// absd null: x, y, z the (16, batch, rows * 128) planes; else the flat
+// tables of batch * 128 lanes and absd, sgn the (batch, rows, 128) uint8
+// digits.  canon as bppp_horner's.
+int bppp_tail_horner(const int64_t* x, const int64_t* y, const int64_t* z, const uint8_t* absd,
+                     const uint8_t* sgn, int64_t* rx, int64_t* ry, int64_t* rz, int64_t* ox,
+                     int64_t* oy, int64_t* oz, int64_t batch, int64_t rows, int canon,
+                     void* stream) {
   if (batch > 0 && rows > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    tail_rows_kernel<<<(unsigned)(batch * rows), 64, 0, s>>>(x, y, z, rx, ry, rz, batch * rows);
-    horner_warp_kernel<<<(unsigned)batch, 32, rows * sizeof(Pt), s>>>(rx, ry, rz, ox, oy, oz,
-                                                                       batch, rows);
+    const cudaStream_t s = (cudaStream_t)stream;
+    const unsigned blocks = (unsigned)(batch * rows);
+    const int64_t w = batch * rows * 128;
+    if (absd) {
+      tail_rows_kernel<true><<<blocks, 64, 0, s>>>(operands<true>(x, y, z, absd, sgn, w, rows, 128),
+                                                   rx, ry, rz, batch * rows);
+    } else {
+      tail_rows_kernel<false><<<blocks, 64, 0, s>>>(
+          operands<false>(x, y, z, absd, sgn, w, rows, 128), rx, ry, rz, batch * rows);
+    }
+    horner_launch(rx, ry, rz, ox, oy, oz, batch, rows, canon, s);
   }
   return (int)cudaGetLastError();
 }
@@ -712,7 +792,7 @@ int bppp_table_flat(const int64_t* px, const int64_t* py, const int64_t* pz, int
 }
 
 int bppp_select_reduce(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
-                       const int64_t* absd, const int64_t* sgn, int64_t* ox, int64_t* oy,
+                       const uint8_t* absd, const uint8_t* sgn, int64_t* ox, int64_t* oy,
                        int64_t* oz, int64_t batch, int64_t rows, int64_t L, int staged,
                        void* stream) {
   if (L % 1024) return (int)cudaErrorInvalidValue;

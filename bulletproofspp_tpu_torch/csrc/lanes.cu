@@ -1,10 +1,12 @@
 // lanes: the small lane-wise device functions of the main paths, which the
 // JAX package compiles into its device programs (XLA, no Pallas):
-//  * select_small_kernel replaces msm_kernel's table select from 128 to
-//    1,023 lanes, msm._table's entries picked by digit (bulletproofspp_tpu/
-//    ops/msm.py:145-156, onehot_select): entry |d| of X and Z, |d| + 9 s of
-//    Y (under 128 lanes reduce_lanes_kernel, csrc/kernels.cu, selects the
-//    same words itself);
+//  * select_small_kernel replaces msm_kernel's table select, msm._table's
+//    entries picked by digit (bulletproofspp_tpu/ops/msm.py:145-156,
+//    onehot_select): entry |d| of X and Z, |d| + 9 s of Y.  No MSM route
+//    launches it: under 128 lanes reduce_lanes, from 128 to 1,023 the first
+//    reduce_block or tail_rows launch (csrc/kernels.cu) selects the same
+//    words itself, through the same gather (curve.cuh: selected_point).  It
+//    stays as the unfused route those are held and timed against;
 //  * endo_kernel replaces curve.endo (bulletproofspp_tpu/ops/curve.py:251),
 //    phi(x, y, z) = (beta x, y, z), and with `interleave` the engine's
 //    _interleave_endo (bulletproofspp_tpu/ops/engine.py:119): [P_j, phi(P_j)]
@@ -13,7 +15,9 @@
 //    -y a lane (fe_neg: strict, -0 may come out as 0 or Q);
 //  * normalize3_kernel replaces curve._normalize3 (bulletproofspp_tpu/ops/
 //    curve.py:124): three strict planes to one stacked (3, 16, n) canonical
-//    tensor, ready for one device-to-host copy;
+//    tensor, ready for one device-to-host copy (curve.to_affine_host; an
+//    MSM's result comes out canonical from horner_warp_kernel's last warp
+//    instead, csrc/kernels.cu);
 //  * assemble_kernel replaces the entry assembly that the JAX package
 //    compiles into its oracle step (_assemble_many_body, bulletproofspp_tpu/
 //    ops/engine.py:186, inlined by _msm_many_norm, :223) and into its
@@ -43,7 +47,7 @@
 // Planes: (16, n) int64 of 16-bit limbs, strict in (not canonical: values in
 // [Q, 2^256) and saturated 0xFFFF limbs occur).  Flat tables: entry e, limb i
 // of lane c at row 16 e + i of a (16 E, B L) plane (table_flat's layout);
-// digits (B, rows, L) int64, |d| in 0..8 and s in {0, 1}.
+// digits (B, rows, L) uint8, |d| in 0..8 and s in {0, 1}.
 //
 // assemble's table: the segments' addresses and strides are known only on
 // the host, so they travel in the launch itself: a __grid_constant__ struct
@@ -72,14 +76,13 @@
 #include <cstdint>
 #include <cstring>
 
-#include "field.cuh"
+#include "curve.cuh"
 
 using namespace bppp;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kTable = 9;  // entries 0P..8P; the Y table holds 2 * kTable (then -Y)
 constexpr int kLimbs = 16;
 
 // beta, the cube root of unity mod p of the GLV endomorphism (core/ec.py:
@@ -104,28 +107,19 @@ __device__ __forceinline__ int64_t first_lane() {
 
 __device__ __forceinline__ int64_t lane_stride() { return (int64_t)gridDim.x * blockDim.x; }
 
-// One thread a (MSM b, row r, lane l), j = (b rows + r) L + l: its three
-// entries' 16 limbs each, from table lane b L + l.
+// One thread a (MSM b, row r, lane l), j = (b rows + r) L + l: the point
+// its digit selects (curve.cuh: selected_point, the one gather of every
+// select on the MSM routes), stored.
 __global__ void select_small_kernel(const int64_t* __restrict__ tx, const int64_t* __restrict__ ty2,
                                     const int64_t* __restrict__ tz,
-                                    const int64_t* __restrict__ absd,
-                                    const int64_t* __restrict__ sgn, int64_t* __restrict__ ox,
+                                    const uint8_t* __restrict__ absd,
+                                    const uint8_t* __restrict__ sgn, int64_t* __restrict__ ox,
                                     int64_t* __restrict__ oy, int64_t* __restrict__ oz,
                                     int64_t batch, int64_t rows, int64_t L) {
   const int64_t m = batch * rows * L;  // selected lanes
   const int64_t n = batch * L;         // table lanes
   for (int64_t j = first_lane(); j < m; j += lane_stride()) {
-    const int64_t c = (j / (rows * L)) * L + j % L;
-    const int64_t d = absd[j];
-    const int64_t* px = tx + kLimbs * d * n + c;
-    const int64_t* py = ty2 + kLimbs * (d + kTable * sgn[j]) * n + c;
-    const int64_t* pz = tz + kLimbs * d * n + c;
-#pragma unroll
-    for (int i = 0; i < kLimbs; i++) {
-      ox[i * m + j] = px[i * n];
-      oy[i * m + j] = py[i * n];
-      oz[i * m + j] = pz[i * n];
-    }
+    pt_store(ox, oy, oz, m, j, selected_point(tx, ty2, tz, absd, sgn, n, rows, L, j));
   }
 }
 
@@ -276,7 +270,7 @@ int launch_assemble(const void* table, int64_t bytes, int64_t* ox, int64_t* oy, 
 extern "C" {
 
 int bppp_select_small(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
-                      const int64_t* absd, const int64_t* sgn, int64_t* ox, int64_t* oy,
+                      const uint8_t* absd, const uint8_t* sgn, int64_t* ox, int64_t* oy,
                       int64_t* oz, int64_t batch, int64_t rows, int64_t L, void* stream) {
   const int64_t m = batch * rows * L;
   if (m > 0) {

@@ -64,9 +64,11 @@ __device__ __forceinline__ Pt sr_entry(const u32* tab, int l, u32 sel) {
 }
 
 // All rows, 11 at a time; thread (slot, c).  The entries must be in tab and
-// the block synchronized.
-__device__ __forceinline__ void sr_rows(const u32* tab, const int64_t* __restrict__ absd,
-                                        const int64_t* __restrict__ sgn, int64_t* __restrict__ ox,
+// the block synchronized.  The (batch, rows, L) digits are uint8, read a
+// byte at a time: a thread's eight lie 128 lanes apart, and the wrapper
+// promises no alignment wider than a byte.
+__device__ __forceinline__ void sr_rows(const u32* tab, const uint8_t* __restrict__ absd,
+                                        const uint8_t* __restrict__ sgn, int64_t* __restrict__ ox,
                                         int64_t* __restrict__ oy, int64_t* __restrict__ oz,
                                         int64_t batch, int64_t rows, int64_t L, const SrBlock& blk) {
   const int64_t per_row = L / 8, n_out = batch * rows * per_row;

@@ -3,7 +3,7 @@
 // :563), the MSM route for 2^21 lanes and more.
 //
 // Contract (ops/kernels.py): points (16, batch * L) strict int64 planes,
-// digits absd/sgn (batch, rows, L) int64; output (16, batch * rows * L / 8)
+// digits absd/sgn (batch, rows, L) uint8; output (16, batch * rows * L / 8)
 // row-major partials, equal limb for limb to
 // select_reduce(table_flat(p), absd, sgn): for MSM b, row r and lane block k
 // of 1,024, output lane t < 128 sums the entries selected by the digits of
@@ -48,8 +48,8 @@ __device__ __forceinline__ void sr_put(u32* tab, int e, int l, const Pt& p) {
 
 __global__ void __launch_bounds__(kSrThreads, 2)
     select_reduce_fused_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
-                               const int64_t* __restrict__ pz, const int64_t* __restrict__ absd,
-                               const int64_t* __restrict__ sgn, int64_t* __restrict__ ox,
+                               const int64_t* __restrict__ pz, const uint8_t* __restrict__ absd,
+                               const uint8_t* __restrict__ sgn, int64_t* __restrict__ ox,
                                int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch,
                                int64_t rows, int64_t L) {
   extern __shared__ u32 tab[];  // [entry 1..8][24 words][128 lanes]
@@ -75,7 +75,7 @@ __global__ void __launch_bounds__(kSrThreads, 2)
 extern "C" {
 
 int bppp_select_reduce_fused(const int64_t* px, const int64_t* py, const int64_t* pz,
-                             const int64_t* absd, const int64_t* sgn, int64_t* ox, int64_t* oy,
+                             const uint8_t* absd, const uint8_t* sgn, int64_t* ox, int64_t* oy,
                              int64_t* oz, int64_t batch, int64_t rows, int64_t L,
                              void* stream) {
   if (L % 1024) return (int)cudaErrorInvalidValue;

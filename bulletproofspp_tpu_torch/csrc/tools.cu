@@ -56,8 +56,8 @@ inline int blocks_for(int64_t n) {
 // out_w 128 this is select_reduce's function.
 template <int F>
 __global__ void sr_variant_kernel(const int64_t* __restrict__ tx, const int64_t* __restrict__ ty2,
-                                  const int64_t* __restrict__ tz, const int64_t* __restrict__ absd,
-                                  const int64_t* __restrict__ sgn, int64_t* __restrict__ ox,
+                                  const int64_t* __restrict__ tz, const uint8_t* __restrict__ absd,
+                                  const uint8_t* __restrict__ sgn, int64_t* __restrict__ ox,
                                   int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t rows,
                                   int64_t L, int64_t out_w, int noselect) {
   const int64_t blk = out_w * F, per_row = L / F, n_out = rows * per_row;
@@ -184,8 +184,8 @@ void launch_chain(const int64_t* a0, const int64_t* a1, const int64_t* a2, const
 
 extern "C" {
 
-int bppp_sr_variant(const int64_t* tx, const int64_t* ty2, const int64_t* tz, const int64_t* absd,
-                    const int64_t* sgn, int64_t* ox, int64_t* oy, int64_t* oz, int64_t rows,
+int bppp_sr_variant(const int64_t* tx, const int64_t* ty2, const int64_t* tz, const uint8_t* absd,
+                    const uint8_t* sgn, int64_t* ox, int64_t* oy, int64_t* oz, int64_t rows,
                     int64_t L, int64_t blk, int64_t out_w, int noselect, void* stream) {
   if (out_w <= 0 || blk % out_w || L % blk) return (int)cudaErrorInvalidValue;
   const int64_t n_out = rows * (L / (blk / out_w));

@@ -71,7 +71,7 @@ def msm_case(n: int, seed: int):
 def _example_msm_args(points: int, seed: int, device):
     """The JAX dry run's MSM instance (``__graft_entry__.py:13``): points G,
     2G, 4G, ..., seeded scalars, GLV lanes [P, phi(P)].  Returns the lanes'
-    affine points and (16, 1, L) planes with (1, ROWS, L) int64 digits."""
+    affine points and (16, 1, L) planes with (1, ROWS, L) uint8 digits."""
     from .core import ec
     from .core.fields import R
     from .ops import curve, glv
@@ -85,7 +85,7 @@ def _example_msm_args(points: int, seed: int, device):
     for pt in pts:
         halves += glv.split(rng.randrange(R))
         lane_pts += [pt, (ec.BETA * pt[0] % ec.P, pt[1])]
-    absd, sgn = (torch.as_tensor(d.astype(np.int64))[None] for d in glv.recode_batch(halves))
+    absd, sgn = (torch.as_tensor(d.astype(np.uint8))[None] for d in glv.recode_batch(halves))
     planes = (c.unsqueeze(1) for c in curve.from_affine_host(lane_pts, device))
     return lane_pts, (*planes, absd, sgn)
 
@@ -188,7 +188,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     absd, sgn = sharded.pad_rows(absd, sgn, win)
     got = curve.to_affine_host(sharded.sharded_msm(mesh, px, py, pz, absd, sgn))
     # sign 1 = a negative digit (glv.recode_signed)
-    digits = (absd[0] * (1 - 2 * sgn[0])).numpy()
+    digits = (absd[0].long() * (1 - 2 * sgn[0].long())).numpy()
     if got != [_host_msm_from_digits(lane_pts, digits)]:
         raise AssertionError("the sharded MSM disagrees with the host result")
 

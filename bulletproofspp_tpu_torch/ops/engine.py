@@ -225,9 +225,9 @@ class TorchEngine:
             off += count
         (px, py, pz), = _assemble(
             [[[_dp_slice(bv, n) for bv, n in comps] for comps, _ in entries]], L, interleave=True)
-        dig = torch.from_numpy(digits).to(self.device).to(torch.int64)
-        acc = msm.msm(px, py, pz, dig[0], dig[1])
-        pts = curve.affine_from_normalized(limb.planes_to_numpy(curve.normalize3(*acc)))
+        dig = torch.from_numpy(digits).to(self.device)  # uint8: every kernel reads bytes
+        acc = msm.msm(px, py, pz, dig[0], dig[1], canonical=True)
+        pts = curve.affine_from_normalized(limb.planes_to_numpy(acc))
         if not empty:
             return pts
         it = iter(pts)

@@ -13,11 +13,13 @@ replace XLA-only functions: fold (``fold_mul_kernel`` of
 decoding in verify), which as plain PyTorch dominated the card's time,
 and inv and to_affine (``limb.inv`` / ``batch_inv`` and
 ``curve.to_affine``, the affine conversion of ``fold_bases`` and
-``shared_mul``), and the four lane-wise functions of ``csrc/lanes.cu``
-that every prove and verify runs: select_small (the table select of MSMs
-of 128 to 1,023 lanes), endo (GLV's phi, and the engine's [P, phi(P)]
-interleave), pneg and normalize3 (before each device-to-host copy of a
-result), and the two device programs the JAX package compiles around
+``shared_mul``), and the four lane-wise functions of ``csrc/lanes.cu``:
+select_small (the table select, which the MSM routes now run inside
+reduce_lanes, reduce_block and tail_horner: it stays as their unfused
+yardstick), endo (GLV's phi, and the engine's [P, phi(P)] interleave),
+pneg and normalize3 (canonical planes for one device-to-host copy; an
+MSM's result leaves horner or tail_horner canonical instead, their
+``canonical``), and the two device programs the JAX package compiles around
 its MSMs and folds: assemble (the oracle step's entry assembly,
 ``_assemble_many_body`` / ``_assemble_fold`` of
 ``bulletproofspp_tpu/ops/engine.py``: slices, concatenation, identity
@@ -29,7 +31,9 @@ in ``csrc/kernels.cu``).  Each
 keeps the contract at the boundary:
 (16, N) int64 planes of 16-bit limbs, strict in and out (``ops.limb``);
 multiple tables are flat, entry e and limb i of lane j at row 16 e + i
-of a (16 E, N) plane.  Sources: one library per entry file of
+of a (16 E, N) plane; digits are (B, rows, L) uint8 planes, |d| and the
+sign (``_check_digits``; the plain versions widen them for
+``torch.gather``).  Sources: one library per entry file of
 ``SOURCES`` (``csrc/*.cu``), all including ``csrc/curve.cuh`` and
 ``csrc/field.cuh`` (device functions); ``kernels.cu`` also
 ``csrc/curve_warp.cuh`` (the cooperative addition and doubling of a warp
@@ -108,12 +112,13 @@ KERNELS = {
     for k in (
         Kernel("padd", "kernels.cu", "bppp_padd", [_P] * 9 + [_I64, _I32, _I32, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:759", ("padd_kernel|padd_narrow_kernel",)),
-        Kernel("horner", "kernels.cu", "bppp_horner", [_P] * 6 + [_I64, _I64, _P],
+        Kernel("horner", "kernels.cu", "bppp_horner", [_P] * 6 + [_I64, _I64, _I32, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:446", ("horner_warp_kernel",)),
-        Kernel("reduce_block", "kernels.cu", "bppp_reduce_block", [_P] * 6 + [_I64, _I32, _I32, _P],
+        Kernel("reduce_block", "kernels.cu", "bppp_reduce_block",
+               [_P] * 8 + [_I64] * 3 + [_I32, _I32, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:490",
                ("reduce_block_kernel|reduce_block_narrow_kernel",)),
-        Kernel("tail_horner", "kernels.cu", "bppp_tail_horner", [_P] * 9 + [_I64, _I64, _P],
+        Kernel("tail_horner", "kernels.cu", "bppp_tail_horner", [_P] * 11 + [_I64, _I64, _I32, _P],
                "bulletproofspp_tpu/ops/pallas_field.py:742",
                ("tail_rows_kernel", "horner_warp_kernel")),
         Kernel("table_flat", "kernels.cu", "bppp_table_flat", [_P] * 6 + [_I64, _I32, _P],
@@ -303,6 +308,33 @@ def _empty(shape, like):
     return tuple(torch.empty(shape, dtype=torch.int64, device=like.device) for _ in range(3))
 
 
+def _check_tables(name: str, tables, n: int):
+    """table_flat's flat tables of n lanes, contiguous, and their CUDA
+    device; raises unless they are (144, n), (288, n), (144, n)."""
+    tables = [t.contiguous() for t in tables]
+    if [t.shape for t in tables] != [(limb.NLIMB * TABLE, n), (2 * limb.NLIMB * TABLE, n),
+                                     (limb.NLIMB * TABLE, n)]:
+        raise ValueError(f"{name}: tables of {n} lanes must be (144, {n}), (288, {n}), "
+                         f"(144, {n})")
+    return tables, _check(*(t[:limb.NLIMB] for t in tables))
+
+
+def _check_digits(name: str, absd, sgn, like):
+    """The digit planes, contiguous; raises unless both are uint8 planes of
+    one shape on ``like``'s device.  Every kernel reads them as bytes (1/8
+    of int64's reads and memory: 138 MB, not 1.1 GB, at 2^21 lanes).  Their
+    range is not checked: they come only from the signed recodings
+    (``glv.recode_signed``, ``native.recode_signed``: |d| in 0..8, sign 0 or
+    1), and a check would read them back to the host, a wait on the card
+    every call.  Out of range, a kernel reads outside the tables, where the
+    plain versions' ``torch.gather`` raises."""
+    absd, sgn = absd.contiguous(), sgn.contiguous()
+    if any(d.dtype != torch.uint8 or d.device != like.device or d.shape != absd.shape
+           for d in (absd, sgn)):
+        raise ValueError(f"{name} digits must be uint8 planes of one shape on the tables' device")
+    return absd, sgn
+
+
 # padd, table_flat and reduce_block have two designs (``csrc/kernels.cu``):
 # wide, one thread per (output) lane, and narrow, each addition on a group
 # of 8 threads in 2 rounds of 6 field products (``csrc/curve_warp.cuh``).
@@ -369,25 +401,42 @@ def padd_design(p, q, narrow: bool, threads: int = 128):
 # ---------------------------------------------------------------------------
 
 
-def horner_plain(rx, ry, rz):
-    """(16, B, rows) row sums -> (16, B): 4 doublings and 1 addition per row."""
+def horner_plain(rx, ry, rz, canonical: bool = False):
+    """(16, B, rows) row sums -> (16, B): 4 doublings and 1 addition per row.
+    ``canonical``: the stacked (3, 16, B) ``normalize3_plain`` of it."""
     batch, rows = rx.shape[1], rx.shape[2]
     acc = curve.identity((batch,), rx.device)
     for r in range(rows):
         for _ in range(4):
             acc = curve.pdbl_loose(acc)
         acc = curve.padd_loose(acc, (rx[:, :, r], ry[:, :, r], rz[:, :, r]))
-    return curve.tighten3(acc)
+    out = curve.tighten3(acc)
+    return normalize3_plain(*out) if canonical else out
 
 
-def horner(rx, ry, rz):
+def _horner_out(batch: int, canonical: bool, like):
+    """The result of an MSM's last launch: three (16, B) planes, or with
+    ``canonical`` one stacked (3, 16, B) tensor (its three planes, and it)."""
+    if not canonical:
+        out = _empty((limb.NLIMB, batch), like)
+        return out, out
+    out = torch.empty((3, limb.NLIMB, batch), dtype=torch.int64, device=like.device)
+    return tuple(out), out
+
+
+def horner(rx, ry, rz, canonical: bool = False):
+    """``horner_plain`` on the card in one launch (one warp an MSM).  With
+    ``canonical`` the last warp stores ``fe_canon`` of X, Y and Z into one
+    stacked (3, 16, B) tensor: ``normalize3`` of the result, word for word,
+    without its launch."""
     if rx.device.type == "cpu":
-        return horner_plain(rx, ry, rz)
+        return horner_plain(rx, ry, rz, canonical)
     rx, ry, rz = (t.contiguous() for t in (rx, ry, rz))
     dev = _check(rx, ry, rz)
     batch, rows = rx.shape[1], rx.shape[2]
-    out = _empty((limb.NLIMB, batch), rx)
-    _launch("horner", f"K={batch}", dev, *_ptrs(rx, ry, rz, *out), batch, rows)
+    planes, out = _horner_out(batch, canonical, rx)
+    _launch("horner", f"K={batch}" + (" canonical" if canonical else ""), dev,
+            *_ptrs(rx, ry, rz, *planes), batch, rows, int(canonical))
     return out
 
 
@@ -396,10 +445,18 @@ def horner(rx, ry, rz):
 # ---------------------------------------------------------------------------
 
 
-def reduce_block_plain(p, factor: int):
+def _selected(tables, absd, sgn):
+    """The points the (B, rows, L) digits select, as (16, B rows L) planes."""
+    return tuple(t.reshape(limb.NLIMB, -1) for t in select_plain(tables, absd, sgn))
+
+
+def reduce_block_plain(p, factor: int, absd=None, sgn=None):
     """Halving complete adds inside each block of 128 * factor lanes
     (first half + second half, until 128 lanes remain), as
-    ``reduce_block_pallas`` does."""
+    ``reduce_block_pallas`` does.  With digits, over the points they select
+    from the flat tables ``p`` (``select_plain``, flattened)."""
+    if absd is not None:
+        p = _selected(p, absd, sgn)
     w = p[0].shape[1]
     blk = 128 * factor
     p = tuple(t.reshape(limb.NLIMB, w // blk, blk) for t in p)
@@ -428,25 +485,39 @@ REDUCE_BLOCK_WIDTHS = ((8448, 2), (16896, 2), (16896, 4), (33792, 2), (33792, 4)
                        (1655808, 4), (2196480, 4), (8650752, 8))
 
 
-def reduce_block(p, factor: int):
+def reduce_block(p, factor: int, absd=None, sgn=None):
     """``reduce_block_plain`` on the card: the narrow design under
-    REDUCE_BLOCK_WIDE_LANES output lanes, the wide one from there."""
-    return reduce_block_design(p, factor, p[0].shape[1] // factor < REDUCE_BLOCK_WIDE_LANES)
+    REDUCE_BLOCK_WIDE_LANES output lanes, the wide one from there.  With
+    (B, rows, L) uint8 digits ``absd`` and ``sgn``, ``p`` is table_flat's
+    flat tables of B L lanes and the W = B rows L input lanes are the
+    points the digits select: the first level gathers them by digit
+    (msm's route from 256 to 1,023 lanes), equal word for word to
+    ``reduce_block(select_small(p, absd, sgn) flattened, factor)``."""
+    w = p[0].shape[1] if absd is None else absd.numel()
+    return reduce_block_design(p, factor, w // factor < REDUCE_BLOCK_WIDE_LANES, absd, sgn)
 
 
-def reduce_block_design(p, factor: int, narrow: bool):
+def reduce_block_design(p, factor: int, narrow: bool, absd=None, sgn=None):
     """``reduce_block`` through one of its two designs: ``narrow`` or the
     wide one.  ``reduce_block`` picks by output lanes; the smoke picks."""
-    w = p[0].shape[1]
+    w = p[0].shape[1] if absd is None else absd.numel()
     if factor not in (2, 4, 8) or w % (128 * factor):
         raise ValueError(f"reduce_block: W={w} must be a multiple of 128 * factor, factor in 2/4/8")
     if p[0].device.type == "cpu":
-        return reduce_block_plain(p, factor)
-    p = tuple(t.contiguous() for t in p)
-    dev = _check(*p)
+        return reduce_block_plain(p, factor, absd, sgn)
+    if absd is None:
+        p = tuple(t.contiguous() for t in p)
+        dev = _check(*p)
+        digits, rows, L, shape = (None, None), 0, 0, f"W={w} f={factor}"
+    else:
+        batch, rows, L = absd.shape
+        p, dev = _check_tables("reduce_block", p, batch * L)
+        absd, sgn = _check_digits("reduce_block", absd, sgn, p[0])
+        digits = _ptrs(absd, sgn)
+        shape = f"W={w} f={factor} tables"
     out = _empty((limb.NLIMB, w // factor), p[0])
-    _launch("reduce_block", f"W={w} f={factor} {_design(narrow)}", dev, *_ptrs(*p, *out), w,
-            factor, int(narrow))
+    _launch("reduce_block", f"{shape} {_design(narrow)}", dev, *_ptrs(*p), *digits, *_ptrs(*out),
+            rows, L, w, factor, int(narrow))
     return out
 
 
@@ -455,10 +526,14 @@ def reduce_block_design(p, factor: int, narrow: bool):
 # ---------------------------------------------------------------------------
 
 
-def tail_horner_plain(p, rows: int):
+def tail_horner_plain(p, rows: int, canonical: bool = False, absd=None, sgn=None):
     """(16, B, rows * 128) -> (16, B).  The 128 lanes of a row halve (t, t
     + 64 first: the order of the Pallas kernel's roll levels), then the
-    row sums run through Horner."""
+    row sums run through Horner (``horner_plain``, and its ``canonical``).
+    With (B, rows, 128) digits, over the points they select from the flat
+    tables ``p``."""
+    if absd is not None:
+        p = tuple(t.reshape(limb.NLIMB, absd.shape[0], -1) for t in _selected(p, absd, sgn))
     batch = p[0].shape[1]
     p = tuple(t.reshape(limb.NLIMB, batch, rows, 128) for t in p)
     width = 128
@@ -467,20 +542,37 @@ def tail_horner_plain(p, rows: int):
         p = curve.padd_loose(tuple(t[..., :h] for t in p), tuple(t[..., h:] for t in p))
         width = h
     rx, ry, rz = curve.tighten3(tuple(t[..., 0] for t in p))
-    return horner_plain(rx, ry, rz)
+    return horner_plain(rx, ry, rz, canonical)
 
 
-def tail_horner(p, rows: int):
-    batch, width = p[0].shape[1], p[0].shape[2]
-    if width != rows * 128:
+def tail_horner(p, rows: int, canonical: bool = False, absd=None, sgn=None):
+    """``tail_horner_plain`` on the card in two launches.  ``canonical``:
+    ``horner``'s.  With (B, rows, 128) uint8 digits ``absd`` and ``sgn``,
+    ``p`` is table_flat's flat tables of B 128 lanes and the row trees'
+    first level gathers the points the digits select (msm's route at 128
+    lanes), equal word for word to ``tail_horner(select_small(p, absd,
+    sgn), rows)`` reshaped."""
+    if absd is None:
+        batch, width = p[0].shape[1], p[0].shape[2]
+    else:
+        batch, width = absd.shape[0], absd.shape[1] * absd.shape[2]
+    if width != rows * 128 or (absd is not None and absd.shape[1] != rows):
         raise ValueError(f"tail_horner: lane width {width} != rows * 128")
     if p[0].device.type == "cpu":
-        return tail_horner_plain(p, rows)
-    p = tuple(t.contiguous() for t in p)
-    dev = _check(*p)
+        return tail_horner_plain(p, rows, canonical, absd, sgn)
+    if absd is None:
+        p = tuple(t.contiguous() for t in p)
+        dev = _check(*p)
+        digits, shape = (None, None), f"K={batch}"
+    else:
+        p, dev = _check_tables("tail_horner", p, batch * 128)
+        absd, sgn = _check_digits("tail_horner", absd, sgn, p[0])
+        digits = _ptrs(absd, sgn)
+        shape = f"K={batch} tables"
     row_sums = _empty((limb.NLIMB, batch * rows), p[0])  # scratch between the two launches
-    out = _empty((limb.NLIMB, batch), p[0])
-    _launch("tail_horner", f"K={batch}", dev, *_ptrs(*p, *row_sums, *out), batch, rows)
+    planes, out = _horner_out(batch, canonical, p[0])
+    _launch("tail_horner", shape + (" canonical" if canonical else ""), dev, *_ptrs(*p), *digits,
+            *_ptrs(*row_sums, *planes), batch, rows, int(canonical))
     return out
 
 
@@ -542,8 +634,11 @@ def table_flat_design(p, narrow: bool):
 def select_plain(tables, absd, sgn):
     """Flat tables of B * L lanes, digits (B, ROWS, L) -> the selected
     entries (16, B, ROWS, L), by direct indexing (three ``torch.gather``:
-    also the one PyTorch call the smoke times ``select_small`` against)."""
+    also the one PyTorch call the smoke times ``select_small`` against).
+    The digits may be uint8 (the kernels' type): ``torch.gather`` takes
+    int64 indices, so they are widened here."""
     batch, _, L = absd.shape
+    absd, sgn = absd.long(), sgn.long()
 
     def pick(t, idx):
         t = t.view(-1, limb.NLIMB, batch, L).permute(1, 2, 0, 3)  # (16, B, E, L)
@@ -591,9 +686,7 @@ def select_reduce_design(tables, absd, sgn, staged: bool):
         return select_reduce_plain(tables, absd, sgn)
     tables = [t.contiguous() for t in tables]
     dev = _check(*(t.view(-1, limb.NLIMB, batch * L)[0] for t in tables))
-    absd, sgn = absd.contiguous(), sgn.contiguous()
-    if any(d.dtype != torch.int64 or d.device != tables[0].device for d in (absd, sgn)):
-        raise ValueError("select_reduce digits must be int64 on the tables' device")
+    absd, sgn = _check_digits("select_reduce", absd, sgn, tables[0])
     out = _empty((limb.NLIMB, batch * rows * L // 8), tables[0])
     _launch("select_reduce", f"B={batch} L={L} {'staged' if staged else 'rows'}", dev,
             *_ptrs(*tables, absd, sgn, *out), batch, rows, L, int(staged))
@@ -725,9 +818,7 @@ def select_reduce_fused(p, absd, sgn):
         return select_reduce_fused_plain(p, absd, sgn)
     p = tuple(t.contiguous() for t in p)
     dev = _check(*p)
-    absd, sgn = absd.contiguous(), sgn.contiguous()
-    if any(d.dtype != torch.int64 or d.device != p[0].device for d in (absd, sgn)):
-        raise ValueError("select_reduce_fused digits must be int64 on the points' device")
+    absd, sgn = _check_digits("select_reduce_fused", absd, sgn, p[0])
     out = _empty((limb.NLIMB, batch * rows * L // 8), p[0])
     _launch("select_reduce_fused", f"B={batch} L={L}", dev, *_ptrs(*p, absd, sgn, *out), batch,
             rows, L)
@@ -826,27 +917,17 @@ def to_affine(x, y, z):
 
 
 def select_small(tables, absd, sgn):
-    """``select_plain`` on the card: one thread a (MSM, row, lane) copies
-    its three entries' limbs; equal to it word for word.  The digits'
-    range is not checked: they come only from the signed recodings
-    (``glv.recode_signed``, ``native.recode_signed``: |d| in 0..8, sign 0
-    or 1), and a check would read them back to the host, a wait on the
-    card every call.  Out of range, the kernel reads outside the tables,
-    where the plain version's ``torch.gather`` raises."""
+    """``select_plain`` on the card: one thread a (MSM, row, lane) stores
+    the point its uint8 digit selects; equal to it word for word.  No MSM
+    route calls it: the launch after it on the route (reduce_lanes,
+    reduce_block, tail_horner) selects these words itself.  It stays as
+    the unfused route those are held and timed against (``_check_digits``:
+    the digits' range is not checked)."""
     if tables[0].device.type == "cpu":
         return select_plain(tables, absd, sgn)
     batch, rows, L = absd.shape
-    n = batch * L
-    tables = [t.contiguous() for t in tables]
-    if [t.shape for t in tables] != [(limb.NLIMB * TABLE, n), (2 * limb.NLIMB * TABLE, n),
-                                     (limb.NLIMB * TABLE, n)]:
-        raise ValueError(f"select_small: tables of {n} lanes must be (144, {n}), (288, {n}), "
-                         f"(144, {n})")
-    dev = _check(*(t[:limb.NLIMB] for t in tables))
-    absd, sgn = absd.contiguous(), sgn.contiguous()
-    if any(d.dtype != torch.int64 or d.device != tables[0].device or d.shape != absd.shape
-           for d in (absd, sgn)):
-        raise ValueError("select_small digits must be (B, ROWS, L) int64 on the tables' device")
+    tables, dev = _check_tables("select_small", tables, batch * L)
+    absd, sgn = _check_digits("select_small", absd, sgn, tables[0])
     out = _empty((limb.NLIMB, batch, rows, L), tables[0])
     _launch("select_small", f"B={batch} L={L}", dev, *_ptrs(*tables, absd, sgn, *out), batch,
             rows, L)
@@ -1121,23 +1202,14 @@ def reduce_lanes(tables, absd, sgn, levels=None):
     by digit from the tables, then the same additions in the same order as
     the padd kernel's halving tree, so the words equal ``select_small`` and
     that route's.  ``levels`` (the smoke's per-level timing): stop after
-    that many levels.  The digits' range is not checked (``select_small``)."""
+    that many levels.  The digits' range is not checked (``_check_digits``)."""
     batch, rows, L = absd.shape
     _lane_width(L, absd.shape)
     lv = _levels(L, levels)
     if tables[0].device.type == "cpu":
         return reduce_lanes_plain(tables, absd, sgn, levels)
-    n = batch * L
-    tables = [t.contiguous() for t in tables]
-    if [t.shape for t in tables] != [(limb.NLIMB * TABLE, n), (2 * limb.NLIMB * TABLE, n),
-                                     (limb.NLIMB * TABLE, n)]:
-        raise ValueError(f"reduce_lanes: tables of {n} lanes must be (144, {n}), (288, {n}), "
-                         f"(144, {n})")
-    dev = _check(*(t[:limb.NLIMB] for t in tables))
-    absd, sgn = absd.contiguous(), sgn.contiguous()
-    if any(d.dtype != torch.int64 or d.device != tables[0].device or d.shape != absd.shape
-           for d in (absd, sgn)):
-        raise ValueError("reduce_lanes digits must be (B, ROWS, L) int64 on the tables' device")
+    tables, dev = _check_tables("reduce_lanes", tables, batch * L)
+    absd, sgn = _check_digits("reduce_lanes", absd, sgn, tables[0])
     out = _empty((limb.NLIMB, batch, rows), tables[0])
     _launch("reduce_lanes", f"B={batch} L={L}" + (f" levels={lv}" if levels else ""), dev,
             *_ptrs(*tables, absd, sgn, *out), batch, rows, L, lv, 1)
@@ -1202,9 +1274,7 @@ def sr_variant(tables, absd, sgn, blk: int = 1024, out_w: int = 128, noselect: b
         return sr_variant_plain(tables, absd, sgn, blk, out_w, noselect)
     tables = [t.contiguous() for t in tables]
     dev = _check(*(t.view(-1, limb.NLIMB, L)[0] for t in tables))
-    absd, sgn = absd.contiguous(), sgn.contiguous()
-    if any(d.dtype != torch.int64 or d.device != tables[0].device for d in (absd, sgn)):
-        raise ValueError("sr_variant digits must be int64 on the tables' device")
+    absd, sgn = _check_digits("sr_variant", absd, sgn, tables[0])
     out = _empty((limb.NLIMB, rows * L * out_w // blk), tables[0])
     _launch("sr_variant", f"L={L} blk={blk} out={out_w}", dev, *_ptrs(*tables, absd, sgn, *out),
             rows, L, blk, out_w, int(noselect))

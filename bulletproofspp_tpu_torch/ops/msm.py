@@ -5,17 +5,19 @@ and recoded on the host (``ops.glv`` / ``native``) as 33 signed base-16
 digit rows per lane; each lane's multiples 0P..8P and their negated Y come
 from the table_flat kernel, and every (row, lane) picks its entry by
 direct indexing (a Hopper GPU gathers natively, so the TPU's one-hot
-select is not carried over): under 128 lanes inside reduce_lanes, from 128
-to 1,023 lanes the select_small kernel, from there inside select_reduce.
-The selected points are summed over lanes and the 33 row sums combined by
+select is not carried over) in the first level of the launch that sums
+it: reduce_lanes under 128 lanes, reduce_block or tail_horner from 128 to
+1,023, select_reduce from there; the selected points never reach device
+memory.  They are summed over lanes and the 33 row sums combined by
 Horner, by lane count L as in the JAX package (``msm.py:105-196``):
 
   * under 128 lanes: the select and the lane tree of each row in one
     reduce_lanes launch (the halving order: lane t plus lane t + L/2, ...;
     the JAX package compiles its select and ``_reduce_lanes`` into one
     program too), then the horner kernel;
-  * 128 to 512 lanes: select_small, the reduce_block chain (8:1 per
-    launch) down to 128 lanes per row, then tail_horner;
+  * 128 to 512 lanes: the reduce_block chain (8:1 per launch, its first
+    launch selecting from the tables) down to 128 lanes per row, then
+    tail_horner (at 128 lanes its row trees select);
   * from 1,024 lanes: the select_reduce kernel (select and the first 8:1
     narrowing in one launch), then the same chain and tail_horner;
   * from SCRATCH_TABLE_MIN_L = 2^21 lanes: the select_reduce_fused
@@ -25,7 +27,11 @@ Horner, by lane count L as in the JAX package (``msm.py:105-196``):
 
 Everything is batched over a leading MSM axis B (``msm_many``'s K stacked
 MSMs; the JAX package vmaps instead).  Planes: (16, B, L) points and
-(B, ROWS, L) int64 digits.
+(B, ROWS, L) uint8 digits.  With ``canonical`` the route's last launch
+(horner's warp) stores the result as one stacked canonical (3, 16, B)
+tensor, ``normalize3``'s words, as ``_msm_many_norm`` compiles
+``curve._normalize3`` into the MSM's program
+(``bulletproofspp_tpu/ops/engine.py:223-239``): no launch of its own.
 
 For a FIXED basis (the bench's, ``bulletproofspp_tpu_torch.bench``) the
 multiple tables are pure precomputation: ``precompute_flat_table`` builds
@@ -47,34 +53,42 @@ def _flat(p):
     return tuple(t.reshape(limb.NLIMB, -1) for t in p)
 
 
-def msm(px, py, pz, absd, sgn):
+def msm(px, py, pz, absd, sgn, canonical: bool = False):
     """sum_i s_i P_i per batch entry.  px/py/pz: (16, B, L) projective
     lanes, L a power of two (identity lanes encode None and padding);
-    absd/sgn: (B, ROWS, L) int64 digit magnitudes [0..8] and signs {0, 1}.
-    Returns projective (16, B) planes."""
+    absd/sgn: (B, ROWS, L) uint8 digit magnitudes [0..8] and signs {0, 1}.
+    Returns projective (16, B) planes, or with ``canonical`` the stacked
+    canonical (3, 16, B) tensor ``curve.normalize3`` would make of them."""
     batch, L = px.shape[1:]
     if L & (L - 1):
         raise ValueError(f"lane count {L} must be a power of two")
     rows = absd.shape[1]
     p = _flat((px, py, pz))
     if L >= SCRATCH_TABLE_MIN_L:
-        return _narrow(kernels.select_reduce_fused(p, absd, sgn), L // 8, batch, rows)
+        return _narrow(kernels.select_reduce_fused(p, absd, sgn), L // 8, batch, rows, canonical)
     if L >= 1024:
-        return msm_tabled(kernels.table_flat(p), absd, sgn)
+        return msm_tabled(kernels.table_flat(p), absd, sgn, canonical)
     if L < 128:
-        return kernels.horner(*kernels.reduce_lanes(kernels.table_flat(p), absd, sgn))
-    sel = kernels.select_small(kernels.table_flat(p), absd, sgn)
-    return _narrow(_flat(sel), L, batch, rows)
+        return kernels.horner(*kernels.reduce_lanes(kernels.table_flat(p), absd, sgn),
+                              canonical=canonical)
+    return _narrow(kernels.table_flat(p), L, batch, rows, canonical, absd, sgn)
 
 
-def _narrow(flat, width: int, batch: int, rows: int):
+def _narrow(flat, width: int, batch: int, rows: int, canonical: bool = False, absd=None,
+            sgn=None):
     """Row-major partials of ``width`` lanes a row -> (16, B) sums: the
-    reduce_block chain (8:1 per launch) to 128 lanes, then tail_horner."""
+    reduce_block chain (8:1 per launch) to 128 lanes, then tail_horner
+    (``canonical``: its).  With digits, ``flat`` is the flat tables and the
+    partials the points the digits select: the first launch gathers them."""
+    digits = {} if absd is None else {"absd": absd, "sgn": sgn}
     while width > 128:
         f = min(8, width // 128)
-        flat = kernels.reduce_block(flat, f)
+        flat = kernels.reduce_block(flat, f, **digits)
+        digits = {}
         width //= f
-    return kernels.tail_horner(tuple(t.reshape(limb.NLIMB, batch, rows * 128) for t in flat), rows)
+    if not digits:
+        flat = tuple(t.reshape(limb.NLIMB, batch, rows * 128) for t in flat)
+    return kernels.tail_horner(flat, rows, canonical=canonical, **digits)
 
 
 def tabled_supported(L: int) -> bool:
@@ -91,15 +105,15 @@ def precompute_flat_table(px, py, pz):
     return kernels.table_flat(_flat((px, py, pz)))
 
 
-def msm_tabled(tables, absd, sgn):
+def msm_tabled(tables, absd, sgn, canonical: bool = False):
     """``msm`` with the table build hoisted out (``msm_tabled_kernel``,
     ``msm.py:215``): select_reduce, the reduce_block chain and tail_horner.
-    tables: ``precompute_flat_table``'s; absd/sgn (B, ROWS, L).  Returns
-    projective (16, B) planes."""
+    tables: ``precompute_flat_table``'s; absd/sgn (B, ROWS, L) uint8.
+    Returns projective (16, B) planes, or ``msm``'s ``canonical`` tensor."""
     batch, rows, L = absd.shape
     if not tabled_supported(L):
         raise ValueError(f"msm_tabled: L = {L} lanes is outside the tabled route")
-    return _narrow(kernels.select_reduce(tables, absd, sgn), L // 8, batch, rows)
+    return _narrow(kernels.select_reduce(tables, absd, sgn), L // 8, batch, rows, canonical)
 
 
 def fold_mul(pe, po, de, se, do, so):

@@ -128,14 +128,15 @@ def shard_partials(mesh: Mesh, rank: int, px, py, pz, absd, sgn) -> list:
     """Projective (3, 16, B) partial of each entry ``rank`` holds, in mesh
     order, each on its entry's device: ``msm.msm`` over the entry's rows
     and lanes.  px/py/pz (16, B, L) on any device; absd/sgn (B, ROWS, L)
-    integers on any device."""
+    integers on any device (each entry's share goes to its device as the
+    kernels' uint8 planes)."""
     rows_local, width = shard_sizes(mesh, absd)
     out = []
     for w, p, dev in mesh.held_by(rank):
         lanes = slice(p * width, (p + 1) * width)
         rows = slice(w * rows_local, (w + 1) * rows_local)
         pts = (c[:, :, lanes].to(dev).contiguous() for c in (px, py, pz))
-        dig = (d[:, rows, lanes].to(dev, torch.int64).contiguous() for d in (absd, sgn))
+        dig = (d[:, rows, lanes].to(dev, torch.uint8).contiguous() for d in (absd, sgn))
         out.append(torch.stack(msm.msm(*pts, *dig)))
     return out
 

@@ -164,8 +164,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      lanes and lockstep's 16 x 16, equal after normalization and strict;
      normalize3 at K = 1, 2, 6, 66, 130 word for word; each timed at the
      main paths' commonest shapes, select_small in turns with
-     select_plain's three torch.gather (its ``library_ms``); (b) the
-     library remainder: 16 (c).
+     select_plain's three torch.gather (its ``library_ms``); (a') msm's
+     route from 128 to 1,023 lanes, which no longer launches select_small
+     nor normalize3: reduce_block (both designs, L = 256, 512) and
+     tail_horner (L = 128) reading their first level from the tables and
+     the uint8 digits, at B = 1, 2, 6 MSMs of 33 rows (zero digits with
+     sign 1, rows of P + (-P) and P + P, identity lanes), equal word for
+     word to select_small + the kernel on its planes, and to their plain
+     versions after normalization; tail_horner and horner (K = 1, 2, 130)
+     canonical equal word for word to normalize3 of their projective
+     stores; timed at cli test's commonest shapes, at B = 1 (narrow) and
+     2 (wide) of 512 lanes and horner at K = 1, in turns with select_small
+     + the kernel (the narrow design no slower) and horner with its
+     projective stores (the ratio logged); (b) the library remainder: 16
+     (c).
   16. the engine's assembly and the small MSMs' select and lane tree: (a)
      assemble against its plain version with edge lanes (``edge_planes``)
      in every input, word for word but for the phi lanes (strict, equal
@@ -187,14 +199,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      per-level figure); (c) in a process of its own for each route, one
      64bit verify and prove under ``torch.profiler`` with every kernel, with
      assemble and reduce_lanes swapped for their plain versions, and with
-     those and the four lane kernels swapped: the library remainder (device
+     those, endo and pneg swapped: the library remainder (device
      kernels no wrapper launches) in ms and launches, the memory copies by
      kind (host-to-device pinned and pageable, device-to-host) in ms and
      count, the port's launches, device seconds, idle share and the wall of
-     each, logged on one line a route; the kernels' route at most 120
-     library launches in the prove and no pinned host-to-device copy.
-  Over all the main paths' launches: select_small only at 128 to 1,023
-  lanes, reduce_lanes only under 128.
+     each, logged on one line a route, and on the kernels' route one
+     128by64 prove too: no library launch in either prove, no pinned
+     host-to-device copy, no select_small or normalize3 launch; the plain
+     routes bring the eager select (and the digits' widening) back through
+     reduce_lanes.
+  Over all the main paths' launches: no select_small (every MSM selects in
+  its first reduction), reduce_lanes only under 128 lanes; none of
+  normalize3 on cli test (each MSM's result leaves horner canonical).
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
@@ -289,9 +305,7 @@ BENCH_SUBPROCESS_N = 16
 # phase 15: the lane-wise kernels' shapes (the main paths' and a little
 # beyond: msm_many stacks B MSMs of L lanes under 1,024, interleaves K
 # entries of n lanes, complete_square(_many) runs endo and pneg over a
-# prover's lanes or lockstep's 16 x 16, normalize3 K results) and the
-# functions the library-remainder profile swaps for their plain versions
-LANE_OPS = ("select_small", "endo", "pneg", "normalize3")
+# prover's lanes or lockstep's 16 x 16, normalize3 K results)
 SELECT_BATCHES = (1, 2, 6, 66)
 SELECT_LANES = (16, 64, 128, 512)
 ENDO_STACKS = ((2, 8), (3, 32), (5, 128), (66, 16))  # (K, n)
@@ -301,6 +315,16 @@ NORMALIZE_K = (1, 2, 6, 66, 130)
 SELECT_TIMED = ((2, 16), (1, 512))
 ENDO_TIMED = ((2, 8), (1, 2048))
 NORMALIZE_TIMED = (2, 130)
+# phase 15 (a'): the MSM route from 128 to 1,023 lanes with the select in its
+# first launch (reduce_block at 256 and 512 lanes, tail_horner at 128) and
+# horner's canonical stores, held at these (B, L) and K and timed in turns
+# with the unfused routes at cli test's commonest shapes and at (B, L) of
+# FUSED_TIMED (narrow: B = 1; wide, 8,448 output lanes: B = 2)
+FUSED_BATCHES = (1, 2, 6)
+FUSED_LANES = (128, 256, 512)
+FUSED_TIMED = ((1, 512), (2, 512))
+CANONICAL_K = (1, 2, 130)
+CANONICAL_TIMED = 1  # horner's main-path shape, timed beside cli test's commonest K
 # phase 16: msm_many's entry counts (each at the lane buckets phase 3 gave
 # it), the groups an entry and the widths of the other assembly calls; the
 # lane tree's widths and MSM counts; the library remainder's routes (no
@@ -313,9 +337,15 @@ ASSEMBLE_SMALL_CAPACITY = 4048  # table bytes a launch carries under CUDA before
 REDUCE_LANES_L = (16, 32, 64)
 REDUCE_LANES_B = (1, 2, 6, 66, 130)
 ASSEMBLY_OPS = ("assemble", "reduce_lanes")
+# the plain routes bring the eager select back, with the digits' widening
+# (select_plain's gathers take int64), through reduce_lanes: a 64bit prove's
+# MSMs are all under 128 lanes.  reduce_block and tail_horner keep their
+# kernels: tail_horner's plain version is the eager Horner too, ~57,000
+# launches in a 64bit verify, past where a profile has lost launches
 REMAINDER_ROUTES = {"kernels": (), "plain_assembly": ASSEMBLY_OPS,
-                    "plain_lanes_and_assembly": LANE_OPS + ASSEMBLY_OPS}
-REMAINDER_MAX = 120  # library launches a 64bit prove may make on the kernels' route
+                    "plain_lanes_and_assembly": ("endo", "pneg") + ASSEMBLY_OPS}
+REMAINDER_MAX = 0  # library launches a 64bit or 128by64 prove may make on the kernels' route
+REMAINDER_PROVES = ("64bit", "128by64")  # profiled on the kernels' route
 MEASURE_L = 65536  # the measurement tools' width (32,768 points)
 SR_CASES = ((1024, 128, False), (1024, 128, True), (512, 128, False), (512, 256, False),
             (1024, 256, False), (2048, 128, False), (2048, 256, False))
@@ -731,8 +761,8 @@ def check_kernels(dev):
     # limb.  At B = 1 timed in turns with sr_variant (the same function,
     # the rows outermost in the grid)
     for batch in (130, 3, 1):
-        absd = torch.as_tensor(rng.integers(0, 9, size=(batch, ROWS, L)), device=dev)
-        sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, ROWS, L)), device=dev)
+        absd = torch.as_tensor(rng.integers(0, 9, size=(batch, ROWS, L)), dtype=torch.uint8, device=dev)
+        sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, ROWS, L)), dtype=torch.uint8, device=dev)
         absd[:, 0], sgn[:, 0] = 0, 1
         tb = kernels.table_flat(wide_points(batch * L, rng, dev)) if batch > 1 else tabs
         staged = batch * L >= kernels.STAGE_MIN_LANES
@@ -893,8 +923,8 @@ def check_measurement_kernels(dev, rng):
     L = MEASURE_L
     p, _ = random_points(L, rng, dev)
     tabs = kernels.table_flat(p)
-    absd = torch.as_tensor(rng.integers(0, 9, size=(ROWS, L)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(ROWS, L)), device=dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(ROWS, L)), dtype=torch.uint8, device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(ROWS, L)), dtype=torch.uint8, device=dev)
     for blk, out_w, noselect in SR_CASES:
         err = compare(f"sr_variant blk={blk} out={out_w} noselect={noselect}",
                       kernels.sr_variant(tabs, absd, sgn, blk, out_w, noselect),
@@ -993,8 +1023,8 @@ def check_fused(dev, rng):
     out = []
     for L in (4096, WIDE_LANES):
         p = random_points(L, rng, dev)[0] if L == 4096 else wide_points(L, rng, dev)
-        absd = torch.as_tensor(rng.integers(0, 9, size=(1, ROWS, L)), device=dev)
-        sgn = torch.as_tensor(rng.integers(0, 2, size=(1, ROWS, L)), device=dev)
+        absd = torch.as_tensor(rng.integers(0, 9, size=(1, ROWS, L)), dtype=torch.uint8, device=dev)
+        sgn = torch.as_tensor(rng.integers(0, 2, size=(1, ROWS, L)), dtype=torch.uint8, device=dev)
         absd[:, 3], sgn[:, 3] = 0, 1
         routes = {"fused": lambda: kernels.select_reduce_fused(p, absd, sgn),
                   "table_flat + select_reduce":
@@ -1563,8 +1593,8 @@ def check_row_counts(dev, rng):
     p, _ = random_points(L, rng, dev)
     tabs = kernels.table_flat(p)
     for rows in (17, 9):
-        absd = torch.as_tensor(rng.integers(0, 9, size=(1, rows, L)), device=dev)
-        sgn = torch.as_tensor(rng.integers(0, 2, size=(1, rows, L)), device=dev)
+        absd = torch.as_tensor(rng.integers(0, 9, size=(1, rows, L)), dtype=torch.uint8, device=dev)
+        sgn = torch.as_tensor(rng.integers(0, 2, size=(1, rows, L)), dtype=torch.uint8, device=dev)
         pad = {17: 1, 9: 3}[rows]
         absd[:, :pad], sgn[:, :pad] = 0, 0
         absd[:, pad + 1], sgn[:, pad + 1] = 0, 1
@@ -1823,8 +1853,8 @@ def check_lane_ops(dev):
         for L in SELECT_LANES:
             n = batch * L
             tb = tuple(t[:, :n].contiguous() for t in tabs)
-            absd = torch.as_tensor(rng.integers(0, 9, size=(batch, ROWS, L)), device=dev)
-            sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, ROWS, L)), device=dev)
+            absd = torch.as_tensor(rng.integers(0, 9, size=(batch, ROWS, L)), dtype=torch.uint8, device=dev)
+            sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, ROWS, L)), dtype=torch.uint8, device=dev)
             absd[:, 0], sgn[:, 0] = 0, 1
             err = same_raw(f"select_small B={batch} L={L}", kernels.select_small(tb, absd, sgn),
                            kernels.select_plain(tb, absd, sgn))
@@ -1871,6 +1901,149 @@ def check_lane_ops(dev):
         f"{SELECT_LANES} word for word; endo interleaved at 8-2,048 lanes and {ENDO_STACKS}, endo "
         f"and pneg at {NEG_LANES} and (16, 16, 16) after normalization, strict; normalize3 at K = "
         f"{NORMALIZE_K} word for word (edge lanes in every input)")
+    return rows
+
+
+def fused_shapes(cli_shapes) -> dict:
+    """The (B, L) of cli test's first-level selects by launch count
+    ({(B, L): launches}: reduce_block's "W=... f=... tables" launches, L =
+    128 f, and tail_horner's "K=... tables" ones, L = 128), and horner's
+    canonical K ({K: launches})."""
+    sel, canon = collections.Counter(), collections.Counter()
+    for shape, n in cli_shapes["reduce_block"].items():
+        if "tables" in shape.split():
+            d = parse_shape(shape)
+            sel[d["W"] // (ROWS * 128 * d["f"]), 128 * d["f"]] += n
+    for shape, n in cli_shapes["tail_horner"].items():
+        if "tables" in shape.split():
+            sel[parse_shape(shape)["K"], 128] += n
+    for shape, n in cli_shapes["horner"].items():
+        if "canonical" in shape.split():
+            canon[parse_shape(shape)["K"]] += n
+    return {"select": dict(sel), "canonical": dict(canon)}
+
+
+def check_fused_selects(dev, cli_shapes):
+    """Phase 15 (a'): msm's route from 128 to 1,023 lanes selects in its
+    first launch and stores its result canonical.  At B of FUSED_BATCHES
+    MSMs of L of FUSED_LANES lanes and ROWS rows (``msm_operands``: zero
+    digits with sign 1, cancelling and doubling rows, identity lanes):
+    reduce_block from the tables (L = 256, 512; both designs) equal word
+    for word to select_small + reduce_block on the selected planes, and to
+    its plain version after normalization; tail_horner from the tables (L
+    = 128) the same, and canonical equal word for word to normalize3 of
+    it; horner canonical at CANONICAL_K equal word for word to normalize3
+    of horner.  Timed (CUDA ms back to back; in turns with the unfused
+    route: select_small + the kernel, or the kernel + normalize3) at cli
+    test's commonest shapes (``fused_shapes``), at FUSED_TIMED and horner
+    at K = CANONICAL_TIMED.  Returns the kernel rows."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import curve, kernels
+
+    rng = np.random.default_rng(SEED + 151)
+    seen = fused_shapes(cli_shapes)
+    log(f"cli test's first-level selects (B, L): launches {json.dumps(list(seen['select'].items()))}"
+        f"; horner canonical K: launches {json.dumps(list(seen['canonical'].items()))}")
+    timed = set(FUSED_TIMED)
+    if seen["select"]:
+        by_l = collections.defaultdict(dict)
+        for (B, L), n in seen["select"].items():
+            by_l[L == 128][B, L] = n
+        timed |= {max(sorted(c), key=c.get) for c in by_l.values()}
+    k_timed = {CANONICAL_TIMED} | ({max(sorted(seen["canonical"]), key=seen["canonical"].get)}
+                                   if seen["canonical"] else set())
+    rows = []
+
+    def flat(p):
+        return tuple(t.reshape(16, -1) for t in p)
+
+    for B in sorted(set(FUSED_BATCHES) | {b for b, _ in timed}):
+        for L in sorted(set(FUSED_LANES) | {l for b, l in timed if b == B}):
+            tabs, absd, sgn = msm_operands(B, L, rng, dev)
+            label = f"B={B} L={L}"
+            sel = kernels.select_small(tabs, absd, sgn)
+            if L == 128:
+                got = kernels.tail_horner(tabs, ROWS, absd=absd, sgn=sgn)
+                same_raw(f"tail_horner {label} from the tables against select_small + "
+                         "tail_horner", got,
+                         kernels.tail_horner(tuple(t.reshape(16, B, -1) for t in sel), ROWS))
+                canon = kernels.tail_horner(tabs, ROWS, canonical=True, absd=absd, sgn=sgn)
+                same_raw(f"tail_horner {label} canonical against normalize3 of it", (canon,),
+                         (curve.normalize3(*got),))
+                plain = lambda: kernels.tail_horner_plain(  # noqa: E731
+                    tabs, ROWS, True, absd, sgn)
+                err = compare(f"tail_horner {label} canonical, from the tables", tuple(canon),
+                              tuple(plain()))
+                if (B, L) not in timed:
+                    continue
+                fused = lambda: kernels.tail_horner(  # noqa: E731
+                    tabs, ROWS, canonical=True, absd=absd, sgn=sgn)
+                unfused = lambda: curve.normalize3(*kernels.tail_horner(  # noqa: E731
+                    tuple(t.reshape(16, B, -1) for t in kernels.select_small(tabs, absd, sgn)),
+                    ROWS))
+                means, both = in_turns({"fused": fused, "unfused": unfused}, 10)
+                log(f"tail_horner {label} from the tables, canonical, in turns with select_small "
+                    f"+ tail_horner + normalize3 (ms): {json.dumps(both)}")
+                rows.append(("tail_horner", err, time_ms(fused, 10), time_ms(plain, 1, paced=True),
+                             f"K={B} tables canonical", bounds.tail_horner_tables(absd, sgn, True),
+                             {"unfused_ms": means["unfused"], "fused_in_turns_ms": means["fused"]}))
+                continue
+            f = L // 128
+            for narrow in (True, False):
+                got = kernels.reduce_block_design(tabs, f, narrow, absd, sgn)
+                same_raw(f"reduce_block {label} {'narrow' if narrow else 'wide'} from the tables "
+                         "against select_small + reduce_block", got,
+                         kernels.reduce_block_design(flat(sel), f, narrow))
+            kernels.reset_counts()
+            got = kernels.reduce_block(tabs, f, absd=absd, sgn=sgn)
+            design = commonest(kernels.shape_counts()["reduce_block"]).split()[-1]
+            err = compare(f"reduce_block {label} from the tables", got,
+                          kernels.reduce_block_plain(tabs, f, absd, sgn))
+            if (B, L) not in timed:
+                continue
+            fused = lambda: kernels.reduce_block(tabs, f, absd=absd, sgn=sgn)  # noqa: E731
+            unfused = lambda: kernels.reduce_block(  # noqa: E731
+                flat(kernels.select_small(tabs, absd, sgn)), f)
+            means, both = in_turns({"fused": fused, "unfused": unfused}, 20)
+            log(f"reduce_block {label} ({design}) from the tables, in turns with select_small + "
+                f"reduce_block (ms): {json.dumps(both)}")
+            if design == "narrow" and means["fused"] > means["unfused"]:
+                raise AssertionError(f"reduce_block {label} from the tables took {means['fused']} "
+                                     f"ms, select_small + reduce_block {means['unfused']}")
+            rows.append(("reduce_block", err, time_ms(fused, 20),
+                         time_ms(lambda: kernels.reduce_block_plain(tabs, f, absd, sgn), 2,
+                                 paced=True),
+                         f"W={B * ROWS * L} f={f} tables {design} ({label})",
+                         bounds.reduce_block_tables(absd, sgn, f),
+                         {"chain": bounds.reduce_block_chain(f, design == "narrow"),
+                          "unfused_ms": means["unfused"], "fused_in_turns_ms": means["fused"]}))
+    for K in sorted(set(CANONICAL_K) | k_timed):
+        r = horner_rows(K, rng, dev)
+        got = kernels.horner(*r, canonical=True)
+        same_raw(f"horner K={K} canonical against normalize3 of horner", (got,),
+                 (curve.normalize3(*kernels.horner(*r)),))
+        if K not in k_timed:
+            continue
+        err = compare(f"horner K={K} canonical", tuple(got),
+                      tuple(kernels.horner_plain(*r, canonical=True)))
+        means, both = in_turns({
+            "canonical": lambda: kernels.horner(*r, canonical=True),
+            "projective": lambda: kernels.horner(*r),
+            "then_normalize3": lambda: curve.normalize3(*kernels.horner(*r))}, 20)
+        log(f"horner K={K} canonical, in turns with the projective stores and with normalize3 "
+            f"after them (ms): {json.dumps(both)}; canonical / projective "
+            f"{means['canonical'] / means['projective']:.4f}")
+        rows.append(("horner", err, time_ms(lambda: kernels.horner(*r, canonical=True), 20),
+                     time_ms(lambda: kernels.horner_plain(*r, canonical=True), 1, paced=True),
+                     f"K={K} canonical", bounds.horner(K, ROWS, True),
+                     {"projective_ms": means["projective"],
+                      "then_normalize3_ms": means["then_normalize3"],
+                      "canonical_in_turns_ms": means["canonical"]}))
+    log(f"first-level selects at B = {FUSED_BATCHES} x L = {FUSED_LANES} ({ROWS} rows; zero "
+        "digits with sign 1, cancelling and doubling rows, identity lanes): reduce_block (both "
+        "designs) and tail_horner from the tables equal word for word to select_small + the "
+        "kernel, to their plain versions after normalization; canonical tail_horner and horner "
+        f"(K = {CANONICAL_K}) equal word for word to normalize3 of their projective stores")
     return rows
 
 
@@ -2076,8 +2249,8 @@ def msm_operands(B: int, L: int, rng, dev):
     k = torch.as_tensor(rng.integers(1, 1 << 16, size=(limb.NLIMB, B, h)), device=dev)
     for c in (x, y, z):
         c[:, :, h:] = limb.mul(c[:, :, :h], k)
-    absd = torch.as_tensor(rng.integers(0, 9, size=(B, ROWS, L)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(B, ROWS, L)), device=dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(B, ROWS, L)), dtype=torch.uint8, device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(B, ROWS, L)), dtype=torch.uint8, device=dev)
     absd[:, 0], sgn[:, 0] = 0, 1
     absd[:, 1:3, h:] = absd[:, 1:3, :h]
     sgn[:, 1, h:], sgn[:, 2, h:] = 1 - sgn[:, 1, :h], sgn[:, 2, :h]
@@ -2103,53 +2276,69 @@ def reduce_lanes_equal(label, tabs, absd, sgn) -> int:
 
 def library_remainder(dev, route: str):
     """Phases 15 (b) and 16 (c), one route of REMAINDER_ROUTES (the kernels;
-    assemble and reduce_lanes; those and LANE_OPS, swapped for their plain
-    versions by ``engine_profile.plain_versions``, as ``engine_profile
-    --plain``): ``engine_profile.profile_verify`` and then ``profile_prove``
-    of examples/64bit: the device kernels no wrapper of ops.kernels
+    assemble and reduce_lanes; those, endo and pneg, swapped for their
+    plain versions by ``engine_profile.plain_versions``, as
+    ``engine_profile --plain``: the eager select, with the digits'
+    widening, in reduce_lanes_plain):
+    ``engine_profile.profile_verify`` and then ``profile_prove`` of
+    examples/64bit (on the kernels' route also a prove of each other
+    REMAINDER_PROVES example): the device kernels no wrapper of ops.kernels
     launches (``by_wrapper``'s "library": PyTorch's own operators) in ms and
     launches, the four most launched of them, the port's launches, the
     device seconds, the idle share and the wall seconds, logged on one
     line, with the memory copies by kind (``engine_profile.copies``: ms and
     count).  Fails if a profile misses some of the port's launches
-    (``engine_profile.profile_complete``) or if the proof is not golden;
-    on the kernels' route also if the prove does not launch the lane and
-    assembly kernels (select_small in the verify: the prove's MSMs are all
-    under 128 lanes, where reduce_lanes selects), makes more than
-    REMAINDER_MAX library launches, or the prove or the verify makes a
-    pinned host-to-device copy (assemble's tables were the only ones)."""
+    (``engine_profile.profile_complete``) or if a proof is not golden; on
+    the kernels' route also if the 64bit prove does not launch endo, pneg,
+    assemble, reduce_lanes and horner (its MSMs are all under 128 lanes:
+    reduce_lanes selects, horner stores canonical), if the verify's MSM of
+    128 lanes does not select in tail_horner, if select_small or normalize3
+    launches in a prove or the verify (no MSM launches them), if a prove
+    makes more than REMAINDER_MAX library launches (the digits' widening
+    was the last), or if a prove or the verify makes a pinned
+    host-to-device copy (assemble's tables were the only ones)."""
     from bulletproofspp_tpu_torch import engine_profile
     from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
+    proves = REMAINDER_PROVES if route == "kernels" else REMAINDER_PROVES[:1]
     with engine_profile.plain_versions(REMAINDER_ROUTES[route]):
         eng = TorchEngine(dev)
         out = {"verify": engine_profile.profile_verify("64bit", eng),
                "prove": engine_profile.profile_prove("64bit", eng)}
-    if out["prove"]["proof_sha256"] != golden()["64bit"][0]:
-        raise AssertionError(f"64bit proof bytes on the {route} route are not golden")
+        out.update({f"prove {name}": engine_profile.profile_prove(name, eng)
+                    for name in proves[1:]})
+    for name in proves:
+        step = "prove" if name == proves[0] else f"prove {name}"
+        if out[step]["proof_sha256"] != golden()[name][0]:
+            raise AssertionError(f"{name} proof bytes on the {route} route are not golden")
     for step, p in out.items():
         if not p["complete"]:
             raise AssertionError(f"the profile of the {route} route's {step} misses some of its "
                                  f"launches {p['launched']}")
     if route == "kernels":
-        if not (set(LANE_OPS + ASSEMBLY_OPS) - {"select_small"} <= set(out["prove"]["launched"])
-                and "select_small" in out["verify"]["launched"]):
-            raise AssertionError(f"the 64bit prove and verify did not launch every lane and "
-                                 f"assembly kernel: {out['prove']['launched']}, "
+        if not ({"endo", "pneg", *ASSEMBLY_OPS, "horner"} <= set(out["prove"]["launched"])
+                and "tail_horner" in out["verify"]["launched"]):
+            raise AssertionError(f"the 64bit prove and verify did not launch every lane, "
+                                 f"assembly and MSM kernel: {out['prove']['launched']}, "
                                  f"{out['verify']['launched']}")
         for step, p in out.items():
             if "HtoD (Pinned -> Device)" in p["copies"]:
-                raise AssertionError(f"the 64bit {step} made pinned host-to-device copies: "
+                raise AssertionError(f"the {step} made pinned host-to-device copies: "
                                      f"{p['copies']}")
-        library = out["prove"]["by_wrapper"]["library"][1]
-        if library > REMAINDER_MAX:
-            raise AssertionError(f"the 64bit prove made {library} library launches on the "
-                                 f"kernels' route, more than {REMAINDER_MAX}")
+            unfused = {k: p["launched"].get(k, 0) for k in ("select_small", "normalize3")}
+            if any(unfused.values()):
+                raise AssertionError(f"the {step} launched {unfused}: an MSM selected or "
+                                     "normalized in a launch of its own")
+            library = p["by_wrapper"]["library"][1]
+            if step.startswith("prove") and library > REMAINDER_MAX:
+                raise AssertionError(f"the {step} made {library} library launches on the "
+                                     f"kernels' route, more than {REMAINDER_MAX}")
     keys = ("library_top", "device_s", "device_idle_share", "wall_s")
     summary = {step: {"library_ms_launches": p["by_wrapper"]["library"], "copies": p["copies"],
                       "port_launches": sum(p["launched"].values()), **{k: p[k] for k in keys}}
                for step, p in out.items()}
-    log(f"{card_line()}: library remainder of a 64bit prove and verify (ms, launches), route "
+    log(f"{card_line()}: library remainder of a 64bit prove and verify"
+        f"{''.join(f' and a {n} prove' for n in proves[1:])} (ms, launches), route "
         f"{route} (plain: {', '.join(REMAINDER_ROUTES[route]) or 'none'}): {json.dumps(summary)}")
     return out
 
@@ -2314,7 +2503,10 @@ def main() -> int:
         log(f"launches on the main path: {launches}")
         require_launched("cli test", launches, set(launches) - {
             "select_reduce_fused", "sr_variant", "grid_copy", "chain", "fold_many", "inv",
-            "to_affine"})
+            "to_affine", "select_small", "normalize3"})
+        unfused = {k: launches[k] for k in ("select_small", "normalize3")}
+        if any(unfused.values()):  # the MSMs select in their reductions, store canonical
+            raise AssertionError(f"cli test launched {unfused}")
         require_port_only()
         prove_verify_times(work)
         measured = measurement_path()  # before any other torch.profiler session
@@ -2342,6 +2534,8 @@ def main() -> int:
         bench_legs = bench_legs_phase(dev)
         require_port_only()
         checked.update(kernel_rows(check_lane_ops(dev)))  # phase 15
+        for name, more in kernel_rows(check_fused_selects(dev, cli_shapes)).items():
+            checked[name] = checked.get(name, []) + more  # phase 15 (a')
         checked.update(kernel_rows(check_assembly(dev, cli_shapes)))  # phase 16
         library_remainder_subprocess()
         require_port_only()
@@ -2357,11 +2551,13 @@ def main() -> int:
         for k, by_shape in run.items():
             shapes[k].update(by_shape)
     launches = {k: sum(v.values()) for k, v in shapes.items()}
-    require_launched("the main paths", launches, set(launches) - {"inv"})  # inv: on no path
-    narrow = {k: [sh for sh in shapes[k] if not lo <= parse_shape(sh)["L"] < hi]
-              for k, (lo, hi) in (("select_small", (128, 1024)), ("reduce_lanes", (2, 128)))}
-    if any(narrow.values()):  # under 128 lanes reduce_lanes selects, from there select_small
-        raise AssertionError(f"launches outside their lane counts: {narrow}")
+    # inv and select_small: on no path (select_small's launches, the unfused
+    # route's yardstick, are phase 15's and 16's, made after the counts)
+    require_launched("the main paths", launches, set(launches) - {"inv", "select_small"})
+    narrow = [sh for sh in shapes["reduce_lanes"] if not 2 <= parse_shape(sh)["L"] < 128]
+    if narrow or launches["select_small"]:  # every MSM selects in its first reduction
+        raise AssertionError(f"reduce_lanes outside 2-127 lanes {narrow}, select_small "
+                             f"{launches['select_small']} launches on the main paths")
     by_path = {k: {path: sum(run[k].values()) for path, run in paths.items()} for k in launches}
     by_design = {k: {path: designs(run[k]) for path, run in paths.items()}
                  for k in ("padd", "table_flat", "reduce_block", "select_reduce")}

@@ -220,7 +220,7 @@ def _msm_case(batch: int, L: int, seed: int):
     absd[:, 0], sgn[:, 0] = 0, 1
     absd[0, 1:3, h:] = absd[0, 1:3, :h]
     sgn[0, 1, h:], sgn[0, 2, h:] = 1 - sgn[0, 1, :h], sgn[0, 2, :h]
-    return arr, lanes, absd, sgn
+    return arr, lanes, absd.astype(np.uint8), sgn.astype(np.uint8)
 
 
 @pytest.mark.parametrize("B,L", FUSED_CASES)
@@ -308,7 +308,7 @@ def test_reduce_lanes_refuses_other_shapes(shape):
     with pytest.raises(ValueError, match="reduce_lanes"):
         kernels.reduce_lanes_tree((t, t, t))
     if len(shape) == 4:
-        d = torch.zeros(shape[1:], dtype=torch.int64)
+        d = torch.zeros(shape[1:], dtype=torch.uint8)
         tabs = tuple(torch.zeros((r, shape[1] * shape[3]), dtype=torch.int64)
                      for r in (144, 288, 144))
         with pytest.raises(ValueError, match="reduce_lanes"):
@@ -400,7 +400,7 @@ def test_wrappers_pass_the_segment_table_and_shapes(monkeypatch):
     p = tuple(torch.zeros((16, 6, 33, 16), dtype=torch.int64, device="meta") for _ in range(3))
     tabs = tuple(torch.zeros((r, 6 * 16), dtype=torch.int64, device="meta")
                  for r in (144, 288, 144))
-    d = torch.zeros((6, 33, 16), dtype=torch.int64, device="meta")
+    d = torch.zeros((6, 33, 16), dtype=torch.uint8, device="meta")
     assert [t.shape for t in kernels.reduce_lanes(tabs, d, d)] == [(16, 6, 33)] * 3
     assert [t.shape for t in kernels.reduce_lanes(tabs, d, d, levels=2)] == [(16, 6, 33)] * 3
     assert [t.shape for t in kernels.reduce_lanes_tree(p)] == [(16, 6, 33)] * 3
@@ -515,13 +515,13 @@ def test_assemble_makes_no_pinned_buffer_and_no_host_to_device_copy(monkeypatch)
 def test_work_counts():
     assert bounds.assemble(24, 64, True) == (24 * bounds.FE_MUL, 88 * 384)
     assert bounds.assemble(13, 16, False) == (0, 29 * 384)
-    absd = torch.zeros((2, 33, 16), dtype=torch.int64)
+    absd = torch.zeros((2, 33, 16), dtype=torch.uint8)
     sgn = torch.zeros_like(absd)
     absd[:, 1:] = 3
     # the select's reads (entries 0 and 3 of X and Z, Y at 0 and 3), the
-    # digits, the row sums out
+    # digits (a byte each), the row sums out
     assert bounds.reduce_lanes(absd, sgn) == (2 * 33 * 15 * bounds.PT_ADD,
-                                              2 * 16 * 6 * 128 + absd.numel() * 16 + 2 * 33 * 384)
+                                              2 * 16 * 6 * 128 + absd.numel() * 2 + 2 * 33 * 384)
     assert bounds.reduce_lanes_tree(2, 33, 16) == (2 * 33 * 15 * bounds.PT_ADD,
                                                    2 * 33 * 17 * 384)
     assert bounds.reduce_lanes_chain(64) == (6, 12)

@@ -61,8 +61,8 @@ def test_cuda_kernels_match_plain_versions():
         got, want = (limb.normalize(t.view(-1, 16, 1024).transpose(0, 1)) for t in (got, want))
         assert torch.equal(got, want)
     rng = np.random.default_rng(48)
-    absd = torch.as_tensor(rng.integers(0, 9, size=(1, 2, 1024)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(1, 2, 1024)), device=dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(1, 2, 1024)), dtype=torch.uint8, device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(1, 2, 1024)), dtype=torch.uint8, device=dev)
     assert _same(kernels.select_reduce(tabs, absd, sgn), kernels.select_reduce_plain(tabs, absd, sgn))
     e, o = kernels.table_flat(_points(64, 45, dev)), kernels.table_flat(_points(64, 46, dev))
     digits = np.stack([*glv.recode_signed(-(3**80)), *glv.recode_signed(5**50)])
@@ -72,8 +72,8 @@ def test_cuda_kernels_match_plain_versions():
     assert _same(kernels.fold_many(e, o, many), kernels.fold_many_plain(e, o, many))
     # two stacked MSMs of 1,024 lanes, 3 rows
     pts = _points(2 * 1024, 49, dev)
-    absd = torch.as_tensor(rng.integers(0, 9, size=(2, 3, 1024)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(2, 3, 1024)), device=dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(2, 3, 1024)), dtype=torch.uint8, device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(2, 3, 1024)), dtype=torch.uint8, device=dev)
     assert _same(kernels.select_reduce_fused(pts, absd, sgn),
                  kernels.select_reduce_fused_plain(pts, absd, sgn))
     # random x's (about half non-residues) and the edge values 0, 1, p - 1
@@ -90,8 +90,8 @@ def test_cuda_kernels_match_plain_versions():
     # the lane-wise functions (csrc/lanes.cu): two MSMs of 64 lanes' select,
     # endo with and without the interleave, pneg, normalize3
     tabs = kernels.table_flat(_points(2 * 64, 50, dev))
-    absd = torch.as_tensor(rng.integers(0, 9, size=(2, 33, 64)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(2, 33, 64)), device=dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(2, 33, 64)), dtype=torch.uint8, device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(2, 33, 64)), dtype=torch.uint8, device=dev)
     assert all(torch.equal(a, b) for a, b in zip(kernels.select_small(tabs, absd, sgn),
                                                  kernels.select_plain(tabs, absd, sgn)))
     p = _points(64, 51, dev, (16, 2, 32))
@@ -125,8 +125,8 @@ def test_cuda_sr_variant_matches_plain_version(blk, out_w, noselect):
     dev = _card()
     tabs = kernels.table_flat(_points(2048, 60, dev))
     rng = np.random.default_rng(61)
-    absd = torch.as_tensor(rng.integers(0, 9, size=(3, 2048)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(3, 2048)), device=dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(3, 2048)), dtype=torch.uint8, device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(3, 2048)), dtype=torch.uint8, device=dev)
     kernels.reset_counts()
     got = kernels.sr_variant(tabs, absd, sgn, blk, out_w, noselect)
     assert kernels.counts()["sr_variant"] == 1
@@ -288,8 +288,8 @@ def test_cuda_select_reduce_matches_plain_version(batch, L):
     dev = _card()
     tabs = _wide_tables(batch * L, 72, dev)
     rng = np.random.default_rng(73)
-    absd = torch.as_tensor(rng.integers(0, 9, size=(batch, 33, L)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, 33, L)), device=dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(batch, 33, L)), dtype=torch.uint8, device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, 33, L)), dtype=torch.uint8, device=dev)
     absd[:, 5], sgn[:, 5] = 0, 1  # a row of (0 : -1 : 0)
     kernels.reset_counts()
     got = kernels.select_reduce(tabs, absd, sgn)
@@ -352,8 +352,8 @@ def test_cuda_select_reduce_fused_equals_the_two_kernel_route(batch, L):
     dev = _card()
     p = _points(batch * L, 74, dev)  # every 7th lane the identity
     rng = np.random.default_rng(75)
-    absd = torch.as_tensor(rng.integers(0, 9, size=(batch, 33, L)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, 33, L)), device=dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(batch, 33, L)), dtype=torch.uint8, device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, 33, L)), dtype=torch.uint8, device=dev)
     absd[:, 5], sgn[:, 5] = 0, 1  # a row of (0 : -1 : 0)
     kernels.reset_counts()
     got = kernels.select_reduce_fused(p, absd, sgn)
@@ -658,8 +658,8 @@ def test_cuda_reduce_lanes_matches_plain_version(L, batch):
     y[:, h:L] = limb.mul(y[:, :h], limb.from_ints([3] * h, dev))
     tabs = kernels.table_flat((x, y, z))
     rng = np.random.default_rng(L * batch)
-    absd = torch.as_tensor(rng.integers(0, 9, size=(batch, rows, L)), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, rows, L)), device=dev)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(batch, rows, L)), dtype=torch.uint8, device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, rows, L)), dtype=torch.uint8, device=dev)
     absd[:, 0], sgn[:, 0] = 0, 1
     absd[0, 1:3, h:] = absd[0, 1:3, :h]
     sgn[0, 1, h:], sgn[0, 2, h:] = 1 - sgn[0, 1, :h], sgn[0, 2, :h]
@@ -697,3 +697,100 @@ def test_cuda_prove_assembles_and_reduces_through_the_kernels():
     counts = kernels.counts()
     assert counts["assemble"] > 0 and counts["reduce_lanes"] > 0
     assert counts["padd"] == 2 * counts["pneg"]
+    # the MSMs select in reduce_lanes and store canonical in horner
+    assert counts["select_small"] == counts["normalize3"] == 0
+    assert kernels.shape_counts()["horner"] and all(
+        "canonical" in shape for shape in kernels.shape_counts()["horner"])
+
+
+def _msm_operands(batch: int, L: int, rows: int, seed: int, dev):
+    """B MSMs of L lanes' flat tables (every 7th lane the identity; in MSM 0
+    lane t + L/2 the point of lane t with another Z) and their (B, rows, L)
+    uint8 digits: row 0 zero digits with sign 1, row 1 all 8, in MSM 0 row
+    2 lane t + L/2 the digit of lane t with the other sign (the first level
+    adds P and -P, lanes t and t + L/2 in every route's first level) and
+    row 3 the same sign (P + P), the rest random.  Returns the (16, B, L)
+    points too."""
+    h = L // 2
+    x, y, z = _points(batch * L, seed, dev)
+    k = limb.from_ints([5] * h, dev)
+    for c in (x, y, z):
+        c[:, h:L] = limb.mul(c[:, :h], k)
+    rng = np.random.default_rng(seed)
+    absd = torch.as_tensor(rng.integers(0, 9, size=(batch, rows, L)), dtype=torch.uint8, device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, rows, L)), dtype=torch.uint8, device=dev)
+    absd[:, 0], sgn[:, 0], absd[:, 1] = 0, 1, 8
+    absd[0, 2:4, h:] = absd[0, 2:4, :h]
+    sgn[0, 2, h:], sgn[0, 3, h:] = 1 - sgn[0, 2, :h], sgn[0, 3, :h]
+    return (x, y, z), kernels.table_flat((x, y, z)), absd, sgn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [128, 256, 512])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_cuda_first_level_select_equals_select_small_and_the_unfused_kernels(batch, L):
+    """msm's route from 128 to 1,023 lanes with the select in its first
+    launch: reduce_block (L = 256, 512; both designs, and at B = 2 the
+    wrapper's wide one: 8,448 output lanes) and tail_horner (L = 128, and
+    its canonical stores) from the tables and the uint8 digits, equal word
+    for word to select_small + the same kernel on the selected planes; one
+    launch each; the whole route (msm.msm) canonical equal to normalize3 of
+    the unfused route, and to the plain version."""
+    from bulletproofspp_tpu_torch.ops import msm
+
+    dev = _card()
+    rows = 33
+    pts, tabs, absd, sgn = _msm_operands(batch, L, rows, 7 * L + batch, dev)
+    sel = kernels.select_small(tabs, absd, sgn)
+    flat = tuple(t.reshape(16, -1) for t in sel)
+    kernels.reset_counts()
+    if L == 128:
+        planes = tuple(t.reshape(16, batch, rows * 128) for t in sel)
+        got = kernels.tail_horner(tabs, rows, absd=absd, sgn=sgn)
+        assert all(torch.equal(a, b) for a, b in zip(got, kernels.tail_horner(planes, rows)))
+        canon = kernels.tail_horner(tabs, rows, canonical=True, absd=absd, sgn=sgn)
+        assert torch.equal(canon, curve.normalize3(*got))
+        assert kernels.shape_counts()["tail_horner"] == {
+            f"K={batch} tables": 1, f"K={batch}": 1, f"K={batch} tables canonical": 1}
+        route = got
+    else:
+        f = L // 128
+        wide = batch * rows * L // f >= kernels.REDUCE_BLOCK_WIDE_LANES
+        assert wide == (batch == 2)
+        for narrow in (True, False):
+            got = kernels.reduce_block_design(tabs, f, narrow, absd, sgn)
+            want = kernels.reduce_block_design(flat, f, narrow)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), narrow
+        kernels.reset_counts()
+        got = kernels.reduce_block(tabs, f, absd=absd, sgn=sgn)
+        design = "wide" if wide else "narrow"
+        assert kernels.shape_counts()["reduce_block"] == {
+            f"W={batch * rows * L} f={f} tables {design}": 1}
+        route = kernels.tail_horner(tuple(t.reshape(16, batch, rows * 128) for t in got), rows)
+    planes = tuple(c.reshape(16, batch, L) for c in pts)
+    got = msm.msm(*planes, absd, sgn, canonical=True)
+    assert torch.equal(got, curve.normalize3(*route))
+    cpu = (*(t.cpu() for t in planes), absd.cpu(), sgn.cpu())
+    assert torch.equal(got.cpu(), msm.msm(*cpu, canonical=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 130])
+def test_cuda_canonical_stores_equal_normalize3_of_the_kernels(batch):
+    """horner and tail_horner with ``canonical``: one stacked (3, 16, B)
+    tensor, word for word normalize3 of the projective stores, in the same
+    one launch (an all-identity row and a cancelling row among the rows)."""
+    dev = _card()
+    r = _points(batch * 33, 80 + batch, dev, (16, batch, 33))
+    for c, v in zip(r, (0, 1, 0)):
+        c[:, :, 4] = limb.from_ints([v] * batch, dev).reshape(16, batch)
+    kernels.reset_counts()
+    got = kernels.horner(*r, canonical=True)
+    assert kernels.counts()["horner"] == 1 and got.shape == (3, 16, batch)
+    assert torch.equal(got, kernels.normalize3(*kernels.horner(*r)))
+    assert torch.equal(got.cpu(), kernels.horner_plain(*(t.cpu() for t in r), canonical=True))
+    p = _tail_lanes(batch, 33, 90 + batch, dev)
+    got = kernels.tail_horner(p, 33, canonical=True)
+    assert got.shape == (3, 16, batch)
+    assert torch.equal(got, kernels.normalize3(*kernels.tail_horner(p, 33)))
+    assert int(got.min()) >= 0 and int(got.max()) <= limb.MASK

@@ -62,7 +62,7 @@ def test_sharded_msm_global_equals_the_jax_package():
     assert jcurve.to_affine_host(tuple(np.asarray(c).reshape(16, 1) for c in ref)) == want
 
     planes = (torch.as_tensor(p.astype(np.int64)).unsqueeze(1) for p in jplanes)
-    digits = (torch.as_tensor(d.astype(np.int64))[None] for d in (ja, js))
+    digits = (torch.as_tensor(d.astype(np.uint8))[None] for d in (ja, js))
     got = dist.sharded_msm_global(dist.global_mesh(2, ["cpu"] * 8), *planes, *digits)
     assert curve.to_affine_host(got) == want
 

@@ -78,8 +78,8 @@ def test_select_reduce_plain_two_msms_with_a_zero_sign_row_equal_host_integers()
     batch, rows, L = 2, 3, 1024
     tables, pts = _tables(batch * L, 82)
     rng = np.random.default_rng(83)
-    absd = rng.integers(0, 9, size=(batch, rows, L))
-    sgn = rng.integers(0, 2, size=(batch, rows, L))
+    absd = rng.integers(0, 9, size=(batch, rows, L)).astype(np.uint8)
+    sgn = rng.integers(0, 2, size=(batch, rows, L)).astype(np.uint8)
     absd[:, 1], sgn[:, 1] = 0, 1  # every entry (0 : -1 : 0)
     absd_t, sgn_t = torch.as_tensor(absd), torch.as_tensor(sgn)
     kernels.reset_counts()
@@ -107,10 +107,10 @@ def test_select_reduce_plain_two_msms_with_a_zero_sign_row_equal_host_integers()
 
 def test_select_reduce_and_fold_bounds_count_what_the_kernels_read():
     # lane 0: |d| {0, 3} -> entry 3; lane 1: |d| {1, 2} -> entries 1 and 2
-    absd = torch.tensor([[[0, 1], [0, 2], [3, 2]]])
-    sgn = torch.tensor([[[0, 0], [1, 0], [0, 1]]])
+    absd = torch.tensor([[[0, 1], [0, 2], [3, 2]]], dtype=torch.uint8)
+    sgn = torch.tensor([[[0, 0], [1, 0], [0, 1]]], dtype=torch.uint8)
     ops, nbytes = bounds.select_reduce(absd, sgn, factor=2)
-    assert nbytes == 3 * 3 * bounds.FE_BYTES + 6 * 16 + 3 * bounds.PT_BYTES
+    assert nbytes == 3 * 3 * bounds.FE_BYTES + 6 * 2 + 3 * bounds.PT_BYTES  # a byte a digit
     assert ops == 3 * bounds.PT_ADD + 2 * bounds.FE_SUB  # two negative digits negate Y
     d = [[1, 1, 0], [0, 1, 1], [2, 2, 2], [0, 0, 0]]  # E: |d| {0, 1}, y {1, 9, 10}; O: {2}, {2}
     ops, nbytes = bounds.fold(8, d)

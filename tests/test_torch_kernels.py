@@ -130,6 +130,6 @@ def test_kernel_wrappers_reject_bad_shapes():
         kernels.reduce_block(_port(p), 8)  # 16 lanes: not a multiple of 1024
     with pytest.raises(ValueError):
         kernels.tail_horner(_port(p, (16, 1, 16)), 1)
-    digits = torch.zeros((1, 2, 16), dtype=torch.int64)
+    digits = torch.zeros((1, 2, 16), dtype=torch.uint8)
     with pytest.raises(ValueError):
         kernels.select_reduce(kernels.table_flat(_port(p)), digits, digits)  # 16 lanes

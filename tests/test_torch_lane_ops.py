@@ -8,7 +8,9 @@ by |d| (X, Z) and |d| + 9 s (Y) against ``kernels.select_plain``.  Inputs
 hold the edge values of ``test_torch_affine.EDGE`` (0, Q, Q +- 1, values in
 [Q, 2^256), saturated limbs), the dropped-carry operand
 (tests/test_ops_limb.py:160) and identity lanes.  A 64bit prove and verify
-on ``TorchEngine("cpu")`` must reach the four wrappers.
+on ``TorchEngine("cpu")`` must reach endo and pneg, and select and
+normalize inside reduce_lanes, tail_horner and horner, never through
+select_small or normalize3.
 
 The JAX package is imported inside the tests that compare with it, so the
 file's CUDA case, each kernel against its plain version, also runs where
@@ -17,6 +19,7 @@ JAX is not installed (the machine with the card):
     python -m pytest --noconftest -m cuda tests/test_torch_lane_ops.py
 """
 
+import collections
 import hashlib
 import importlib
 import os
@@ -141,11 +144,11 @@ def test_normalize3_plain_equals_the_jax_package_word_for_word(shape):
 
 
 def _digits(batch: int, L: int, seed: int):
-    """(B, ROWS, L) int64 magnitudes 0..8 and signs; row 0 all zero digits
-    with sign 1."""
+    """(B, ROWS, L) uint8 magnitudes 0..8 and signs (the kernels' digits);
+    row 0 all zero digits with sign 1."""
     rng = np.random.default_rng(seed)
-    absd = rng.integers(0, 9, size=(batch, ROWS, L))
-    sgn = rng.integers(0, 2, size=(batch, ROWS, L))
+    absd = rng.integers(0, 9, size=(batch, ROWS, L)).astype(np.uint8)
+    sgn = rng.integers(0, 2, size=(batch, ROWS, L)).astype(np.uint8)
     absd[:, 0], sgn[:, 0] = 0, 1
     return absd, sgn
 
@@ -202,12 +205,12 @@ def test_lanes_source_holds_beta():
 
 
 def test_lane_ops_work_counts():
-    absd = torch.zeros((2, ROWS, 16), dtype=torch.int64)
+    absd = torch.zeros((2, ROWS, 16), dtype=torch.uint8)
     sgn = torch.zeros_like(absd)
     absd[:, 1:] = 3
     n = absd.numel()
-    # per lane: entry 0 and 3 of X and Z, Y at 0 and 3 (sign 0)
-    assert bounds.select_small(absd, sgn) == (0, 2 * 16 * 6 * 128 + n * 16 + n * 384)
+    # per lane: entry 0 and 3 of X and Z, Y at 0 and 3 (sign 0); a byte a digit
+    assert bounds.select_small(absd, sgn) == (0, 2 * 16 * 6 * 128 + n * 2 + n * 384)
     assert bounds.endo(64, True) == (64 * bounds.FE_MUL, 64 * 3 * 384)
     assert bounds.endo(64, False) == (64 * bounds.FE_MUL, 64 * 2 * 128)
     assert bounds.pneg(64) == (64 * bounds.FE_SUB, 64 * 2 * 128)
@@ -242,7 +245,7 @@ def test_wrappers_launch_with_the_flattened_shapes(monkeypatch):
     assert x is p[0] and ny.shape == (16, 3, 40) and z is p[2]
     assert kernels.normalize3(*p).shape == (3, 16, 3, 40)
     tabs = tuple(torch.zeros((r, 6 * 16), dtype=torch.int64, device="meta") for r in (144, 288, 144))
-    d = torch.zeros((6, ROWS, 16), dtype=torch.int64, device="meta")
+    d = torch.zeros((6, ROWS, 16), dtype=torch.uint8, device="meta")
     assert [t.shape for t in kernels.select_small(tabs, d, d)] == [(16, 6, ROWS, 16)] * 3
     with pytest.raises(ValueError, match="tables of 96 lanes"):
         kernels.select_small(tabs[:2] + (tabs[0][:, :80],), d, d)
@@ -263,21 +266,26 @@ class _Guard:
 
 def test_prove_and_verify_on_the_cpu_reach_the_four_wrappers(monkeypatch):
     """A 64bit prove and verify on TorchEngine("cpu") through counting stubs
-    on kernels.select_small, endo, pneg and normalize3 (and assemble, which
-    interleaves msm_many's [P, phi(P)] lanes itself, and reduce_lanes,
-    which selects the entries of MSMs under 128 lanes itself): each is
-    reached (no call site runs the plain limb functions directly), the
-    bytes stay golden and the proof verifies.  The prove's MSMs are all
-    under 128 lanes, so it selects through reduce_lanes; the verify's one
-    MSM of 128 lanes through select_small, and it interleaves (in
-    assemble) and normalizes again."""
-    reached = {name: 0 for name in ("select_small", "endo", "pneg", "normalize3", "assemble",
-                                    "reduce_lanes")}
+    on kernels.select_small, endo, pneg and normalize3, and on the wrappers
+    that took over the select and the normalization: assemble (msm_many's
+    [P, phi(P)] interleave), reduce_lanes (the select under 128 lanes),
+    reduce_block and tail_horner (their first level selects from 128 to
+    1,023 lanes) and horner (its canonical stores).  endo and pneg are
+    reached (no call site runs the plain limb functions directly); no MSM
+    reaches select_small or normalize3; the bytes stay golden and the proof
+    verifies.  The prove's MSMs are all under 128 lanes (reduce_lanes, then
+    horner canonical); the verify's one MSM of 128 lanes selects in
+    tail_horner, which stores it canonical."""
+    names = ("select_small", "endo", "pneg", "normalize3", "assemble", "reduce_lanes",
+             "reduce_block", "tail_horner", "horner")
+    reached = {name: 0 for name in names}
+    forms = collections.Counter()
     for name in reached:
         inner = getattr(kernels, name)
 
         def counted(*a, _inner=inner, _name=name, **k):
             reached[_name] += 1
+            forms[_name, k.get("canonical", False), k.get("absd") is not None] += 1
             return _inner(*a, **k)
 
         monkeypatch.setattr(kernels, name, counted)
@@ -287,10 +295,15 @@ def test_prove_and_verify_on_the_cpu_reach_the_four_wrappers(monkeypatch):
     coms_b, proof_b = rpm.encode_proof(setup, proof)
     assert (hashlib.sha256(proof_b).hexdigest(),
             hashlib.sha256(coms_b).hexdigest()) == GOLDEN_64BIT
-    proved = dict(reached)
+    proved, proved_forms = dict(reached), dict(forms)
     assert rpm.verify(setup, rpm.decode_proof(setup, coms_b, proof_b, engine=eng), eng)
-    assert proved["select_small"] == 0 and all(v for k, v in proved.items() if k != "select_small")
-    assert all(reached[k] > proved[k] for k in ("select_small", "assemble", "normalize3")), reached
+    assert reached["select_small"] == reached["normalize3"] == 0, reached
+    assert proved["tail_horner"] == proved["reduce_block"] == 0, proved
+    assert all(proved[k] for k in ("endo", "pneg", "assemble", "reduce_lanes", "horner")), proved
+    assert set(proved_forms) == {(k, False, False) for k in ("endo", "pneg", "assemble",
+                                                           "reduce_lanes")} | {("horner", True,
+                                                                                False)}
+    assert forms["tail_horner", True, True] > 0 and reached["assemble"] > proved["assemble"], forms
 
 
 @pytest.mark.cuda

@@ -85,6 +85,10 @@ def _tables(n):
     return _meta(144, n), _meta(288, n), _meta(144, n)
 
 
+def _digits(*shape):
+    return torch.zeros(shape, dtype=torch.uint8, device="meta")
+
+
 _DIGITS = np.stack([*glv.recode_signed(3**80), *glv.recode_signed(5**50)])
 
 CALLS = {
@@ -93,26 +97,35 @@ CALLS = {
     "reduce_block": lambda: kernels.reduce_block(_pt(1024), 8),
     "tail_horner": lambda: kernels.tail_horner(_pt(1, 2 * 128), 2),
     "table_flat": lambda: kernels.table_flat(_pt(1024)),
-    "select_reduce": lambda: kernels.select_reduce(_tables(1024), _meta(1, 3, 1024),
-                                                   _meta(1, 3, 1024)),
+    "select_reduce": lambda: kernels.select_reduce(_tables(1024), _digits(1, 3, 1024),
+                                                   _digits(1, 3, 1024)),
     "fold": lambda: kernels.fold(_tables(16), _tables(16), _DIGITS),
     "fold_many": lambda: kernels.fold_many(_tables(32), _tables(32), np.stack([_DIGITS] * 2)),
-    "select_reduce_fused": lambda: kernels.select_reduce_fused(_pt(1024), _meta(1, 3, 1024),
-                                                               _meta(1, 3, 1024)),
+    "select_reduce_fused": lambda: kernels.select_reduce_fused(_pt(1024), _digits(1, 3, 1024),
+                                                               _digits(1, 3, 1024)),
     "decompress": lambda: kernels.decompress(_meta(16, 64), _meta(64)),
     "inv": lambda: kernels.inv(_meta(16, 64)),
     "to_affine": lambda: kernels.to_affine(*_pt(64)),
-    "select_small": lambda: kernels.select_small(_tables(2 * 64), _meta(2, 33, 64),
-                                                 _meta(2, 33, 64)),
+    "select_small": lambda: kernels.select_small(_tables(2 * 64), _digits(2, 33, 64),
+                                                 _digits(2, 33, 64)),
     "endo": lambda: kernels.endo(_pt(64), interleave=True),
     "pneg": lambda: kernels.pneg(_pt(64)),
     "normalize3": lambda: kernels.normalize3(*_pt(64)),
     "assemble": lambda: kernels.assemble([[[tuple(c[:, 1::2] for c in _pt(40))]] * 3], 64, True),
-    "reduce_lanes": lambda: kernels.reduce_lanes(_tables(2 * 16), _meta(2, 33, 16),
-                                                 _meta(2, 33, 16)),
-    "sr_variant": lambda: kernels.sr_variant(_tables(1024), _meta(3, 1024), _meta(3, 1024)),
+    "reduce_lanes": lambda: kernels.reduce_lanes(_tables(2 * 16), _digits(2, 33, 16),
+                                                 _digits(2, 33, 16)),
+    "sr_variant": lambda: kernels.sr_variant(_tables(1024), _digits(3, 1024), _digits(3, 1024)),
     "grid_copy": lambda: kernels.grid_copy(_meta(16, 1024)),
     "chain": lambda: kernels.chain("padd", _pt(64), _pt(64)),
+}
+# the forms of a wrapper that launch its kernel another way: the select in
+# reduce_block's and tail_horner's first level, the canonical stores
+FORMS = {
+    "reduce_block tables": ("reduce_block", lambda: kernels.reduce_block(
+        _tables(2 * 256), 2, absd=_digits(2, 33, 256), sgn=_digits(2, 33, 256))),
+    "tail_horner tables canonical": ("tail_horner", lambda: kernels.tail_horner(
+        _tables(128), 33, canonical=True, absd=_digits(1, 33, 128), sgn=_digits(1, 33, 128))),
+    "horner canonical": ("horner", lambda: kernels.horner(*_pt(2, 33), canonical=True)),
 }
 
 
@@ -131,3 +144,16 @@ def test_every_wrapper_launches_under_its_tensors_device(launches, monkeypatch, 
     assert checked == [{"meta"}]
     assert launches == [(kernels.KERNELS[name].entry, DEV1, _stream(DEV1))]
     assert kernels.counts()[name] == 1
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_every_form_launches_under_its_tensors_device(launches, monkeypatch, form):
+    """The same for the from-tables and canonical forms: one launch of the
+    wrapper's kernel, under the checked device, its digits as pointers."""
+    name, call = FORMS[form]
+    monkeypatch.setattr(kernels, "_check", lambda *planes, contiguous=True: DEV1)
+    out = call()
+    assert launches == [(kernels.KERNELS[name].entry, DEV1, _stream(DEV1))]
+    assert kernels.counts()[name] == 1
+    if "canonical" in form:
+        assert out.shape == (3, 16, 1 if "tail" in form else 2)

@@ -62,8 +62,8 @@ def _msm_case(L):
     sgn = rng.integers(0, 2, size=(glv.ROWS, L)).astype(np.uint32)
     arr = _planes(pts)
     px, py, pz = (t.unsqueeze(1) for t in _port(arr))
-    got = msm.msm(px, py, pz, torch.as_tensor(absd[None], dtype=torch.int64),
-                  torch.as_tensor(sgn[None], dtype=torch.int64))
+    got = msm.msm(px, py, pz, torch.as_tensor(absd[None], dtype=torch.uint8),
+                  torch.as_tensor(sgn[None], dtype=torch.uint8))
     return pts, arr, absd, sgn, curve.to_affine_host(got)[0]
 
 
@@ -95,8 +95,8 @@ def test_msm_batch_of_entries_matches_single_entries():
     B, L = 3, 16
     pts = _affine_points(L, rng)
     arr = _planes(pts)
-    absd = torch.as_tensor(rng.integers(0, 9, size=(B, glv.ROWS, L)))
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(B, glv.ROWS, L)))
+    absd = torch.as_tensor(rng.integers(0, 9, size=(B, glv.ROWS, L)), dtype=torch.uint8)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(B, glv.ROWS, L)), dtype=torch.uint8)
     px, py, pz = (t.unsqueeze(1).expand(16, B, L).contiguous() for t in _port(arr))
     got = curve.to_affine_host(msm.msm(px, py, pz, absd, sgn))
     for b in range(B):

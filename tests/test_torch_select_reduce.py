@@ -51,7 +51,7 @@ def test_select_reduce_plain_matches_select_reduce_pallas(tables):
     absd = rng.integers(0, 9, size=(rows, L)).astype(np.uint32)
     sgn = rng.integers(0, 2, size=(rows, L)).astype(np.uint32)
     got = kernels.select_reduce_plain(
-        got_t, torch.as_tensor(absd[None], dtype=torch.int64), torch.as_tensor(sgn[None], dtype=torch.int64)
+        got_t, torch.as_tensor(absd[None], dtype=torch.uint8), torch.as_tensor(sgn[None], dtype=torch.uint8)
     )
     want = pallas_field.select_reduce_pallas(*want_t, *_jax((absd, sgn)), interpret=True)
     assert got[0].shape == (16, rows * L // 8)

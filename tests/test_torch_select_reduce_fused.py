@@ -28,7 +28,7 @@ def _digits(rng, shape):
 
 
 def _t(a):
-    return torch.as_tensor(a.astype(np.int64))
+    return torch.as_tensor(a.astype(np.uint8))
 
 
 def test_select_reduce_fused_plain_matches_select_reduce_fused_pallas():

@@ -56,8 +56,8 @@ def test_pad_rows_matches_the_jax_package(rows, win):
     absd = rng.integers(0, 9, size=(rows, 24)).astype(np.uint32)
     sgn = rng.integers(0, 2, size=(rows, 24)).astype(np.uint32)
     want = jsharded.pad_rows(jnp.asarray(absd), jnp.asarray(sgn), win)
-    got = sharded.pad_rows(torch.as_tensor(absd[None].astype(np.int64)),
-                           torch.as_tensor(sgn[None].astype(np.int64)), win)
+    got = sharded.pad_rows(torch.as_tensor(absd[None].astype(np.uint8)),
+                           torch.as_tensor(sgn[None].astype(np.uint8)), win)
     for g, w in zip(got, want):
         assert g.shape[1] % win == 0
         assert np.array_equal(g[0].numpy(), np.asarray(w))
@@ -76,7 +76,7 @@ def _lanes(n_points, seed):
     for s, p in zip(scalars, pts):
         halves += glv.split(s)
         lane_pts += [p, None if p is None else (ec.BETA * p[0] % ec.P, p[1])]
-    absd, sgn = (torch.as_tensor(d.astype(np.int64))[None] for d in glv.recode_batch(halves))
+    absd, sgn = (torch.as_tensor(d.astype(np.uint8))[None] for d in glv.recode_batch(halves))
     planes = tuple(c.unsqueeze(1) for c in curve.from_affine_host(lane_pts, "cpu"))
     return scalars, pts, planes, absd, sgn
 

@@ -67,8 +67,8 @@ def inputs():
         for c, v in zip(cols, coords):
             c.append(v)
     tables = kernels.table_flat_plain(tuple(limb.from_ints(c, "cpu") for c in cols))
-    absd = rng.integers(0, 9, size=(ROWS, L))
-    sgn = rng.integers(0, 2, size=(ROWS, L))
+    absd = rng.integers(0, 9, size=(ROWS, L)).astype(np.uint8)
+    sgn = rng.integers(0, 2, size=(ROWS, L)).astype(np.uint8)
     return tables, torch.as_tensor(absd), torch.as_tensor(sgn)
 
 
@@ -204,7 +204,7 @@ def test_tabled_supported_matches_the_jax_condition(monkeypatch):
                   1 << 21, 1 << 22):
         assert msm.tabled_supported(lanes) == jmsm.tabled_supported(lanes), lanes
     with pytest.raises(ValueError, match="outside the tabled route"):
-        msm.msm_tabled(None, torch.zeros((1, 33, 512), dtype=torch.int64), None)
+        msm.msm_tabled(None, torch.zeros((1, 33, 512), dtype=torch.uint8), None)
 
 
 def test_bench_work_counts():
@@ -212,8 +212,8 @@ def test_bench_work_counts():
     entries, and the MSM's adds (33 a lane tabled, 40 untabled) and
     negations."""
     assert bounds.PT_ADD == 12 * 146 + 3 * 18 + 12 * 2 + 5 * 2
-    absd = torch.tensor([[[0, 1], [0, 2], [3, 2]]])
-    sgn = torch.tensor([[[0, 0], [1, 0], [0, 1]]])
+    absd = torch.tensor([[[0, 1], [0, 2], [3, 2]]], dtype=torch.uint8)
+    sgn = torch.tensor([[[0, 0], [1, 0], [0, 1]]], dtype=torch.uint8)
     # lane 0: |d| {0, 3}, y {0, 9, 3}; lane 1: |d| {1, 2}, y {1, 2, 11}
     assert bounds._selected_bytes(absd, sgn) == (2 * 4 + 6) * 128
     a, s = bench.digits([random.Random(9).randrange(R) for _ in range(512)], "cpu")
@@ -361,6 +361,6 @@ def test_bench_scalar_digits_match_native_recode():
     scalars = [random.Random(10 + i).randrange(R) for i in range(16)]
     absd, sgn = bench.digits(scalars, "cpu")
     na, ns = native.glv_recode_batch(scalars)
-    assert absd.shape == (1, 33, 32) and np.array_equal(absd[0].numpy(), na.astype(np.int64))
-    assert np.array_equal(sgn[0].numpy(), ns.astype(np.int64))
+    assert absd.shape == (1, 33, 32) and absd.dtype == sgn.dtype == torch.uint8
+    assert np.array_equal(absd[0].numpy(), na) and np.array_equal(sgn[0].numpy(), ns)
 
