@@ -80,24 +80,31 @@ def decompress_chain() -> int:
     return 2 + SQRT_SQUARINGS + SQRT_PRODUCTS + 1
 
 
-# the inverse a^(p-2) as an addition chain (libsecp256k1's secp256k1_fe_inv;
-# csrc/field.cuh: fe_inv runs it), steps (s, k) as in SQRT_CHAIN: its first
-# 11 steps are the square root's (the ladder to a^(2^223 - 1)), then four of
-# its own.  p - 2 in binary is blocks of ones of lengths 223, 22, 1, 2 and 1.
-INV_CHAIN = SQRT_CHAIN[:11] + ((23, 22), (5, 1), (3, 2), (2, 1))
-INV_SQUARINGS = sum(s for s, _ in INV_CHAIN)  # 255
-INV_PRODUCTS = sum(1 for _, k in INV_CHAIN if k)  # 15
-INV = INV_SQUARINGS * FE_SQR + INV_PRODUCTS * FE_MUL
+# the inverse by safegcd divsteps (csrc/field.cuh: fe_inv_divsteps,
+# libsecp256k1's secp256k1_modinv32): DIVSTEP_BATCHES batches of
+# DIVSTEPS_A_BATCH divsteps (600; 590 suffice for 256 bits), each batch then
+# applying its 2x2 matrix to (d, e) and (f, g).  The divsteps multiply
+# nothing (adds, logic and shifts on one word); a batch's updates take 4 x 9
+# products of a matrix entry and a limb for each pair (32 x 32 -> 64: two
+# multiplies each), for (d, e) also md and me times p's limb 0 (-977; its
+# limbs 1 and 8, -4 and 2^16, are shifts), and the low words of p^-1 mod
+# 2^30 times cd and ce (one multiply each).
+DIVSTEP_BATCHES = 20
+DIVSTEPS_A_BATCH = 30
+DIVSTEP_BATCH = 2 * (2 * 4 * 9 + 2) + 2  # 150
+INV = DIVSTEP_BATCHES * DIVSTEP_BATCH
 
 
 def inv_chain() -> int:
-    """inv's chain, one thread a lane: the inverse's dependent field products."""
-    return INV_SQUARINGS + INV_PRODUCTS
+    """inv's chain, one thread a lane: its dependent divstep batches (30
+    divsteps, then the matrix updates, each)."""
+    return DIVSTEP_BATCHES
 
 
 def to_affine_chain() -> int:
-    """to_affine's chain: the inverse of z, then x z^-1 (y z^-1 beside it)."""
-    return inv_chain() + 1
+    """to_affine's chain: the inverse of z's batches (then x z^-1, y z^-1
+    beside it: one product)."""
+    return inv_chain()
 
 
 # multiplies per chain step, by phase (tools.cu: chain_step)
@@ -245,6 +252,15 @@ def fold_chain(rows: int):
     return 6 * rows, 2 * 6 * rows
 
 
+def fold_many_chain(rows: int, group: int):
+    """fold_many's chain, a lane on a group of ``group`` threads: the tables'
+    7 additions (at group 16 or 32 the two tables at once, each on half the
+    group; at 8 one after the other: 14), then fold's 4 doublings and 2
+    additions a row, 2 rounds each."""
+    ops = (7 if group >= 16 else 14) + 6 * rows
+    return ops, 2 * ops
+
+
 def table_flat_chain(design: str):
     """table_flat's chain, a lane's 7 additions: 12 product rounds each on
     one thread (``"wide"``), 2 on a group of threads (``"narrow"``)."""
@@ -288,11 +304,13 @@ def fold(n: int, digits):
 
 
 def fold_many(n: int, digits):
-    """B provers' folds of n / B lanes each in one launch: the sum of their
-    ``fold`` bounds' work (digits: (B, 4, rows)); the chain is one fold's
-    (``fold_chain``)."""
-    works = [fold(n // len(digits), d) for d in digits]
-    return sum(w[0] for w in works), sum(w[1] for w in works)
+    """B provers' folds of n / B lanes each in one launch, from the two
+    bases' points (digits: (B, 4, rows)): the multiplies of their ``fold``
+    bounds and of the two tables the launch builds (``table_flat``'s, of n
+    lanes each); the two bases' points read and the result written (the
+    tables never leave the SM).  The chain: ``fold_many_chain``."""
+    ops = sum(fold(n // len(digits), d)[0] for d in digits) + 2 * table_flat(n)[0]
+    return ops, n * 3 * PT_BYTES
 
 
 def select_reduce_fused(absd, sgn):

@@ -3,7 +3,8 @@
 // padd, horner, reduce_block, tail_horner, table_flat and select_reduce
 // each replace one Pallas TPU kernel of bulletproofspp_tpu/ops/pallas_field.py;
 // fold replaces the XLA fold_mul_kernel of bulletproofspp_tpu/ops/msm.py,
-// fold_many its vmap over the provers of a lockstep batch, and reduce_lanes
+// fold_many its vmap over the provers of a lockstep batch (from the bases'
+// points, its lanes' tables built in the launch), and reduce_lanes
 // the XLA table select and lane tree of its MSMs under 128 lanes (the
 // one-hot select and _reduce_lanes, one program there and one launch here).
 // The MSM routes select inside their first reduction: reduce_lanes under 128
@@ -27,10 +28,11 @@
 // design is the simple one: one thread per independent lane, coalesced
 // limb-plane loads (neighbouring threads read neighbouring lanes), 8 x 32-bit
 // words in registers with 64-bit carry chains.  Making them fast (fewer
-// carries, madc chains, more lanes per SM) is later work.  Eight are
+// carries, madc chains, more lanes per SM) is later work.  Nine are
 // designed for this card instead: horner, tail_horner and fold, whose work
 // is one chain of dependent point operations per MSM or lane, bound by its
-// latency (they run it on a warp: curve_warp.cuh); padd, table_flat,
+// latency (they run it on a warp: curve_warp.cuh); fold_many, the same
+// chain on a group of 16 or 8 threads by the launch's width (below); padd, table_flat,
 // reduce_block and reduce_lanes, which at the narrow widths most of their
 // calls have (16 to a few thousand lanes) fill few SMs and wait on one
 // thread's additions, so (below a lane count, or always for reduce_lanes)
@@ -543,30 +545,7 @@ struct FoldDigits {
   uint8_t d[4][kFoldRows];  // de, se, do, so
 };
 
-// One lane's chain on the calling warp: b E_j + a O_j with the digits of
-// ``dig``, stored by lane 0 of the warp (fold and fold_many share it).
-__device__ __forceinline__ void fold_lane_warp(const int64_t* __restrict__ ex,
-                                               const int64_t* __restrict__ ey2,
-                                               const int64_t* __restrict__ ez,
-                                               const int64_t* __restrict__ ox,
-                                               const int64_t* __restrict__ oy2,
-                                               const int64_t* __restrict__ oz,
-                                               const FoldDigits& dig, int64_t* __restrict__ rx,
-                                               int64_t* __restrict__ ry, int64_t* __restrict__ rz,
-                                               int64_t n, int64_t j) {
-  Pt acc = pt_identity();
-#pragma unroll 1
-  for (int r = 0; r < kFoldRows; r++) {
-    const Pt e = table_entry(ex, ey2, ez, n, j, dig.d[0][r], dig.d[1][r]);
-    const Pt o = table_entry(ox, oy2, oz, n, j, dig.d[2][r], dig.d[3][r]);
-#pragma unroll 1
-    for (int k = 0; k < 4; k++) acc = pt_dbl_warp(acc);
-    acc = pt_add_warp(acc, e);
-    acc = pt_add_warp(acc, o);
-  }
-  if ((threadIdx.x & 31) == 0) pt_store(rx, ry, rz, n, j, acc);
-}
-
+// One warp a lane: the loop is uniform over the warp.
 __global__ void __launch_bounds__(32 * kFoldWarps)
     fold_kernel(const int64_t* __restrict__ ex, const int64_t* __restrict__ ey2,
                 const int64_t* __restrict__ ez, const int64_t* __restrict__ ox,
@@ -574,21 +553,60 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
                 const __grid_constant__ FoldDigits dig, int64_t* __restrict__ rx,
                 int64_t* __restrict__ ry, int64_t* __restrict__ rz, int64_t n) {
   for (int64_t j = blockIdx.x * (int64_t)kFoldWarps + threadIdx.x / 32; j < n;
-       j += (int64_t)gridDim.x * kFoldWarps) {  // uniform over the warp
-    fold_lane_warp(ex, ey2, ez, ox, oy2, oz, dig, rx, ry, rz, n, j);
+       j += (int64_t)gridDim.x * kFoldWarps) {
+    Pt acc = pt_identity();
+#pragma unroll 1
+    for (int r = 0; r < kFoldRows; r++) {
+      const Pt e = table_entry(ex, ey2, ez, n, j, dig.d[0][r], dig.d[1][r]);
+      const Pt o = table_entry(ox, oy2, oz, n, j, dig.d[2][r], dig.d[3][r]);
+#pragma unroll 1
+      for (int k = 0; k < 4; k++) acc = pt_dbl_warp(acc);
+      acc = pt_add_warp(acc, e);
+      acc = pt_add_warp(acc, o);
+    }
+    if ((threadIdx.x & 31) == 0) pt_store(rx, ry, rz, n, j, acc);
   }
 }
 
-// --- fold_many: jax.vmap(fold_mul_kernel) (bulletproofspp_tpu/ops/msm.py:297,
-// :306): fold over B provers at once, each with its own digit streams, for
-// the lockstep prover (one launch where B provers' folds would take B).
-// The provers' L lanes lie end to end in (16, B L) planes and tables
-// (prover b's lane j at b L + j), so the work and its design are fold's:
-// one warp a lane; warp w runs lane w of the launch, of prover w / L, whose
-// digits are uniform over the warp.  Up to kFoldMaxProvers provers' digits
-// travel by value in the launch, as fold's do (no upload, no
-// synchronization); the wrapper splits a call of more provers into
-// launches of at most that many, each over its provers' lanes.
+// --- fold_many: replaces jax.vmap(fold_mul_kernel) (bulletproofspp_tpu/ops/
+// msm.py:297) and its use in jax.vmap(_csq_with_endo) (:306): fold over B
+// provers at once, each with its own digit streams, for the lockstep prover.
+// Its input is the JAX function's: the two bases' strict projective points,
+// (16, B L) planes with prover b's L lanes at b L; each lane's two multiple
+// tables are built in the launch, as fold_mul_kernel builds them (_table).
+//
+// What bounds it on the H100, by the launch's width (its lanes: 32 at B = 2,
+// L = 16 to 8,192 at B = 16, L = 512):
+//  * narrow launches: the latency of a lane's chain, 4 doublings and 2
+//    additions a row over 33 rows (396 product rounds on a group of
+//    threads), after the tables' 7 additions each.  The tables are built
+//    here, not by two table_flat launches before (two launches, and 4,608 B
+//    a lane written to device memory and read back row by row as int64
+//    limbs): the lane's group loads E_j and O_j once, makes the 9 multiples
+//    of each with table_flat_narrow_kernel's formulas in its order (so each
+//    entry is table_flat's, word for word) and keeps them as packed words in
+//    shared memory, X, Y, -Y and Z of each (FoldEntry: 2 x 36 x 32 B = 2,304
+//    B a lane); each row then reads its E and O entries from there.  With a
+//    group of 16 or 32 threads the two tables are built at once, each by
+//    half of the group (7 additions, not 14).
+//  * wide launches: instruction issue.  In a round of curve_warp.cuh every
+//    thread of the group issues the round's product or a copy of it (an
+//    addition has 6, a doubling 4) and all the cheap steps, so a warp a lane
+//    (G = 32) issues 32 threads' instructions for one lane's work: at 8,192
+//    warps each scheduler carries ~16 and the rounds queue behind each
+//    other.  A group of G = 8 threads holds an addition's 6 products, and a
+//    warp then carries 4 lanes for the same instructions: a quarter of the
+//    issue a lane.
+// So the kernel is instantiated for G = 8, 16 and 32, and the wrapper
+// (ops/kernels.py: fold_many) takes G = 8 from FOLD_MANY_WIDE_LANES (2,048)
+// lanes a launch and G = 16 below, where it matched G = 32 within 0.6% and
+// was the fastest at 1,024 lanes (chip_smoke.py phase 2 times all three in
+// turns at five shapes).  The order of each lane's chain is the JAX scan's
+// and fold's: per row 4 doublings, + the E entry, + the O entry; the
+// output equals table_flat + fold on the same lanes word for word, whatever
+// G.  Up to kFoldMaxProvers provers' digits travel by value in the launch
+// (no upload, no synchronization); the wrapper splits a call of more
+// provers into launches of at most that many, each over its provers' lanes.
 constexpr int kFoldMaxProvers = 16;  // ops/kernels.py: FOLD_MAX_PROVERS
 
 struct FoldDigitsMany {
@@ -602,16 +620,83 @@ static_assert(sizeof(FoldDigitsMany) == kFoldMaxProvers * 4 * kFoldRows,
 static_assert(sizeof(FoldDigitsMany) + 13 * sizeof(int64_t) <= 4096,
               "fold_many's parameters must fit in 4 KB");
 
+// Entry e of a lane's table of one basis, in shared memory.
+struct __align__(16) FoldEntry {
+  Fe x, y, ny, z;  // ny = -y (fe_neg), as table_flat's entries 9..17
+};
+
+// Lanes a block of fold_many at group width G: 36,864 B of tables at G = 8,
+// within the 48 KB of static shared memory.
+template <int G>
+constexpr int kFoldManyLanes = 32 * kFoldWarps / G;
+
+// The 9 multiples of `base` on a group of H threads, in table_flat's order
+// (0P, P, then + P), stored to t[0..8] (the H threads write the same words).
+template <int H>
+__device__ __forceinline__ void fold_table(FoldEntry* t, const Pt& base) {
+  Pt acc = pt_identity();
+#pragma unroll 1
+  for (int e = 0; e < 9; e++) {
+    if (e == 1) acc = base;
+    if (e > 1) acc = pt_add_warp<H>(acc, base);
+    t[e].x = acc.x;
+    t[e].y = acc.y;
+    t[e].ny = fe_neg(acc.y);
+    t[e].z = acc.z;
+  }
+}
+
+// Entry |d| of a table, -Y where s is 1.
+__device__ __forceinline__ Pt fold_entry(const FoldEntry* t, int d, int s) {
+  const FoldEntry& en = t[d];
+  Pt p;
+  p.x = en.x;
+  p.y = *(s ? &en.ny : &en.y);
+  p.z = en.z;
+  return p;
+}
+
+// Lane w of the launch (of prover w / lanes) on a group of G threads.  The
+// loop is uniform over the block; a group past the last lane computes lane
+// count - 1 again and stores nothing (every thread takes part in the
+// shuffles).
+template <int G>
 __global__ void __launch_bounds__(32 * kFoldWarps)
-    fold_many_kernel(const int64_t* __restrict__ ex, const int64_t* __restrict__ ey2,
+    fold_many_kernel(const int64_t* __restrict__ ex, const int64_t* __restrict__ ey,
                      const int64_t* __restrict__ ez, const int64_t* __restrict__ ox,
-                     const int64_t* __restrict__ oy2, const int64_t* __restrict__ oz,
+                     const int64_t* __restrict__ oy, const int64_t* __restrict__ oz,
                      const __grid_constant__ FoldDigitsMany dig, int64_t* __restrict__ rx,
                      int64_t* __restrict__ ry, int64_t* __restrict__ rz, int64_t n,
                      int64_t lanes, int64_t first, int64_t count) {
-  for (int64_t w = blockIdx.x * (int64_t)kFoldWarps + threadIdx.x / 32; w < count;
-       w += (int64_t)gridDim.x * kFoldWarps) {  // uniform over the warp
-    fold_lane_warp(ex, ey2, ez, ox, oy2, oz, dig.p[w / lanes], rx, ry, rz, n, first + w);
+  constexpr int per = kFoldManyLanes<G>;
+  __shared__ FoldEntry tabs[per][2][9];
+  const int slot = threadIdx.x / G;
+  FoldEntry(&tab)[2][9] = tabs[slot];
+  for (int64_t w0 = blockIdx.x * (int64_t)per; w0 < count; w0 += (int64_t)gridDim.x * per) {
+    const int64_t w = w0 + slot, wl = w < count ? w : count - 1, j = first + wl;
+    if constexpr (G >= 16) {  // E on the group's first half, O on its second
+      const int h = (threadIdx.x / (G / 2)) & 1;
+      fold_table<G / 2>(tab[h], pt_load(h ? ox : ex, h ? oy : ey, h ? oz : ez, n, j));
+    } else {
+      fold_table<G>(tab[0], pt_load(ex, ey, ez, n, j));
+      fold_table<G>(tab[1], pt_load(ox, oy, oz, n, j));
+    }
+    __syncwarp();  // the group's table stores before its reads
+    const FoldDigits& dg = dig.p[wl / lanes];
+    Pt acc = pt_identity();
+#pragma unroll 1
+    for (int r = 0; r < kFoldRows; r++) {
+#pragma unroll 1
+      for (int k = 0; k < 4; k++) acc = pt_dbl_warp<G>(acc);
+      acc = pt_add_warp<G>(acc, fold_entry(tab[0], dg.d[0][r], dg.d[1][r]));
+      acc = pt_add_warp<G>(acc, fold_entry(tab[1], dg.d[2][r], dg.d[3][r]));
+    }
+    if (w < count) {
+      int64_t* const dst[3] = {rx, ry, rz};
+      const Fe v[3] = {acc.x, acc.y, acc.z};
+      fe_store_group<G>(dst, v, n, j);
+    }
+    __syncwarp();  // every read of the tables before the next lane's stores
   }
 }
 
@@ -824,19 +909,30 @@ int bppp_fold(const int64_t* ex, const int64_t* ey2, const int64_t* ez, const in
 }
 
 // digits: kFoldMaxProvers FoldDigits (those past the launch's provers
-// unused); the launch folds lanes [first, first + provers * lanes) of the
-// (16, n) planes.
-int bppp_fold_many(const int64_t* ex, const int64_t* ey2, const int64_t* ez, const int64_t* ox,
-                   const int64_t* oy2, const int64_t* oz, const void* digits, int64_t* rx,
+// unused); ex..oz the two bases' (16, n) strict points; the launch folds
+// lanes [first, first + provers * lanes) on groups of `group` threads (8,
+// 16 or 32).
+int bppp_fold_many(const int64_t* ex, const int64_t* ey, const int64_t* ez, const int64_t* ox,
+                   const int64_t* oy, const int64_t* oz, const void* digits, int64_t* rx,
                    int64_t* ry, int64_t* rz, int64_t n, int64_t lanes, int64_t first,
-                   int64_t provers, void* stream) {
+                   int64_t provers, int group, void* stream) {
   if (provers < 1 || provers > kFoldMaxProvers || lanes < 1 || first < 0 ||
       first + provers * lanes > n) {
     return (int)cudaErrorInvalidValue;
   }
-  fold_many_kernel<<<fold_blocks(provers * lanes), 32 * kFoldWarps, 0, (cudaStream_t)stream>>>(
-      ex, ey2, ez, ox, oy2, oz, *static_cast<const FoldDigitsMany*>(digits), rx, ry, rz, n,
-      lanes, first, provers * lanes);
+  const FoldDigitsMany& dig = *static_cast<const FoldDigitsMany*>(digits);
+  const int64_t count = provers * lanes;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define BPPP_FOLD_MANY(G)                                                                      \
+  fold_many_kernel<G><<<blocks_for(count, kFoldManyLanes<G>), 32 * kFoldWarps, 0, s>>>(        \
+      ex, ey, ez, ox, oy, oz, dig, rx, ry, rz, n, lanes, first, count)
+  switch (group) {
+    case 8: BPPP_FOLD_MANY(8); break;
+    case 16: BPPP_FOLD_MANY(16); break;
+    case 32: BPPP_FOLD_MANY(32); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BPPP_FOLD_MANY
   return (int)cudaGetLastError();
 }
 

@@ -33,8 +33,9 @@ and the same N one at a time through ``range_proof.prove``, each once to
 warm up, once timed and once under ``torch.profiler``: wall seconds, device
 seconds and the device's idle share, device ms and launches by wrapper,
 and the fold launches of each route (``fold`` one prover a launch,
-``fold_many`` all of a lockstep bucket's); the two routes' proofs must be
-equal byte for byte.
+``fold_many`` all of a lockstep bucket's, and ``table_flat``: fold_many
+builds its tables in its own launch, fold takes two table_flat launches);
+the two routes' proofs must be equal byte for byte.
 
 ``--mp P`` proves examples/128by64 with P parties (contiguous slices of its
 ranges, seeds ``mp party <k>``) on threads and the dealer on another, all
@@ -221,8 +222,9 @@ def profile_lockstep(n: int, eng):
     """One lockstep bucket of ``n`` 64bit proofs (``prove_many``) against the
     same proofs one at a time: for each route, the wall seconds of one run,
     the device seconds and idle share of another under the profiler, device
-    ms and launches by wrapper, and the fold launches (counted as the
-    difference of ``kernels.counts()``, which are not reset)."""
+    ms and launches by wrapper, and the fold and table_flat launches
+    (counted as the difference of ``kernels.counts()``, which are not
+    reset)."""
     items = lockstep_items(n)
     routes = {"lockstep": lambda: prove_many(items, eng),
               "one_at_a_time": lambda: [rpm.prove(s, v, seed, eng) for s, v, seed in items]}
@@ -239,7 +241,8 @@ def profile_lockstep(n: int, eng):
         out[name] = {"wall_s": wall, "device_s": p["device_s"],
                      "device_idle_share": 1 - p["device_s"] / wall,
                      "by_wrapper": by_wrapper(p["by_kernel"]), "complete": p["complete"],
-                     "fold_launches": {k: p["launched"].get(k, 0) for k in ("fold", "fold_many")}}
+                     "fold_launches": {k: p["launched"].get(k, 0)
+                                       for k in ("fold", "fold_many", "table_flat")}}
     if encoded["lockstep"] != encoded["one_at_a_time"]:
         raise AssertionError("lockstep proofs differ from the ones proved one at a time")
     return out

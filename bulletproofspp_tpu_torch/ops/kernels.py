@@ -129,7 +129,8 @@ KERNELS = {
                ("select_reduce_kernel|select_reduce_rows_kernel",)),
         Kernel("fold", "kernels.cu", "bppp_fold", [_P] * 10 + [_I64, _P],
                "bulletproofspp_tpu/ops/msm.py:247", ("fold_kernel",)),
-        Kernel("fold_many", "kernels.cu", "bppp_fold_many", [_P] * 10 + [_I64] * 4 + [_P],
+        Kernel("fold_many", "kernels.cu", "bppp_fold_many",
+               [_P] * 10 + [_I64] * 4 + [_I32, _P],
                "bulletproofspp_tpu/ops/msm.py:297", ("fold_many_kernel",)),
         Kernel("select_reduce_fused", "select_reduce_fused.cu", "bppp_select_reduce_fused",
                [_P] * 8 + [_I64, _I64, _I64, _P], "bulletproofspp_tpu/ops/pallas_field.py:615",
@@ -751,47 +752,76 @@ def fold(te, to, digits):
 # ---------------------------------------------------------------------------
 
 FOLD_MAX_PROVERS = 16  # provers' digits a launch carries (csrc/kernels.cu)
+FOLD_MANY_GROUPS = (8, 16, 32)  # the kernel's group widths, threads a lane
+# Lanes a launch from which fold_many runs each lane on a group of 8 threads
+# (a warp carries 4 lanes: a quarter of the instructions a lane), and below
+# which on 16 (two lanes a warp, each lane's two tables built at once).  On
+# an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 2, the three group
+# widths in turns): at 32 to 512 lanes 16 and 32 within 0.6% of each other
+# and 8 ~25% slower (0.48 against 0.38 ms); at 1,024 lanes 16 the fastest
+# (0.394 ms; 8: 0.487, 32: 0.544); at 2,048 lanes 8 (0.491; 16: 0.547, 32:
+# 1.16), and at 8,192 (1.22; 16: 2.34, 32: 4.67).
+FOLD_MANY_WIDE_LANES = 2048
 
 
-def _prover_lanes(te, digits) -> tuple:
-    """(B, L): the provers and the lanes of each, whose L-lane tables lie
-    end to end in ``te``; raises unless digits is (B, 4, ROWS)."""
+def fold_many_group(lanes: int) -> int:
+    """The group width fold_many takes for a launch of ``lanes`` lanes."""
+    return 8 if lanes >= FOLD_MANY_WIDE_LANES else 16
+
+
+def _prover_lanes(pe, digits) -> tuple:
+    """(B, L): the provers and the lanes of each, whose L lanes lie end to
+    end in ``pe``; raises unless digits is (B, 4, ROWS)."""
     d = np.asarray(digits)
-    n = te[0].shape[1]
+    n = pe[0].shape[1]
     if d.ndim != 3 or len(d) < 1 or n % len(d):
         raise ValueError(f"fold_many: digits must be (B, 4, {glv.ROWS}) for B provers of equal "
                          f"lane counts, got {d.shape} for {n} lanes")
     return len(d), n // len(d)
 
 
-def fold_many_plain(te, to, digits):
-    """te, to: the flat tables of B provers' L lanes each, end to end ((16
-    E, B L)); digits: (B, 4, ROWS) host ints.  ``fold_plain`` per prover on
-    its lanes; returns (16, B L)."""
-    B, L = _prover_lanes(te, digits)
+def fold_many_plain(pe, po, digits):
+    """pe, po: the two bases' (16, B L) strict lanes, B provers' L lanes end
+    to end; digits: (B, 4, ROWS) host ints.  ``table_flat_plain`` of each
+    basis, then ``fold_plain`` per prover on its lanes; returns (16, B L)."""
+    B, L = _prover_lanes(pe, digits)
+    te, to = table_flat_plain(pe), table_flat_plain(po)
     outs = [fold_plain(tuple(t[:, b * L:(b + 1) * L] for t in te),
                        tuple(t[:, b * L:(b + 1) * L] for t in to), digits[b]) for b in range(B)]
     return tuple(torch.cat(c, 1) for c in zip(*outs))
 
 
-def fold_many(te, to, digits):
+def fold_many(pe, po, digits):
     """``fold_many_plain`` on the card: one launch per FOLD_MAX_PROVERS
     provers, each prover's digits packed by value (``fold_digits``) into
-    the launch."""
-    B, L = _prover_lanes(te, digits)
+    the launch, the lanes' tables built in it; the group width by the
+    launch's lanes (``fold_many_group``)."""
+    return fold_many_design(pe, po, digits)
+
+
+def fold_many_design(pe, po, digits, group: int | None = None):
+    """``fold_many`` with every launch on groups of ``group`` threads (one
+    of FOLD_MANY_GROUPS; None: ``fold_many_group`` of its lanes).  The
+    words are the same whatever the group; the smoke times each."""
+    B, L = _prover_lanes(pe, digits)
     packed = [fold_digits(d) for d in digits]
-    if te[0].device.type == "cpu":
-        return fold_many_plain(te, to, digits)
-    tabs = [t.contiguous() for t in (*te, *to)]
-    n = tabs[0].shape[1]
-    dev = _check(*(t.view(-1, limb.NLIMB, n)[0] for t in tabs))
-    out = _empty((limb.NLIMB, n), tabs[0])
+    if group is not None and group not in FOLD_MANY_GROUPS:
+        raise ValueError(f"fold_many: group {group} is not one of {FOLD_MANY_GROUPS}")
+    if pe[0].device.type == "cpu":
+        return fold_many_plain(pe, po, digits)
+    pts = [t.contiguous() for t in (*pe, *po)]
+    dev = _check(*pts)
+    n = pts[0].shape[1]
+    if any(t.shape != (limb.NLIMB, n) for t in pts):
+        raise ValueError("fold_many takes the two bases as (16, B L) planes of one shape")
+    out = _empty((limb.NLIMB, n), pts[0])
     size = FOLD_MAX_PROVERS * 4 * glv.ROWS
     for p0 in range(0, B, FOLD_MAX_PROVERS):
         chunk = packed[p0:p0 + FOLD_MAX_PROVERS]
+        g = group or fold_many_group(len(chunk) * L)
         buf = ctypes.create_string_buffer(b"".join(chunk), size)
-        _launch("fold_many", f"B={len(chunk)} L={L}", dev, *_ptrs(*tabs), ctypes.addressof(buf),
-                *_ptrs(*out), n, L, p0 * L, len(chunk))
+        _launch("fold_many", f"B={len(chunk)} L={L} G={g}", dev, *_ptrs(*pts),
+                ctypes.addressof(buf), *_ptrs(*out), n, L, p0 * L, len(chunk), g)
     return out
 
 
@@ -861,8 +891,8 @@ def decompress(x, sign):
 
 
 # ---------------------------------------------------------------------------
-# 9b. inv and to_affine: the Fermat inverse, one thread a lane, and the affine
-# conversion of fold_bases / shared_mul
+# 9b. inv and to_affine: the inverse by safegcd divsteps, one thread a lane,
+# and the affine conversion of fold_bases / shared_mul
 # ---------------------------------------------------------------------------
 
 
@@ -873,8 +903,10 @@ def inv_plain(a):
 
 
 def inv(a):
-    """``inv_plain`` on the card: libsecp256k1's addition chain for p - 2
-    (``csrc/field.cuh: fe_inv``) on every element."""
+    """``inv_plain`` on the card: Bernstein and Yang's divsteps, 20 batches
+    of 30 as libsecp256k1's ``secp256k1_modinv32`` runs them
+    (``csrc/field.cuh: fe_inv_divsteps``), on every element; the same
+    canonical words (the inverse is unique)."""
     if a.device.type == "cpu":
         return inv_plain(a)
     flat = a.reshape(limb.NLIMB, -1).contiguous()
@@ -896,7 +928,7 @@ def to_affine_plain(x, y, z):
 
 def to_affine(x, y, z):
     """``to_affine_plain`` on the card in one launch: one inverse a lane
-    (``inv``'s chain), then the two products."""
+    (``inv``'s divsteps), then the two products."""
     if x.device.type == "cpu":
         return to_affine_plain(x, y, z)
     x, y, z = (t.contiguous() for t in (x, y, z))

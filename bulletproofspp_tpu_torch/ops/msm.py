@@ -138,9 +138,10 @@ def fold_mul_many(pe, po, digits):
     """``fold_mul`` for B provers at once (``jax.vmap(fold_mul_kernel)``,
     ``bulletproofspp_tpu/ops/msm.py:297``): pe, po (16, B L) lanes, prover
     b's L lanes at b L; digits (B, 4, ROWS) host rows de, se, do, so of each
-    prover.  One table_flat launch a basis over all B L lanes, then one
-    batched fold."""
-    return kernels.fold_many(kernels.table_flat(pe), kernels.table_flat(po), digits)
+    prover.  One fold_many launch (a launch per 16 provers), which builds
+    the lanes' tables itself, as ``fold_mul_kernel`` does: no table_flat
+    launch."""
+    return kernels.fold_many(pe, po, digits)
 
 
 def complete_square(g0, g1, de, se, do, so):
@@ -154,7 +155,8 @@ def complete_square(g0, g1, de, se, do, so):
 def complete_square_many(g0, g1, digits):
     """``complete_square`` for B provers at once (``jax.vmap(_csq_with_endo)``,
     ``bulletproofspp_tpu/ops/msm.py:306``): g0, g1 (16, B L), digits (B, 4,
-    ROWS).  One endomorphism over all B L lanes, one batched fold and one
-    padd launch each for g1 + rp and g1 - rp."""
+    ROWS).  One endomorphism over all B L lanes, one batched fold (no
+    table_flat launch), a negation and one padd launch each for g1 + rp and
+    g1 - rp."""
     rp = fold_mul_many(g0, curve.endo(g0), digits)
     return curve.padd(g1, rp), curve.padd(g1, curve.pneg(rp))

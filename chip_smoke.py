@@ -30,11 +30,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and to equal the other design, and at 65,536 lanes; fold at 16, 520
      and 512 lanes, zero digits
      with sign 1 in both streams at 16 and 520; fold_many, the batched
-     fold of the lockstep prover, at B = 2 and 16 provers of L = 16 and 512
-     lanes, each prover with its own digits and prover 0's streams with
-     zero digits and sign 1, timed in turns with the B single-prover fold
-     launches on the same lanes, and at B = 1 equal word for word to
-     fold): the normalized outputs must be equal limb for limb.  Time both: a kernel's launches back to
+     fold of the lockstep prover, from the two bases' points (its tables
+     built in its launch) at B = 2 and 16 provers of L = 16 and 512 lanes
+     and B = 4 of 512,
+     each prover with its own digits and prover 0's streams with zero
+     digits and sign 1, no table_flat launch, its three group widths equal
+     raw and timed in turns, the wrapper in turns with the route it
+     replaced (two table_flat launches and B fold launches on the same
+     lanes), and at B = 1 equal word for word to table_flat + fold): the
+     normalized outputs must be equal limb for limb.  Time both: a kernel's launches back to
      back (enqueued while the stream sleeps), a plain version's as the host
      sends them.  select_reduce is timed in turns with its yardsticks on
      the same inputs: at 4,096 lanes (its gather design) with sr_variant
@@ -220,7 +224,7 @@ route; padd at 1,056 lanes, the halving trees' commonest, and 65,536;
 table_flat at 16, fold's, and 4,096; reduce_block at W = 33,792, f = 8,
 the bench's second launch, and W = 16,896, f = 4, cli test's commonest;
 decompress at 16 lanes, cli test's smallest, and 16,384; fold_many at B =
-2 and 16 of L = 16 and 512; inv and to_affine at 16, 4,096 and 65,536;
+2 and 16 of L = 16 and 512 and B = 4 of 512; inv and to_affine at 16, 4,096 and 65,536;
 select_small at B = 2, L = 16 and B = 1, L = 512; endo interleaved at K =
 2 of 8 lanes and 2,048 lanes, and at 16 lanes; pneg at 16; normalize3 at
 K = 2 and 130; assemble and reduce_lanes at the shape phase 3 launched
@@ -241,8 +245,10 @@ The kernel lines of phase 2, and the JSON line (``chain``), also give, for
 tail_horner, horner, fold, fold_many, select_reduce_fused, padd, table_flat,
 reduce_block and reduce_lanes, the time per point operation and per product round of the
 kernel's longest dependent chain (``bounds.*_chain``; padd's, table_flat's
-and reduce_block's by design), and for decompress, inv and to_affine the
-time per dependent field product of its chain;
+and reduce_block's by design, fold_many's by group width), for decompress
+the time per dependent field product of its chain, and for inv and
+to_affine the time per divstep batch of theirs (fold_many's rows also
+``group_ms``, each group width's time, and ``replaced_route_ms``);
 the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 CUDA is not available.
 """
@@ -274,7 +280,9 @@ DECOMPRESS_L = 16384  # the 1,024-proof batch's decompress bucket
 # phase 9's items: (example, count); 16 64bit proofs fill one lockstep chunk
 PROVE_BATCH = (("64bit", 16), ("32bit", 4), ("rec_test", 4), ("bin_test", 4), ("64by64", 2),
                ("128by64", 2))
-FOLD_MANY_CASES = ((2, 16), (16, 16), (2, 512), (16, 512))  # (provers, lanes of each)
+# (provers, lanes of each): lockstep's commonest and widest launches, and at
+# 2,048 lanes the narrowest that takes the 8-thread group
+FOLD_MANY_CASES = ((2, 16), (16, 16), (2, 512), (4, 512), (16, 512))
 
 # phase 11: mp-prove of the widest example over 4 parties of 32 ranges, the
 # binary family (an assumed range) over 2, mp-demo over 3, and the engine's
@@ -824,7 +832,7 @@ def kernel_rows(rows):
     mhz = bounds.card()["sm_clock_max_mhz"]
     # longest dependent chains (point ops, product rounds) at the rows' shapes
     chains = {"tail_horner": bounds.tail_horner_chain(ROWS), "horner": bounds.horner_chain(ROWS),
-              "fold": bounds.fold_chain(ROWS), "fold_many": bounds.fold_chain(ROWS),
+              "fold": bounds.fold_chain(ROWS),
               "select_reduce_fused": bounds.select_reduce_fused_chain(ROWS)}
     out = collections.defaultdict(list)
     for name, err, ms, plain_ms, shape, work, *extra in rows:
@@ -833,13 +841,18 @@ def kernel_rows(rows):
         library_ms = extra.get("library_ms")
         row = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-               **{k: v for k, v in extra.items() if k not in ("library_ms", "products", "chain")}}
+               **{k: v for k, v in extra.items()
+                  if k not in ("library_ms", "products", "batches", "chain")}}
         lib_s = f"  library {library_ms:.4f} ms" if library_ms is not None else ""
         chain_s = ""
         if "products" in extra:
             n = extra["products"]
             row["chain"] = {"products": n, "us_per_product": ms * 1e3 / n}
             chain_s = f"  chain {n} dependent field products ({ms * 1e3 / n:.3f} us each)"
+        elif "batches" in extra:
+            n = extra["batches"]
+            row["chain"] = {"batches": n, "us_per_batch": ms * 1e3 / n}
+            chain_s = f"  chain {n} divstep batches ({ms * 1e3 / n:.3f} us each)"
         elif name in chains or "chain" in extra:
             ops, rounds = extra.get("chain") or chains[name]
             row["chain"] = {"ops": ops, "rounds": rounds, "us_per_op": ms * 1e3 / ops,
@@ -879,36 +892,61 @@ def plain_once(fn):
 
 
 def check_fold_many(dev, rng):
-    """Phase 2, fold_many at FOLD_MANY_CASES: B provers' L lanes end to end
-    (about 1/8 identity lanes), digits per prover (``prover_digits``), equal
-    to its plain version; at B = 1 (each case's first prover) equal word for
-    word to fold; timed in turns with the B single-prover fold launches on
-    the same lanes (the per-proof route of the lockstep prover), the ratio
-    and B x one fold logged.  Returns a row for each case."""
+    """Phase 2, fold_many at FOLD_MANY_CASES from the two bases' points: B
+    provers' L lanes end to end (about 1/8 identity lanes), digits per
+    prover (``prover_digits``); one launch of the group width its lanes
+    pick and no table_flat launch; equal to its plain version after
+    normalization, every group width (FOLD_MANY_GROUPS) equal raw to the
+    wrapper's output, and at B = 1 (each case's first prover) equal word for
+    word to table_flat + fold.  Timed: the group widths in turns (the sweep
+    that set FOLD_MANY_WIDE_LANES; logged, with the fastest), then the
+    wrapper in turns with the route it replaced on the same lanes (two
+    table_flat launches over all B L lanes and B fold launches, which read
+    the same tables as contiguous per-prover copies made beforehand).
+    Returns a row for each case, with both timings."""
     from bulletproofspp_tpu_torch import bounds
     from bulletproofspp_tpu_torch.ops import kernels
 
     rows = []
     for B, L in FOLD_MANY_CASES:
-        e = kernels.table_flat(random_points(B * L, rng, dev)[0])
-        o = kernels.table_flat(random_points(B * L, rng, dev)[0])
+        pe, po = (random_points(B * L, rng, dev)[0] for _ in range(2))
         digits = prover_digits(B, rng)
-        got = kernels.fold_many(e, o, digits)
-        plain_ms, want = plain_once(lambda: kernels.fold_many_plain(e, o, digits))
+        g = kernels.fold_many_group(B * L)
+        kernels.reset_counts()
+        got = kernels.fold_many(pe, po, digits)
+        launched = {k: n for k, n in kernels.counts().items() if n}
+        if (launched != {"fold_many": 1}
+                or kernels.shape_counts()["fold_many"] != {f"B={B} L={L} G={g}": 1}):
+            raise AssertionError(f"fold_many B={B} L={L} launched {kernels.shape_counts()}")
+        plain_ms, want = plain_once(lambda: kernels.fold_many_plain(pe, po, digits))
         err = compare(f"fold_many B={B} L={L}", got, want)
-        per = [(tuple(t[:, b * L:(b + 1) * L].contiguous() for t in e),
-                tuple(t[:, b * L:(b + 1) * L].contiguous() for t in o)) for b in range(B)]
-        same_raw(f"fold_many B=1 L={L} against fold", kernels.fold_many(*per[0], digits[:1]),
-                 kernels.fold(*per[0], digits[0]))
+        for group in kernels.FOLD_MANY_GROUPS:
+            same_raw(f"fold_many B={B} L={L} G={group} against G={g}",
+                     kernels.fold_many_design(pe, po, digits, group), got)
+        first = [tuple(t[:, :L].contiguous() for t in p) for p in (pe, po)]
+        same_raw(f"fold_many B=1 L={L} against table_flat + fold", kernels.fold_many(
+            *first, digits[:1]), kernels.fold(*(kernels.table_flat(p) for p in first), digits[0]))
+        groups, sweep = in_turns({f"G={group}": lambda group=group: kernels.fold_many_design(
+            pe, po, digits, group) for group in kernels.FOLD_MANY_GROUPS}, 5)
+        te, to = kernels.table_flat(pe), kernels.table_flat(po)
+        per = [tuple(tuple(t[:, b * L:(b + 1) * L].contiguous() for t in tab) for tab in (te, to))
+               for b in range(B)]
         means, both = in_turns({
-            "fold_many": lambda: kernels.fold_many(e, o, digits),
-            "B folds": lambda: [kernels.fold(pe, po, d) for (pe, po), d in zip(per, digits)]}, 5)
-        one = time_ms(lambda: kernels.fold(*per[0], digits[0]), 5)
-        log(f"fold_many B={B} L={L}: equal to its plain version, and at B = 1 to fold word for "
-            f"word; in turns (ms) {json.dumps(both)}; fold_many / B folds "
-            f"{means['fold_many'] / means['B folds']:.4f}; B x one fold {B * one:.4f} ms")
-        rows.append(("fold_many", err, means["fold_many"], plain_ms, f"B={B} L={L} rows={ROWS}",
-                     bounds.fold_many(B * L, digits), {"chain": bounds.fold_chain(ROWS)}))
+            "fold_many": lambda: kernels.fold_many(pe, po, digits),
+            "table_flat x 2 + B folds": lambda: (
+                kernels.table_flat(pe), kernels.table_flat(po),
+                [kernels.fold(e, o, d) for (e, o), d in zip(per, digits)])}, 5)
+        fastest = min(groups, key=groups.get)
+        log(f"fold_many B={B} L={L}: equal to its plain version, every group width equal raw, "
+            f"and at B = 1 to table_flat + fold word for word; group widths in turns (ms) "
+            f"{json.dumps(sweep)}, the wrapper takes G={g}"
+            + ("" if fastest == f"G={g}" else f" (NOT the fastest here: {fastest})")
+            + f"; in turns with the replaced route (ms) {json.dumps(both)}; fold_many / "
+            f"replaced {means['fold_many'] / means['table_flat x 2 + B folds']:.4f}")
+        rows.append(("fold_many", err, means["fold_many"], plain_ms,
+                     f"B={B} L={L} G={g} rows={ROWS}", bounds.fold_many(B * L, digits),
+                     {"chain": bounds.fold_many_chain(ROWS, g), "group_ms": groups,
+                      "replaced_route_ms": means["table_flat x 2 + B folds"]}))
     return rows
 
 
@@ -1723,10 +1761,10 @@ def check_affine(dev):
         if L in AFFINE_TIMED:
             rows += [("inv", 0, time_ms(lambda: kernels.inv(a), 10),
                       time_ms(lambda: kernels.inv_plain(a), 1, paced=True), f"L={L}",
-                      bounds.inv(L), {"products": bounds.inv_chain()}),
+                      bounds.inv(L), {"batches": bounds.inv_chain()}),
                      ("to_affine", 0, time_ms(lambda: kernels.to_affine(x, y, z), 10),
                       time_ms(lambda: kernels.to_affine_plain(x, y, z), 1, paced=True), f"L={L}",
-                      bounds.to_affine(L), {"products": bounds.to_affine_chain()})]
+                      bounds.to_affine(L), {"batches": bounds.to_affine_chain()})]
     log(f"inv and to_affine at {', '.join(map(str, AFFINE_WIDTHS))} lanes (z = 0, Q, Q - 1, x = 0 "
         "and saturated lanes among them): equal to their plain versions word for word")
     return rows

@@ -2,7 +2,10 @@
 ``curve.to_affine`` (+ ``affine_lanes_to_host``) against the JAX package's on
 the same numpy limb planes, exactly (after ``normalize`` on the JAX side:
 the port's are canonical), zeros, Q and saturated limbs among the values;
-``bounds.INV_CHAIN`` on Python integers; and ``TorchEngine("cpu")``'s
+a Python transcription of the card's inverse (``csrc/field.cuh:
+fe_inv_divsteps``: safegcd divsteps in batches of 30 on signed 30-bit
+limbs, with the kernel's int32 / int64 arithmetic) against ``pow(a, p - 2,
+p)``, and the work ``bounds`` counts for it; and ``TorchEngine("cpu")``'s
 ``fold_bases`` / ``shared_mul`` (``msm.run_fold``, one ``to_affine`` a call,
 no host inverse) against ``JaxEngine(host_below=0)`` and ``HostEngine``.
 
@@ -59,31 +62,185 @@ def _as_numpy(t) -> np.ndarray:
     return limb.planes_to_numpy(t)
 
 
+# --- csrc/field.cuh: fe_inv_divsteps, transcribed ---------------------------
+# Every value is a Python int held to the C type the kernel gives it: _u32 /
+# _i32 wrap as the casts do, _i64 asserts that an int64 accumulator of the
+# kernel would not overflow.  _MULS counts the 32-bit multiplies the kernel
+# issues (a 32 x 32 -> 64 product as two, the low word of p^-1 cd as one; p's
+# limbs 1 and 8, -4 and 2^16, are shifts).
+
+M30 = (1 << 30) - 1
+P_INV30 = 0x2DDACACF  # field.cuh: kPInv30
+_MULS = [0]
+
+
+def _u32(x: int) -> int:
+    return x & 0xFFFFFFFF
+
+
+def _i32(x: int) -> int:
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >> 31 else x
+
+
+def _i64(x: int) -> int:
+    assert -(1 << 63) <= x < 1 << 63, "an int64 accumulator overflows"
+    return x
+
+
+def _p30(i: int) -> int:
+    return {0: -977, 1: -4, 8: 65536}.get(i, 0)
+
+
+def _mul64(a: int, b: int) -> int:
+    _MULS[0] += 2
+    return a * b
+
+
+def _s30_from_fe(w: list) -> list:
+    out = []
+    for i in range(9):
+        k, s = 30 * i // 32, 30 * i % 32
+        x = w[k] >> s
+        if s > 2 and k + 1 < 8:
+            x |= _u32(w[k + 1] << (32 - s))
+        out.append(_i32(x & M30))
+    return out
+
+
+def _fe_from_s30(v: list) -> list:
+    out = []
+    for k in range(8):
+        i, s = 32 * k // 30, 32 * k % 30
+        out.append(_u32((_u32(v[i]) >> s) | (_u32(v[i + 1]) << (30 - s))))
+    return out
+
+
+def _divsteps_30(zeta: int, f: int, g: int):
+    u, v, q, r = 1, 0, 0, 1
+    for _ in range(bounds.DIVSTEPS_A_BATCH):
+        c1 = _u32(zeta >> 31)
+        c2 = _u32(-(g & 1))
+        x, y, z = _u32((f ^ c1) - c1), _u32((u ^ c1) - c1), _u32((v ^ c1) - c1)
+        g, q, r = _u32(g + (x & c2)), _u32(q + (y & c2)), _u32(r + (z & c2))
+        c3 = c1 & c2
+        zeta = _i32((_u32(zeta) ^ c3) - 1)
+        f, u, v = _u32(f + (g & c3)), _u32(u + (q & c3)), _u32(v + (r & c3))
+        g, u, v = g >> 1, _u32(u << 1), _u32(v << 1)
+    return zeta, (_i32(u), _i32(v), _i32(q), _i32(r))
+
+
+def _update_de_30(d: list, e: list, t) -> tuple:
+    u, v, q, r = t
+    sd, se = d[8] >> 31, e[8] >> 31
+    md, me = _i32((u & sd) + (v & se)), _i32((q & sd) + (r & se))
+    cd = _i64(_mul64(u, d[0]) + _mul64(v, e[0]))
+    ce = _i64(_mul64(q, d[0]) + _mul64(r, e[0]))
+    _MULS[0] += 2
+    md = _i32(md - (_u32(P_INV30 * _u32(cd) + _u32(md)) & M30))
+    me = _i32(me - (_u32(P_INV30 * _u32(ce) + _u32(me)) & M30))
+    cd, ce = _i64(cd + _mul64(_p30(0), md)), _i64(ce + _mul64(_p30(0), me))
+    assert cd & M30 == 0 and ce & M30 == 0
+    cd, ce = cd >> 30, ce >> 30
+    nd, ne = [0] * 9, [0] * 9
+    for i in range(1, 9):
+        cd = _i64(cd + _mul64(u, d[i]) + _mul64(v, e[i]))
+        ce = _i64(ce + _mul64(q, d[i]) + _mul64(r, e[i]))
+        if _p30(i):
+            cd, ce = _i64(cd + _p30(i) * md), _i64(ce + _p30(i) * me)
+        nd[i - 1], ne[i - 1] = _i32(cd) & M30, _i32(ce) & M30
+        cd, ce = cd >> 30, ce >> 30
+    assert _i32(cd) == cd and _i32(ce) == ce
+    nd[8], ne[8] = cd, ce
+    return nd, ne
+
+
+def _update_fg_30(f: list, g: list, t) -> tuple:
+    u, v, q, r = t
+    cf = _i64(_mul64(u, f[0]) + _mul64(v, g[0]))
+    cg = _i64(_mul64(q, f[0]) + _mul64(r, g[0]))
+    assert cf & M30 == 0 and cg & M30 == 0
+    cf, cg = cf >> 30, cg >> 30
+    nf, ng = [0] * 9, [0] * 9
+    for i in range(1, 9):
+        cf = _i64(cf + _mul64(u, f[i]) + _mul64(v, g[i]))
+        cg = _i64(cg + _mul64(q, f[i]) + _mul64(r, g[i]))
+        nf[i - 1], ng[i - 1] = _i32(cf) & M30, _i32(cg) & M30
+        cf, cg = cf >> 30, cg >> 30
+    assert _i32(cf) == cf and _i32(cg) == cg
+    nf[8], ng[8] = cf, cg
+    return nf, ng
+
+
+def _s30_normalize(r: list, sign: int) -> list:
+    r = list(r)
+
+    def carry():
+        for i in range(8):
+            r[i + 1] = _i32(r[i + 1] + (r[i] >> 30))
+            r[i] &= M30
+
+    add = r[8] >> 31
+    r = [_i32(x + (_p30(i) & add)) for i, x in enumerate(r)]
+    neg = sign >> 31
+    r = [_i32((x ^ neg) - neg) for x in r]
+    carry()
+    add = r[8] >> 31
+    r = [_i32(x + (_p30(i) & add)) for i, x in enumerate(r)]
+    carry()
+    return r
+
+
+def _inv_divsteps(a: int) -> int:
+    """fe_inv_divsteps of the strict value a < 2^256: a^-1 mod p, 0 -> 0."""
+    a = a - Q if a >= Q else a  # fe_canon
+    d, e, f = [0] * 9, [1] + [0] * 8, [_p30(i) for i in range(9)]
+    g = _s30_from_fe([(a >> (32 * k)) & 0xFFFFFFFF for k in range(8)])
+    zeta = -1
+    for _ in range(bounds.DIVSTEP_BATCHES):
+        zeta, t = _divsteps_30(zeta, _u32(f[0]), _u32(g[0]))
+        d, e = _update_de_30(d, e, t)
+        f, g = _update_fg_30(f, g, t)
+    assert g == [0] * 9 and (f in ([1] + [0] * 8, [M30] * 8 + [-1]) or a == 0)
+    words = _fe_from_s30(_s30_normalize(d, f[8]))
+    return sum(w << (32 * k) for k, w in enumerate(words))
+
+
 def test_inv_chain_is_p_minus_2_and_inverts_integers():
-    """Each step (s, k) squares s times and multiplies by a^(2^k - 1), which
-    an earlier step made: the exponent is p - 2, the result a^-1, 0 -> 0."""
-    e = 1
-    for s, k in bounds.INV_CHAIN:
-        e = (e << s) + ((1 << k) - 1 if k else 0)
-    assert e == Q - 2
-    assert (bounds.INV_SQUARINGS, bounds.INV_PRODUCTS, bounds.inv_chain()) == (255, 15, 270)
-    assert bounds.to_affine_chain() == 271
+    """The transcribed divstep schedule gives a^(p-2) mod p, the inverse
+    (0 -> 0), on the edge values and numpy-seeded randoms; the kernel's
+    constant is p^-1 mod 2^30 and its schedule 20 batches of 30 divsteps
+    (590 suffice for 256 bits)."""
+    assert P_INV30 == pow(Q, -1, 1 << 30)
+    assert (bounds.DIVSTEP_BATCHES, bounds.DIVSTEPS_A_BATCH) == (20, 30)
+    assert bounds.DIVSTEP_BATCHES * bounds.DIVSTEPS_A_BATCH >= 590
+    assert bounds.inv_chain() == bounds.to_affine_chain() == 20
     for a in _values(40, 3):
-        made, r = {1: a % Q}, a % Q  # made[k] = a^(2^k - 1)
-        f = 1
-        for s, k in bounds.INV_CHAIN:
-            r = pow(r, 1 << s, Q)
-            f <<= s
-            if k:
-                r = r * made[k] % Q
-                f += (1 << k) - 1
-            if (f + 1) & f == 0:
-                made[f.bit_length()] = r
-        assert r == _inverses([a])[0]
+        assert _inv_divsteps(a) == pow(a, Q - 2, Q) == _inverses([a])[0]
+
+
+@pytest.mark.parametrize("a", [0, 1, Q - 1, Q, Q + 1, (1 << 256) - 1, 2, (Q - 1) // 2, 1 << 255,
+                               (1 << 256) - 1 - (1 << 32)])
+def test_divstep_transcription_equals_pow_on_edge_values(a):
+    """0 and p (0 mod p) -> 0; p + 1 and 2^256 - 1 (strict, not canonical)
+    are made canonical first, as the kernel's fe_canon does."""
+    assert _inv_divsteps(a) == pow(a, Q - 2, Q)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_divstep_transcription_equals_pow_on_random_values(seed):
+    rng = np.random.default_rng(seed)
+    for _ in range(25):
+        a = int.from_bytes(rng.bytes(32), "little")
+        assert _inv_divsteps(a) == pow(a, Q - 2, Q)
 
 
 def test_inv_and_to_affine_work_count_the_chain():
-    assert bounds.INV == 255 * bounds.FE_SQR + 15 * bounds.FE_MUL
+    """bounds.INV is the multiplies the transcription issues: 20 batches of
+    150 (DIVSTEP_BATCH); to_affine adds its two products."""
+    _MULS[0] = 0
+    _inv_divsteps(12345)
+    assert _MULS[0] == bounds.INV == 20 * bounds.DIVSTEP_BATCH == 20 * 150
     assert bounds.inv(4096) == (4096 * bounds.INV, 4096 * 2 * 128)
     assert bounds.to_affine(16) == (16 * (bounds.INV + 2 * bounds.FE_MUL), 16 * (5 * 128 + 1))
 

@@ -67,9 +67,10 @@ def test_cuda_kernels_match_plain_versions():
     e, o = kernels.table_flat(_points(64, 45, dev)), kernels.table_flat(_points(64, 46, dev))
     digits = np.stack([*glv.recode_signed(-(3**80)), *glv.recode_signed(5**50)])
     assert _same(kernels.fold(e, o, digits), kernels.fold_plain(e, o, digits))
-    # two provers of 32 lanes, with their own digits
+    # two provers of 32 lanes, with their own digits, from the bases' points
     many = np.stack([digits, np.stack([*glv.recode_signed(7**40), *glv.recode_signed(-(2**100))])])
-    assert _same(kernels.fold_many(e, o, many), kernels.fold_many_plain(e, o, many))
+    pe, po = _points(64, 45, dev), _points(64, 46, dev)
+    assert _same(kernels.fold_many(pe, po, many), kernels.fold_many_plain(pe, po, many))
     # two stacked MSMs of 1,024 lanes, 3 rows
     pts = _points(2 * 1024, 49, dev)
     absd = torch.as_tensor(rng.integers(0, 9, size=(2, 3, 1024)), dtype=torch.uint8, device=dev)
@@ -247,25 +248,32 @@ def _prover_digits(B: int, seed: int):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L", [(1, 16), (2, 16), (16, 16), (2, 520), (20, 16)])
 def test_cuda_fold_many_matches_plain_version(B, L):
-    """B provers of L lanes each in one launch (20: two launches of 16 and
-    4 provers); at B = 1 word for word fold's output.  Neither the digits
-    nor anything else is uploaded: the launches do not synchronize."""
+    """B provers of L lanes each from the bases' points in one launch (20:
+    two launches of 16 and 4 provers); at B = 1 word for word table_flat +
+    fold's output; every group width gives the same words.  Neither the
+    digits nor anything else is uploaded: the launches do not synchronize."""
     dev = _card()
-    e, o = (kernels.table_flat(_points(B * L, s, dev)) for s in (72, 73))
+    pe, po = _points(B * L, 72, dev), _points(B * L, 73, dev)
     digits = _prover_digits(B, 74)
-    kernels.fold_many(e, o, digits)  # builds the library
+    kernels.fold_many(pe, po, digits)  # builds the library
     torch.cuda.synchronize()
     kernels.reset_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = kernels.fold_many(e, o, digits)
+        got = kernels.fold_many(pe, po, digits)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     chunks = [min(16, B - p0) for p0 in range(0, B, 16)]
-    assert kernels.shape_counts()["fold_many"] == {f"B={c} L={L}": 1 for c in chunks}
-    assert _same(got, kernels.fold_many_plain(e, o, digits))
+    assert kernels.shape_counts()["fold_many"] == {
+        f"B={c} L={L} G={kernels.fold_many_group(c * L)}": 1 for c in chunks}
+    assert kernels.counts()["table_flat"] == 0
+    assert _same(got, kernels.fold_many_plain(pe, po, digits))
+    for g in kernels.FOLD_MANY_GROUPS:
+        assert all(torch.equal(a, b) for a, b in
+                   zip(got, kernels.fold_many_design(pe, po, digits, g))), g
     if B == 1:
-        assert all(torch.equal(a, b) for a, b in zip(got, kernels.fold(e, o, digits[0])))
+        want = kernels.fold(kernels.table_flat(pe), kernels.table_flat(po), digits[0])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _repeat_scaled(p, n: int, seed: int):

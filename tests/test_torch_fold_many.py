@@ -4,8 +4,10 @@ kernel, B provers' lanes end to end) against the JAX package's vmapped
 kernels (``jax.vmap(fold_mul_kernel)`` and ``jax.vmap(_csq_with_endo)``,
 ``bulletproofspp_tpu/ops/msm.py:297`` and ``:306``) on the same numpy-seeded
 planes and digits, limb for limb after normalization (tolerance 0: they are
-integers); the wrapper's checks, its launches split by FOLD_MAX_PROVERS,
-and its bound."""
+integers); ``kernels.fold_many`` on the two bases' points against the route
+it replaced (``table_flat_plain`` of each basis, then ``fold_plain`` per
+prover) word for word; the wrapper's checks, its launches split by
+FOLD_MAX_PROVERS with the group width by lanes, and its bound."""
 
 import ctypes
 
@@ -34,21 +36,23 @@ def _planes(pts):
     return np.stack([jlimb.pack_ints(c) for c in cols])
 
 
-def _lanes(rng):
-    """(B, 3, 16, L) uint32 planes: random multiples of G, a few identities."""
+def _lanes(rng, count=B):
+    """(count, 3, 16, L) uint32 planes: random multiples of G, a few
+    identities."""
     out = []
-    for _ in range(B):
+    for _ in range(count):
         pts = [ec.scalar_mul(int(k), ec.G) for k in rng.integers(1, 2**62, size=L)]
         pts[int(rng.integers(0, L))] = None
         out.append(_planes(pts))
     return np.stack(out)
 
 
-def _digits(rng, split=False):
-    """(B, 4, 33): each prover's own scalars; prover 1's E stream has zero
-    digits with sign 1 (they select (0 : -1 : 0))."""
+def _digits(rng, split=False, count=B):
+    """(count, 4, 33): each prover's own scalars; prover 1's E stream (or
+    the only prover's) has zero digits with sign 1 (they select (0 : -1 :
+    0))."""
     rows = []
-    for _ in range(B):
+    for _ in range(count):
         if split:
             k1, k2 = glv.split(int(rng.integers(1, 2**62)) ** 4 % R)
         else:
@@ -56,8 +60,8 @@ def _digits(rng, split=False):
             k2 = int(rng.integers(1, 2**62)) << 60
         rows.append(np.stack([*glv.recode_signed(k1), *glv.recode_signed(k2)]))
     d = np.stack(rows).astype(np.uint32)
-    d[1, 0, :3], d[1, 1, :3] = 0, 1
-    assert len({d[b].tobytes() for b in range(B)}) == B
+    d[min(1, count - 1), 0, :3], d[min(1, count - 1), 1, :3] = 0, 1
+    assert len({d[b].tobytes() for b in range(count)}) == count
     return d
 
 
@@ -102,52 +106,135 @@ def test_complete_square_many_matches_the_vmapped_jax_kernel():
 
 def test_fold_many_wrapper_on_cpu_takes_the_plain_version_and_checks_digits():
     rng = np.random.default_rng(92)
-    te = kernels.table_flat_plain(_stacked_port(_lanes(rng)))
-    to = kernels.table_flat_plain(_stacked_port(_lanes(rng)))
+    pe, po = _stacked_port(_lanes(rng)), _stacked_port(_lanes(rng))
     d = _digits(rng)
     kernels.reset_counts()
-    got = kernels.fold_many(te, to, d)
+    got = kernels.fold_many(pe, po, d)
     assert kernels.counts()["fold_many"] == 0
-    assert torch.equal(curve.normalize3(*got), curve.normalize3(*kernels.fold_many_plain(te, to, d)))
+    assert torch.equal(curve.normalize3(*got), curve.normalize3(*kernels.fold_many_plain(pe, po, d)))
     with pytest.raises(ValueError, match="fold_many: digits must be"):
-        kernels.fold_many(te, to, d[0])  # one prover's (4, 33): not (B, 4, 33)
+        kernels.fold_many(pe, po, d[0])  # one prover's (4, 33): not (B, 4, 33)
     with pytest.raises(ValueError, match="fold_many: digits must be"):
-        kernels.fold_many(te, to, np.concatenate([d, d[:2]]))  # 5 provers of 48 lanes
+        kernels.fold_many(pe, po, np.concatenate([d, d[:2]]))  # 5 provers of 48 lanes
     bad = d.copy()
     bad[2, 0, 5] = 9
     with pytest.raises(ValueError, match="fold digits"):
-        kernels.fold_many(te, to, bad)
+        kernels.fold_many(pe, po, bad)
+    with pytest.raises(ValueError, match="group 4"):
+        kernels.fold_many_design(pe, po, d, 4)
 
 
 def test_fold_many_splits_into_launches_of_at_most_16_provers(monkeypatch):
     """On a CUDA tensor (stubbed here) 20 provers take two launches, of 16
-    and 4, over lanes [0, 16 L) and [16 L, 20 L) of the same planes, each
-    with its provers' digits packed by value."""
+    and 4, over lanes [0, 16 L) and [16 L, 20 L) of the same point planes,
+    each with its provers' digits packed by value and the group width its
+    lanes pick (``fold_many_group``), or the one forced."""
     seen = []
 
     def launch(name, shape, dev, *args):
         packed = ctypes.string_at(args[6], kernels.FOLD_MAX_PROVERS * 132)
-        seen.append((name, shape, args[-4:], packed))
+        seen.append((name, shape, args[-5:], packed))
 
     monkeypatch.setattr(kernels, "_launch", launch)
     monkeypatch.setattr(kernels, "_check", lambda *planes: torch.device("cuda", 0))
     monkeypatch.setattr(kernels, "_empty", lambda shape, like: tuple(
         torch.zeros(shape, dtype=torch.int64, device="meta") for _ in range(3)))
     n = 20 * L
-    meta = [torch.zeros((16 * e, n), dtype=torch.int64, device="meta") for e in (9, 18, 9)]
+    meta = [torch.zeros((16, n), dtype=torch.int64, device="meta") for _ in range(3)]
     rng = np.random.default_rng(93)
     d = np.stack([_digits(rng)[b % B] for b in range(20)])
+    g16, g4 = kernels.fold_many_group(16 * L), kernels.fold_many_group(4 * L)
     kernels.fold_many(meta, meta, d)
     assert [(s[0], s[1], s[2]) for s in seen] == [
-        ("fold_many", f"B=16 L={L}", (n, L, 0, 16)), ("fold_many", f"B=4 L={L}", (n, L, 16 * L, 4))]
+        ("fold_many", f"B=16 L={L} G={g16}", (n, L, 0, 16, g16)),
+        ("fold_many", f"B=4 L={L} G={g4}", (n, L, 16 * L, 4, g4))]
     assert seen[0][3] == b"".join(kernels.fold_digits(x) for x in d[:16])
     assert seen[1][3] == b"".join(kernels.fold_digits(x) for x in d[16:]) + bytes(12 * 132)
+    seen.clear()
+    kernels.fold_many_design(meta, meta, d, 16)
+    assert [s[1] for s in seen] == [f"B=16 L={L} G=16", f"B=4 L={L} G=16"]
+
+
+@pytest.mark.parametrize("lanes", [32, 256, 1024, 2048, 8192])
+def test_fold_many_group_is_8_from_the_wide_lanes_and_16_below(lanes):
+    """The smoke's launches: two lanes a warp under FOLD_MANY_WIDE_LANES,
+    four from there."""
+    want = 8 if lanes >= kernels.FOLD_MANY_WIDE_LANES else 16
+    assert kernels.fold_many_group(lanes) == want in kernels.FOLD_MANY_GROUPS
 
 
 def test_fold_many_bound_is_the_sum_of_the_provers_folds():
+    """The provers' folds' multiplies and the two tables' the launch builds;
+    its bytes are the two bases' points in and the result out (the tables
+    and the digits, sent in the launch, never cross device memory)."""
     rng = np.random.default_rng(94)
     d = _digits(rng)
     ops, nbytes = bounds.fold_many(B * L, d)
     parts = [bounds.fold(L, x) for x in d]
-    assert (ops, nbytes) == (sum(p[0] for p in parts), sum(p[1] for p in parts))
-    assert ops == B * bounds.fold(L, d[0])[0]  # the multiplies do not depend on the digits
+    tables = 2 * bounds.table_flat(B * L)[0]
+    assert ops == sum(p[0] for p in parts) + tables
+    assert nbytes == B * L * 3 * bounds.PT_BYTES
+    assert ops == B * bounds.fold(L, d[0])[0] + tables  # the multiplies do not depend on the digits
+
+
+@pytest.mark.parametrize("group,chain", [(8, (14 + 198, 424)), (16, (7 + 198, 410)),
+                                         (32, (7 + 198, 410))])
+def test_fold_many_chain_counts_the_tables_by_group(group, chain):
+    """At 16 and 32 threads a lane the two tables are built at once."""
+    assert bounds.fold_many_chain(33, group) == chain
+
+
+def _edge_digits(rng, count):
+    """``_digits`` with rows of digit 0 with sign 1, +8 and -8 in every
+    prover's two streams."""
+    d = _digits(rng, count=count)
+    d[:, 0, :2], d[:, 1, :2] = 0, 1
+    d[:, 0, 7], d[:, 1, 7], d[:, 2, 9], d[:, 3, 9] = 8, 0, 8, 1
+    d[:, 2, 20], d[:, 3, 20], d[:, 0, 31], d[:, 1, 31] = 8, 0, 8, 1
+    return d
+
+
+COUNTS = (1, 2, 16)
+
+
+@pytest.fixture(scope="module")
+def replaced_and_jax():
+    """For each count of COUNTS, its provers' lanes (an identity at lane 0
+    of each, and more), digits (``_edge_digits``), the route fold_many
+    replaced (``table_flat_plain`` of each basis, then ``fold_plain`` per
+    prover: (16, count L) planes) and the vmapped ``fold_mul_kernel``'s
+    normalized planes.  One JAX call over all sum(COUNTS) provers (each
+    prover's fold is its own: one compile, not three)."""
+    rng = np.random.default_rng(95)
+    total = sum(COUNTS)
+    e, o = _lanes(rng, total), _lanes(rng, total)
+    ident = _planes([None])[..., 0]
+    e[:, :, :, 0], o[:, :, :, 0] = ident, ident
+    d = _edge_digits(rng, total)
+    want = _canon_jax(jmsm._fold_many_compiled(*(jnp.asarray(e[:, c]) for c in range(3)),
+                                               *(jnp.asarray(o[:, c]) for c in range(3)),
+                                               *(jnp.asarray(d[:, q]) for q in range(4))))
+    out, b0 = {}, 0
+    for count in COUNTS:
+        pe, po = _stacked_port(e[b0:b0 + count]), _stacked_port(o[b0:b0 + count])
+        te, to = kernels.table_flat_plain(pe), kernels.table_flat_plain(po)
+        parts = [kernels.fold_plain(tuple(t[:, b * L:(b + 1) * L] for t in te),
+                                    tuple(t[:, b * L:(b + 1) * L] for t in to), d[b0 + b])
+                 for b in range(count)]
+        replaced = tuple(torch.cat([p[c] for p in parts], 1) for c in range(3))
+        out[count] = (pe, po, d[b0:b0 + count], replaced, want[:, :, b0 * L:(b0 + count) * L])
+        b0 += count
+    return out
+
+
+@pytest.mark.parametrize("count", COUNTS)
+def test_fold_many_on_points_equals_the_replaced_route_and_the_vmapped_jax_kernel(
+        replaced_and_jax, count):
+    """``kernels.fold_many`` on the CPU takes the two bases' points: word for
+    word the route it replaced, and the vmapped ``fold_mul_kernel`` after
+    normalization, at B = 1, 2 and 16 provers of 16 lanes, identity lanes
+    and digits 0 with sign 1, +8 and -8 among them."""
+    pe, po, d, replaced, want = replaced_and_jax[count]
+    got = kernels.fold_many(pe, po, d)
+    assert all(torch.equal(g, r) for g, r in zip(got, replaced))
+    assert np.array_equal(_canon_port(got), want)

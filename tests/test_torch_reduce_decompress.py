@@ -1,9 +1,9 @@
 """The chains of the redesigned reduce_block and decompress, held on the
 CPU: decompress's square-root addition chain (``bounds.SQRT_CHAIN``)
 against Python's ``pow`` on seeded integers and against the steps that
-``csrc/decompress.cu`` runs, the inverse's (``bounds.INV_CHAIN``) against
-the steps of ``csrc/field.cuh: fe_inv``, and the chain lengths and work
-that ``bounds.py`` gives both kernels."""
+``csrc/decompress.cu`` runs, the schedule of the inverse
+(``csrc/field.cuh: fe_inv_divsteps``) against ``bounds.py``'s, and the
+chain lengths and work that ``bounds.py`` gives both kernels."""
 
 import os
 import re
@@ -84,11 +84,23 @@ def test_decompress_source_runs_the_chain_its_comments_give():
 
 
 def test_inv_source_runs_the_chain_its_comments_give():
-    """field.cuh's fe_inv, which the affine kernels run: bounds.INV_CHAIN,
-    the square root's ladder among its steps."""
-    code, comments = _source_steps("field.cuh", "Fe fe_inv(")
-    assert code == comments == list(bounds.INV_CHAIN)
-    assert bounds.INV_CHAIN[:11] == bounds.SQRT_CHAIN[:11]
+    """field.cuh's fe_inv_divsteps, which both affine kernels run: the
+    batches and divsteps a batch of bounds.py (and of its comment), p^-1 mod
+    2^30; the Fermat chain is gone."""
+    with open(os.path.join(kernels.CSRC, "field.cuh")) as f:
+        field = f.read()
+    with open(os.path.join(kernels.CSRC, "affine.cu")) as f:
+        affine = f.read()
+    consts = dict(re.findall(r"constexpr \w+ (k\w+) = (0x[0-9a-f]+|\d+)u?;", field))
+    assert int(consts["kDivstepBatches"]) == bounds.DIVSTEP_BATCHES
+    assert int(consts["kDivstepsABatch"]) == bounds.DIVSTEPS_A_BATCH
+    assert int(consts["kPInv30"], 16) == pow(P, -1, 1 << 30)
+    note = re.search(r"constexpr int kDivstepBatches = \d+;  // \((\d+) batches of (\d+) divsteps\)",
+                     field)
+    assert (int(note.group(1)), int(note.group(2))) == (bounds.DIVSTEP_BATCHES,
+                                                         bounds.DIVSTEPS_A_BATCH)
+    assert "Fe fe_inv(" not in field and "fe_inv(" not in affine
+    assert affine.count("fe_inv_divsteps(") == 2  # inv_kernel and to_affine_kernel
 
 
 def test_decompress_work_and_chain_count_the_new_chain():
