@@ -261,6 +261,15 @@ def fold_many_chain(rows: int, group: int):
     return ops, 2 * ops
 
 
+def complete_square_chain(rows: int, group: int):
+    """complete_square's chain, a lane on a group of ``group`` threads: phi's
+    product (one round) before O's table, fold_many's chain, then the two
+    additions (at group 16 one on each half at once; at 8 one after the
+    other), 2 rounds each."""
+    ops = fold_many_chain(rows, group)[0] + (1 if group >= 16 else 2)
+    return ops, 2 * ops + 1
+
+
 def table_flat_chain(design: str):
     """table_flat's chain, a lane's 7 additions: 12 product rounds each on
     one thread (``"wide"``), 2 on a group of threads (``"narrow"``)."""
@@ -311,6 +320,15 @@ def fold_many(n: int, digits):
     tables never leave the SM).  The chain: ``fold_many_chain``."""
     ops = sum(fold(n // len(digits), d)[0] for d in digits) + 2 * table_flat(n)[0]
     return ops, n * 3 * PT_BYTES
+
+
+def complete_square(n: int, digits):
+    """B provers' square completions of n / B lanes each in one launch
+    (digits: (B, 4, rows)): ``fold_many``'s multiplies, phi's product, the
+    negation and the two additions a lane; g0 and g1 read, g1 + r g0 and
+    g1 - r g0 written (the tables and r g0 never leave the SM)."""
+    ops = fold_many(n, digits)[0] + n * (FE_MUL + FE_SUB + 2 * PT_ADD)
+    return ops, n * 4 * PT_BYTES
 
 
 def select_reduce_fused(absd, sgn):

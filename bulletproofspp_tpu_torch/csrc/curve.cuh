@@ -13,6 +13,19 @@ struct Pt {
   Fe x, y, z;
 };
 
+// beta, the cube root of unity mod p of the GLV endomorphism (core/ec.py:
+// BETA), as 8 little-endian 32-bit words: phi(x, y, z) = (beta x, y, z)
+// (lanes.cu: endo_kernel and assemble_kernel, kernels.cu:
+// complete_square_kernel, all fe_mul(x, fe_beta()))
+__device__ __forceinline__ Fe fe_beta() {
+  const u32 w[8] = {0x719501eeu, 0xc1396c28u, 0x12f58995u, 0x9cf04975u,
+                    0xac3434e9u, 0x6e64479eu, 0x657c0710u, 0x7ae96a2bu};
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < 8; k++) r.w[k] = w[k];
+  return r;
+}
+
 __device__ __forceinline__ Pt pt_identity() {
   Pt r;
   r.x = fe_zero();

@@ -4,7 +4,9 @@
 // each replace one Pallas TPU kernel of bulletproofspp_tpu/ops/pallas_field.py;
 // fold replaces the XLA fold_mul_kernel of bulletproofspp_tpu/ops/msm.py,
 // fold_many its vmap over the provers of a lockstep batch (from the bases'
-// points, its lanes' tables built in the launch), and reduce_lanes
+// points, its lanes' tables built in the launch), complete_square the
+// square completion around that fold (msm.py:283 and :301: phi, the fold and
+// g1 +- r g0 in one launch), and reduce_lanes
 // the XLA table select and lane tree of its MSMs under 128 lanes (the
 // one-hot select and _reduce_lanes, one program there and one launch here).
 // The MSM routes select inside their first reduction: reduce_lanes under 128
@@ -28,11 +30,13 @@
 // design is the simple one: one thread per independent lane, coalesced
 // limb-plane loads (neighbouring threads read neighbouring lanes), 8 x 32-bit
 // words in registers with 64-bit carry chains.  Making them fast (fewer
-// carries, madc chains, more lanes per SM) is later work.  Nine are
+// carries, madc chains, more lanes per SM) is later work.  Ten are
 // designed for this card instead: horner, tail_horner and fold, whose work
 // is one chain of dependent point operations per MSM or lane, bound by its
 // latency (they run it on a warp: curve_warp.cuh); fold_many, the same
-// chain on a group of 16 or 8 threads by the launch's width (below); padd, table_flat,
+// chain on a group of 16 or 8 threads by the launch's width (below), and
+// complete_square, fold_many's launch with phi before it and two additions
+// after; padd, table_flat,
 // reduce_block and reduce_lanes, which at the narrow widths most of their
 // calls have (16 to a few thousand lanes) fill few SMs and wait on one
 // thread's additions, so (below a lane count, or always for reduce_lanes)
@@ -656,6 +660,45 @@ __device__ __forceinline__ Pt fold_entry(const FoldEntry* t, int d, int s) {
   return p;
 }
 
+// The lane's fold on its group of G threads, after its two tables are in
+// t (t[0] E's, t[1] O's): per row 4 doublings, + the E entry, + the O entry
+// (the JAX scan's order and fold's).  Every thread of the group ends with
+// the sum.
+template <int G>
+__device__ __forceinline__ Pt fold_rows(const FoldEntry (&t)[2][9], const FoldDigits& dg) {
+  Pt acc = pt_identity();
+#pragma unroll 1
+  for (int r = 0; r < kFoldRows; r++) {
+#pragma unroll 1
+    for (int k = 0; k < 4; k++) acc = pt_dbl_warp<G>(acc);
+    acc = pt_add_warp<G>(acc, fold_entry(t[0], dg.d[0][r], dg.d[1][r]));
+    acc = pt_add_warp<G>(acc, fold_entry(t[1], dg.d[2][r], dg.d[3][r]));
+  }
+  return acc;
+}
+
+// The half of its group a thread is in: at G >= 16 each half builds one of
+// the lane's two tables (and complete_square's halves make one of its two
+// sums each); at G = 8 the whole group does both in turn.
+template <int G>
+__device__ __forceinline__ int fold_half() {
+  return G >= 16 ? (threadIdx.x / (G / 2)) & 1 : 0;
+}
+
+// a where c, else b, word by word: a ternary on the structs takes their
+// addresses and keeps them in local memory (a 384-byte stack frame in
+// complete_square_kernel<16>, and its chain 7% slower a round).
+__device__ __forceinline__ Pt pt_select(bool c, const Pt& a, const Pt& b) {
+  Pt r;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    r.x.w[k] = c ? a.x.w[k] : b.x.w[k];
+    r.y.w[k] = c ? a.y.w[k] : b.y.w[k];
+    r.z.w[k] = c ? a.z.w[k] : b.z.w[k];
+  }
+  return r;
+}
+
 // Lane w of the launch (of prover w / lanes) on a group of G threads.  The
 // loop is uniform over the block; a group past the last lane computes lane
 // count - 1 again and stores nothing (every thread takes part in the
@@ -675,22 +718,14 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
   for (int64_t w0 = blockIdx.x * (int64_t)per; w0 < count; w0 += (int64_t)gridDim.x * per) {
     const int64_t w = w0 + slot, wl = w < count ? w : count - 1, j = first + wl;
     if constexpr (G >= 16) {  // E on the group's first half, O on its second
-      const int h = (threadIdx.x / (G / 2)) & 1;
+      const int h = fold_half<G>();
       fold_table<G / 2>(tab[h], pt_load(h ? ox : ex, h ? oy : ey, h ? oz : ez, n, j));
     } else {
       fold_table<G>(tab[0], pt_load(ex, ey, ez, n, j));
       fold_table<G>(tab[1], pt_load(ox, oy, oz, n, j));
     }
     __syncwarp();  // the group's table stores before its reads
-    const FoldDigits& dg = dig.p[wl / lanes];
-    Pt acc = pt_identity();
-#pragma unroll 1
-    for (int r = 0; r < kFoldRows; r++) {
-#pragma unroll 1
-      for (int k = 0; k < 4; k++) acc = pt_dbl_warp<G>(acc);
-      acc = pt_add_warp<G>(acc, fold_entry(tab[0], dg.d[0][r], dg.d[1][r]));
-      acc = pt_add_warp<G>(acc, fold_entry(tab[1], dg.d[2][r], dg.d[3][r]));
-    }
+    const Pt acc = fold_rows<G>(tab, dig.p[wl / lanes]);
     if (w < count) {
       int64_t* const dst[3] = {rx, ry, rz};
       const Fe v[3] = {acc.x, acc.y, acc.z};
@@ -699,6 +734,89 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
     __syncwarp();  // every read of the tables before the next lane's stores
   }
 }
+
+// --- complete_square: replaces complete_square_kernel (bulletproofspp_tpu/
+// ops/msm.py:283) with the endomorphism before it (ops/engine.py:41,
+// :425-426), and jax.vmap(_csq_with_endo) (msm.py:301, :306): per lane
+// gx = g1 + r g0 and hy = g1 - r g0, r g0 = b g0 + a phi(g0) through r's GLV
+// halves, for B provers at once, each with its own digit streams.
+//
+// The JAX package compiles the whole square completion into one device
+// program; the route before this kernel split it into an endo launch, a
+// fold_many launch (or two table_flat and a fold at B = 1), a pneg launch
+// and two padd launches over the same 16-256 lanes.  Each of endo, pneg
+// and the narrow padd does a few nanoseconds of work (a product, a
+// subtraction, an addition a lane) in a launch's fixed cost and the
+// wrapper's host side, so no body of theirs could come near its bound;
+// here they have no launch of their own.  The launch is fold_many's, with
+// a prologue and an epilogue on the same group of threads:
+//  * prologue: the group loads g0_j once; E's table is built from it and
+//    O's from phi(g0_j) = (fe_mul(x, fe_beta()), y, z), endo_kernel's
+//    words, kept in registers (at G >= 16 each half of the group builds one
+//    table, at G = 8 the group builds both in turn: fold_many's build);
+//  * the chain: fold_rows, fold_many's;
+//  * epilogue: the group loads g1_j; g1 + acc and g1 + (acc.x, fe_neg(acc.y),
+//    acc.z) through pt_add_warp with g1 first, as padd_narrow_kernel and
+//    pneg_kernel compute them (at G >= 16 one sum a half, at G = 8 both in
+//    turn), and each is stored by the threads that made it.
+// So gx and hy equal the unfused route (endo, fold_many, padd(g1, rp) and
+// padd(g1, pneg(rp))) word for word.  The group width is fold_many's
+// (ops/kernels.py: fold_many_group); shared memory is its 2,304 B a lane,
+// the epilogue takes none.
+template <int G>
+__global__ void __launch_bounds__(32 * kFoldWarps)
+    complete_square_kernel(const int64_t* __restrict__ ax, const int64_t* __restrict__ ay,
+                           const int64_t* __restrict__ az, const int64_t* __restrict__ bx,
+                           const int64_t* __restrict__ by, const int64_t* __restrict__ bz,
+                           const __grid_constant__ FoldDigitsMany dig,
+                           int64_t* __restrict__ gx, int64_t* __restrict__ gy,
+                           int64_t* __restrict__ gz, int64_t* __restrict__ hx,
+                           int64_t* __restrict__ hy, int64_t* __restrict__ hz, int64_t n,
+                           int64_t lanes, int64_t first, int64_t count) {
+  constexpr int per = kFoldManyLanes<G>;
+  __shared__ FoldEntry tabs[per][2][9];
+  const int slot = threadIdx.x / G;
+  FoldEntry(&tab)[2][9] = tabs[slot];
+  for (int64_t w0 = blockIdx.x * (int64_t)per; w0 < count; w0 += (int64_t)gridDim.x * per) {
+    const int64_t w = w0 + slot, wl = w < count ? w : count - 1, j = first + wl;
+    const Pt g0 = pt_load(ax, ay, az, n, j);
+    Pt phi = g0;
+    phi.x = fe_mul(g0.x, fe_beta());
+    if constexpr (G >= 16) {  // E on the group's first half, O on its second
+      const int h = fold_half<G>();
+      fold_table<G / 2>(tab[h], pt_select(h, phi, g0));
+    } else {
+      fold_table<G>(tab[0], g0);
+      fold_table<G>(tab[1], phi);
+    }
+    __syncwarp();  // the group's table stores before its reads
+    const Pt acc = fold_rows<G>(tab, dig.p[wl / lanes]);
+    const Pt g1 = pt_load(bx, by, bz, n, j);
+    Pt neg = acc;
+    neg.y = fe_neg(acc.y);
+    if constexpr (G >= 16) {  // g1 + acc on the first half, g1 - acc on the second
+      const int h = fold_half<G>();
+      const Pt s = pt_add_warp<G / 2>(g1, pt_select(h, neg, acc));
+      if (w < count) {
+        int64_t* const dst[3] = {h ? hx : gx, h ? hy : gy, h ? hz : gz};
+        const Fe v[3] = {s.x, s.y, s.z};
+        fe_store_group<G / 2>(dst, v, n, j);
+      }
+    } else {
+      const Pt s = pt_add_warp<G>(g1, acc), d = pt_add_warp<G>(g1, neg);
+      if (w < count) {
+        int64_t* const dst[6] = {gx, gy, gz, hx, hy, hz};
+        const Fe v[6] = {s.x, s.y, s.z, d.x, d.y, d.z};
+        fe_store_group<G>(dst, v, n, j);
+      }
+    }
+    __syncwarp();  // every read of the tables before the next lane's stores
+  }
+}
+
+// complete_square's parameters: the digits, twelve pointers, four int64s
+static_assert(sizeof(FoldDigitsMany) + 12 * sizeof(void*) + 4 * sizeof(int64_t) <= 4096,
+              "complete_square's parameters must fit in 4 KB");
 
 inline int fold_blocks(int64_t lanes) {
   const int64_t b = (lanes + kFoldWarps - 1) / kFoldWarps;
@@ -933,6 +1051,34 @@ int bppp_fold_many(const int64_t* ex, const int64_t* ey, const int64_t* ez, cons
     default: return (int)cudaErrorInvalidValue;
   }
 #undef BPPP_FOLD_MANY
+  return (int)cudaGetLastError();
+}
+
+// digits: kFoldMaxProvers FoldDigits (as bppp_fold_many's); ax..az g0 and
+// bx..bz g1, (16, n) strict points; the launch completes lanes [first,
+// first + provers * lanes) into gx..gz (g1 + r g0) and hx..hz (g1 - r g0) on
+// groups of `group` threads (8 or 16).
+int bppp_complete_square(const int64_t* ax, const int64_t* ay, const int64_t* az,
+                         const int64_t* bx, const int64_t* by, const int64_t* bz,
+                         const void* digits, int64_t* gx, int64_t* gy, int64_t* gz, int64_t* hx,
+                         int64_t* hy, int64_t* hz, int64_t n, int64_t lanes, int64_t first,
+                         int64_t provers, int group, void* stream) {
+  if (provers < 1 || provers > kFoldMaxProvers || lanes < 1 || first < 0 ||
+      first + provers * lanes > n) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const FoldDigitsMany& dig = *static_cast<const FoldDigitsMany*>(digits);
+  const int64_t count = provers * lanes;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define BPPP_COMPLETE_SQUARE(G)                                                                \
+  complete_square_kernel<G><<<blocks_for(count, kFoldManyLanes<G>), 32 * kFoldWarps, 0, s>>>(  \
+      ax, ay, az, bx, by, bz, dig, gx, gy, gz, hx, hy, hz, n, lanes, first, count)
+  switch (group) {
+    case 8: BPPP_COMPLETE_SQUARE(8); break;
+    case 16: BPPP_COMPLETE_SQUARE(16); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BPPP_COMPLETE_SQUARE
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,10 @@
 //    _interleave_endo (bulletproofspp_tpu/ops/engine.py:119): [P_j, phi(P_j)]
 //    at lanes 2j and 2j + 1 of the three planes, in the same launch;
 //  * pneg_kernel replaces curve.pneg (bulletproofspp_tpu/ops/curve.py:87),
-//    -y a lane (fe_neg: strict, -0 may come out as 0 or Q);
+//    -y a lane (fe_neg: strict, -0 may come out as 0 or Q).  No path
+//    launches it, nor endo without the interleave, since complete_square
+//    (csrc/kernels.cu) makes phi and the negation of the square completion
+//    in its own launch; both stay as its unfused route's yardsticks;
 //  * normalize3_kernel replaces curve._normalize3 (bulletproofspp_tpu/ops/
 //    curve.py:124): three strict planes to one stacked (3, 16, n) canonical
 //    tensor, ready for one device-to-host copy (curve.to_affine_host; an
@@ -35,7 +38,8 @@
 // words endo_kernel's).
 //
 // What bounds them on the H100: a launch's fixed cost (assemble at the
-// 2^21-lane MSM: its bytes).  Each moves a few KB
+// 2^21-lane MSM and endo's interleave of the bench's basis and the sharded
+// MSM's 2^20 pairs: their bytes).  Each moves a few KB
 // to a few MB (a 16- to 512-lane MSM's selected entries, a few thousand
 // lanes of points), and endo's one field product a lane is far below the
 // multiply rate.  As plain PyTorch on the card each was a chain of 17 to 190
@@ -85,17 +89,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kLimbs = 16;
 
-// beta, the cube root of unity mod p of the GLV endomorphism (core/ec.py:
-// BETA), as 8 little-endian 32-bit words
-__device__ __forceinline__ Fe fe_beta() {
-  const u32 w[8] = {0x719501eeu, 0xc1396c28u, 0x12f58995u, 0x9cf04975u,
-                    0xac3434e9u, 0x6e64479eu, 0x657c0710u, 0x7ae96a2bu};
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < 8; k++) r.w[k] = w[k];
-  return r;
-}
-
 int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   return (int)(b > 65535 * 16 ? 65535 * 16 : b);
@@ -123,8 +116,26 @@ __global__ void select_small_kernel(const int64_t* __restrict__ tx, const int64_
   }
 }
 
+// a at lane 2j and b at lane 2j + 1 of (16, 2n) planes (fe_store's limbs):
+// the two limbs of a row side by side, one 16-byte store (the planes are
+// 16-byte aligned and 2j is even), so a warp writes 512 contiguous bytes a
+// row.
+__device__ __forceinline__ void fe_store_pair(int64_t* p, int64_t n, int64_t j, const Fe& a,
+                                              const Fe& b) {
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    *reinterpret_cast<longlong2*>(p + (2 * k) * 2 * n + 2 * j) =
+        make_longlong2(a.w[k] & 0xffffu, b.w[k] & 0xffffu);
+    *reinterpret_cast<longlong2*>(p + (2 * k + 1) * 2 * n + 2 * j) =
+        make_longlong2(a.w[k] >> 16, b.w[k] >> 16);
+  }
+}
+
 // beta x a lane; with interleave, lanes 2j and 2j + 1 of the (16, 2n) planes
-// get (x, y, z) and (beta x, y, z) of lane j.
+// get (x, y, z) and (beta x, y, z) of lane j.  The interleave is bound by
+// its bytes (384 in, 768 out a lane): stored limb by limb at stride 2 (a
+// warp's store 256 bytes spread over 512) it reached 0.47 of its bound at
+// 2^20 lanes; fe_store_pair writes each row's two lanes in one store.
 __global__ void endo_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
                             const int64_t* __restrict__ z, int64_t* __restrict__ ox,
                             int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t n,
@@ -137,12 +148,9 @@ __global__ void endo_kernel(const int64_t* __restrict__ x, const int64_t* __rest
       continue;
     }
     const Fe yv = fe_load(y, n, j), zv = fe_load(z, n, j);
-    fe_store(ox, 2 * n, 2 * j, xv);
-    fe_store(ox + 1, 2 * n, 2 * j, bx);
-    fe_store(oy, 2 * n, 2 * j, yv);
-    fe_store(oy + 1, 2 * n, 2 * j, yv);
-    fe_store(oz, 2 * n, 2 * j, zv);
-    fe_store(oz + 1, 2 * n, 2 * j, zv);
+    fe_store_pair(ox, n, j, xv, bx);
+    fe_store_pair(oy, n, j, yv, yv);
+    fe_store_pair(oz, n, j, zv, zv);
   }
 }
 

@@ -261,7 +261,8 @@ class TorchEngine:
         return _dp_slice(DevicePoints(*msm.fold_mul(*args)), n)
 
     def complete_square(self, r: int, g0s, g1s):
-        """(g1 + r g0, g1 - r g0) as device base vectors."""
+        """(g1 + r g0, g1 - r g0) as device base vectors: one complete_square
+        launch."""
         g0, g1 = self.basevec(g0s), self.basevec(g1s)
         k1, k2 = glv.split(int(r) % R)
         de, se = native.recode_signed(k1)
@@ -318,9 +319,8 @@ class TorchEngine:
 
     def complete_square_many(self, calls):
         """``complete_square`` for N lockstep provers: calls is a list of (r,
-        g0s, g1s) with identical shapes; one endomorphism, one batched fold
-        and two padd launches for all of them
-        (``bulletproofspp_tpu/ops/engine.py:477``)."""
+        g0s, g1s) with identical shapes; one complete_square launch a 16 of
+        them (``bulletproofspp_tpu/ops/engine.py:477``)."""
         if len(calls) == 1:
             return [self.complete_square(*calls[0])]
         g0s, g1s, digits = [], [], []

@@ -1,14 +1,17 @@
 """The port's hand-written CUDA kernels, their plain versions and launch counts.
 
-Twenty-one kernels.  Seven replace Pallas TPU kernels of
+Twenty-two kernels.  Seven replace Pallas TPU kernels of
 ``bulletproofspp_tpu/ops/pallas_field.py`` (padd, horner, reduce_block,
 tail_horner, table_flat, select_reduce, and select_reduce_fused for MSMs
 of 2^21 lanes and more); three replace the Pallas kernels of the JAX
 package's measurement tools (sr_variant and grid_copy of
-``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); eleven
+``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); twelve
 replace XLA-only functions: fold (``fold_mul_kernel`` of
 ``bulletproofspp_tpu/ops/msm.py``, basis folding in prove), fold_many
-(its vmap over the provers of a lockstep batch) and decompress
+(its vmap over the provers of a lockstep batch), complete_square (the
+square completion the JAX package compiles into one program,
+``complete_square_kernel`` / ``_csq_with_endo``: phi, that fold and g1 +-
+r g0 in one launch) and decompress
 (``decompress_kernel`` of ``bulletproofspp_tpu/ops/curve.py``, proof
 decoding in verify), which as plain PyTorch dominated the card's time,
 and inv and to_affine (``limb.inv`` / ``batch_inv`` and
@@ -17,9 +20,10 @@ and inv and to_affine (``limb.inv`` / ``batch_inv`` and
 select_small (the table select, which the MSM routes now run inside
 reduce_lanes, reduce_block and tail_horner: it stays as their unfused
 yardstick), endo (GLV's phi, and the engine's [P, phi(P)] interleave),
-pneg and normalize3 (canonical planes for one device-to-host copy; an
-MSM's result leaves horner or tail_horner canonical instead, their
-``canonical``), and the two device programs the JAX package compiles around
+pneg (on no path since complete_square makes the square completion's
+negation: its unfused yardstick) and normalize3 (canonical planes for one
+device-to-host copy; an MSM's result leaves horner or tail_horner
+canonical instead, their ``canonical``), and the two device programs the JAX package compiles around
 its MSMs and folds: assemble (the oracle step's entry assembly,
 ``_assemble_many_body`` / ``_assemble_fold`` of
 ``bulletproofspp_tpu/ops/engine.py``: slices, concatenation, identity
@@ -132,6 +136,10 @@ KERNELS = {
         Kernel("fold_many", "kernels.cu", "bppp_fold_many",
                [_P] * 10 + [_I64] * 4 + [_I32, _P],
                "bulletproofspp_tpu/ops/msm.py:297", ("fold_many_kernel",)),
+        Kernel("complete_square", "kernels.cu", "bppp_complete_square",
+               [_P] * 13 + [_I64] * 4 + [_I32, _P],
+               "bulletproofspp_tpu/ops/msm.py:283 and :301 (with ops/engine.py:41)",
+               ("complete_square_kernel",)),
         Kernel("select_reduce_fused", "select_reduce_fused.cu", "bppp_select_reduce_fused",
                [_P] * 8 + [_I64, _I64, _I64, _P], "bulletproofspp_tpu/ops/pallas_field.py:615",
                ("select_reduce_fused_kernel",)),
@@ -367,8 +375,8 @@ PADD_THREADS = (128, 256, 512, 1024)
 # 8,192, and 1.55-1.72 from 16,384 to 65,536.
 PADD_WIDE_LANES = 8192
 # the widths both designs are held and timed at: the lane trees' (B x 33 x
-# L/2 lanes, before reduce_lanes took them) and complete_square's, then up
-# to the measurement path's
+# L/2 lanes) and complete_square's, before reduce_lanes and complete_square
+# took those additions in, then up to the measurement path's
 PADD_WIDTHS = (16, 66, 264, 1056, 3168, 8192, 16384, 32768, 65536)
 
 
@@ -769,15 +777,33 @@ def fold_many_group(lanes: int) -> int:
     return 8 if lanes >= FOLD_MANY_WIDE_LANES else 16
 
 
-def _prover_lanes(pe, digits) -> tuple:
+def _prover_lanes(pe, digits, name: str = "fold_many") -> tuple:
     """(B, L): the provers and the lanes of each, whose L lanes lie end to
     end in ``pe``; raises unless digits is (B, 4, ROWS)."""
     d = np.asarray(digits)
     n = pe[0].shape[1]
     if d.ndim != 3 or len(d) < 1 or n % len(d):
-        raise ValueError(f"fold_many: digits must be (B, 4, {glv.ROWS}) for B provers of equal "
+        raise ValueError(f"{name}: digits must be (B, 4, {glv.ROWS}) for B provers of equal "
                          f"lane counts, got {d.shape} for {n} lanes")
     return len(d), n // len(d)
+
+
+def _fold_launches(name: str, pts, packed, lanes: int, group, *out):
+    """One launch of ``name`` per FOLD_MAX_PROVERS provers over their lanes
+    of the (16, B L) planes ``pts``, each with its provers' digits (packed:
+    ``fold_digits``) by value and groups of ``group`` threads (None:
+    ``fold_many_group`` of its lanes)."""
+    dev = _check(*pts)
+    n = pts[0].shape[1]
+    if any(t.shape != (limb.NLIMB, n) for t in pts):
+        raise ValueError(f"{name} takes its points as (16, B L) planes of one shape")
+    size = FOLD_MAX_PROVERS * 4 * glv.ROWS
+    for p0 in range(0, len(packed), FOLD_MAX_PROVERS):
+        chunk = packed[p0:p0 + FOLD_MAX_PROVERS]
+        g = group or fold_many_group(len(chunk) * lanes)
+        buf = ctypes.create_string_buffer(b"".join(chunk), size)
+        _launch(name, f"B={len(chunk)} L={lanes} G={g}", dev, *_ptrs(*pts),
+                ctypes.addressof(buf), *_ptrs(*out), n, lanes, p0 * lanes, len(chunk), g)
 
 
 def fold_many_plain(pe, po, digits):
@@ -803,26 +829,49 @@ def fold_many_design(pe, po, digits, group: int | None = None):
     """``fold_many`` with every launch on groups of ``group`` threads (one
     of FOLD_MANY_GROUPS; None: ``fold_many_group`` of its lanes).  The
     words are the same whatever the group; the smoke times each."""
-    B, L = _prover_lanes(pe, digits)
+    _, L = _prover_lanes(pe, digits)
     packed = [fold_digits(d) for d in digits]
     if group is not None and group not in FOLD_MANY_GROUPS:
         raise ValueError(f"fold_many: group {group} is not one of {FOLD_MANY_GROUPS}")
     if pe[0].device.type == "cpu":
         return fold_many_plain(pe, po, digits)
     pts = [t.contiguous() for t in (*pe, *po)]
-    dev = _check(*pts)
-    n = pts[0].shape[1]
-    if any(t.shape != (limb.NLIMB, n) for t in pts):
-        raise ValueError("fold_many takes the two bases as (16, B L) planes of one shape")
-    out = _empty((limb.NLIMB, n), pts[0])
-    size = FOLD_MAX_PROVERS * 4 * glv.ROWS
-    for p0 in range(0, B, FOLD_MAX_PROVERS):
-        chunk = packed[p0:p0 + FOLD_MAX_PROVERS]
-        g = group or fold_many_group(len(chunk) * L)
-        buf = ctypes.create_string_buffer(b"".join(chunk), size)
-        _launch("fold_many", f"B={len(chunk)} L={L} G={g}", dev, *_ptrs(*pts),
-                ctypes.addressof(buf), *_ptrs(*out), n, L, p0 * L, len(chunk), g)
+    out = _empty(pts[0].shape, pts[0])
+    _fold_launches("fold_many", pts, packed, L, group, *out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# 7c. complete_square: phi, fold_many's fold and g1 +- r g0 in one launch
+# (``complete_square_kernel`` and ``_csq_with_endo``,
+# bulletproofspp_tpu/ops/msm.py:283 and :301)
+# ---------------------------------------------------------------------------
+
+
+def complete_square_plain(g0, g1, digits):
+    """g0, g1: (16, B L) strict lanes, B provers' L lanes end to end;
+    digits: (B, 4, ROWS) host ints de, se, do, so.  The route the kernel
+    replaced: rp = ``fold_many_plain(g0, endo_plain(g0), digits)``, then
+    (g1 + rp, g1 + (-rp)) by ``padd_plain`` and ``pneg_plain``."""
+    rp = fold_many_plain(g0, endo_plain(g0), digits)
+    return padd_plain(g1, rp), padd_plain(g1, pneg_plain(rp))
+
+
+def complete_square(g0, g1, digits):
+    """``complete_square_plain`` on the card: one launch per FOLD_MAX_PROVERS
+    provers (digits by value, group width ``fold_many_group`` of its lanes),
+    which builds each lane's tables of g0 and phi(g0), folds, and stores
+    g1 + r g0 and g1 - r g0: equal word for word to endo, fold_many, padd
+    and pneg launched one after the other.  Returns (gx, hy), each three
+    (16, B L) planes."""
+    _, L = _prover_lanes(g0, digits, "complete_square")
+    packed = [fold_digits(d) for d in digits]
+    if g0[0].device.type == "cpu":
+        return complete_square_plain(g0, g1, digits)
+    pts = [t.contiguous() for t in (*g0, *g1)]
+    gx, hy = _empty(pts[0].shape, pts[0]), _empty(pts[0].shape, pts[0])
+    _fold_launches("complete_square", pts, packed, L, None, *gx, *hy)
+    return gx, hy
 
 
 # ---------------------------------------------------------------------------

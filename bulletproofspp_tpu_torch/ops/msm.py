@@ -147,16 +147,14 @@ def fold_mul_many(pe, po, digits):
 def complete_square(g0, g1, de, se, do, so):
     """(g1 + r g0, g1 - r g0) lanes with r g0 through the GLV halves
     (g0, phi(g0)) and shared digit streams
-    (``bulletproofspp_tpu/ops/msm.py:283`` complete_square_kernel)."""
-    rp = fold_mul(g0, curve.endo(g0), de, se, do, so)
-    return curve.padd(g1, rp), curve.padd(g1, curve.pneg(rp))
+    (``bulletproofspp_tpu/ops/msm.py:283`` complete_square_kernel, after
+    the endomorphism, ``ops/engine.py:41``): one complete_square launch."""
+    return kernels.complete_square(g0, g1, np.stack([de, se, do, so])[None])
 
 
 def complete_square_many(g0, g1, digits):
     """``complete_square`` for B provers at once (``jax.vmap(_csq_with_endo)``,
     ``bulletproofspp_tpu/ops/msm.py:306``): g0, g1 (16, B L), digits (B, 4,
-    ROWS).  One endomorphism over all B L lanes, one batched fold (no
-    table_flat launch), a negation and one padd launch each for g1 + rp and
-    g1 - rp."""
-    rp = fold_mul_many(g0, curve.endo(g0), digits)
-    return curve.padd(g1, rp), curve.padd(g1, curve.pneg(rp))
+    ROWS).  One complete_square launch a 16 provers: phi, the fold (each
+    lane's tables built in the launch) and both additions."""
+    return kernels.complete_square(g0, g1, digits)

@@ -37,8 +37,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      digits and sign 1, no table_flat launch, its three group widths equal
      raw and timed in turns, the wrapper in turns with the route it
      replaced (two table_flat launches and B fold launches on the same
-     lanes), and at B = 1 equal word for word to table_flat + fold): the
-     normalized outputs must be equal limb for limb.  Time both: a kernel's launches back to
+     lanes), and at B = 1 equal word for word to table_flat + fold;
+     complete_square, the square completion in one launch (phi, fold_many's
+     fold and g1 +- r g0), at ``CSQ_CASES`` (B provers of L lanes: 1 x 16
+     and 256, 2 x 16, 16 x 16, 4 x 64, and 16 x 128, 2,048 lanes, the
+     8-thread group), one launch and no other, equal word for word to the
+     unfused route (endo, fold_many, padd, pneg, padd) and timed in turns
+     with it): the normalized outputs must be equal limb for limb.  Time both: a kernel's launches back to
      back (enqueued while the stream sleeps), a plain version's as the host
      sends them.  select_reduce is timed in turns with its yardsticks on
      the same inputs: at 4,096 lanes (its gather design) with sr_variant
@@ -164,7 +169,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      pneg and normalize3 against their plain versions with edge lanes
      (``edge_planes``) among the inputs: select_small at B = 1, 2, 6, 66
      MSMs of L = 16, 64, 128, 512 lanes word for word; endo interleaved at
-     8 to 2,048 lanes and at (16, K, n) stacks, endo and pneg at 16 to 512
+     8 to 2,048 lanes, at (16, K, n) stacks and at 32,768 and 2^20 lanes
+     (``ENDO_WIDE``: the bench's basis and the sharded MSM's pairs, both
+     timed), endo and pneg at 16 to 512
      lanes and lockstep's 16 x 16, equal after normalization and strict;
      normalize3 at K = 1, 2, 6, 66, 130 word for word; each timed at the
      main paths' commonest shapes, select_small in turns with
@@ -201,20 +208,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      phase 3 launched most timed back to back, in turns with select_small
      + its tree alone, and stopped after each level in turns (the
      per-level figure); (c) in a process of its own for each route, one
-     64bit verify and prove under ``torch.profiler`` with every kernel, with
-     assemble and reduce_lanes swapped for their plain versions, and with
-     those, endo and pneg swapped: the library remainder (device
+     64bit verify and prove under ``torch.profiler`` with every kernel and
+     with assemble and reduce_lanes swapped for their plain versions: the
+     library remainder (device
      kernels no wrapper launches) in ms and launches, the memory copies by
      kind (host-to-device pinned and pageable, device-to-host) in ms and
      count, the port's launches, device seconds, idle share and the wall of
      each, logged on one line a route, and on the kernels' route one
      128by64 prove too: no library launch in either prove, no pinned
-     host-to-device copy, no select_small or normalize3 launch; the plain
-     routes bring the eager select (and the digits' widening) back through
-     reduce_lanes.
+     host-to-device copy, no select_small or normalize3 launch, and the
+     64bit prove's square completion in complete_square (no endo, pneg or
+     padd); the plain route brings the eager select (and the digits'
+     widening) back through reduce_lanes.
   Over all the main paths' launches: no select_small (every MSM selects in
   its first reduction), reduce_lanes only under 128 lanes; none of
-  normalize3 on cli test (each MSM's result leaves horner canonical).
+  normalize3 on cli test (each MSM's result leaves horner canonical); no
+  endo, pneg or padd on cli test, prove-batch and the service (their
+  square completions launch complete_square), and pneg on no path.
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
@@ -224,9 +234,10 @@ route; padd at 1,056 lanes, the halving trees' commonest, and 65,536;
 table_flat at 16, fold's, and 4,096; reduce_block at W = 33,792, f = 8,
 the bench's second launch, and W = 16,896, f = 4, cli test's commonest;
 decompress at 16 lanes, cli test's smallest, and 16,384; fold_many at B =
-2 and 16 of L = 16 and 512 and B = 4 of 512; inv and to_affine at 16, 4,096 and 65,536;
+2 and 16 of L = 16 and 512 and B = 4 of 512; complete_square at each of
+CSQ_CASES; inv and to_affine at 16, 4,096 and 65,536;
 select_small at B = 2, L = 16 and B = 1, L = 512; endo interleaved at K =
-2 of 8 lanes and 2,048 lanes, and at 16 lanes; pneg at 16; normalize3 at
+2 of 8 lanes, 2,048, 32,768 and 2^20 lanes, and at 16 lanes; pneg at 16; normalize3 at
 K = 2 and 130; assemble and reduce_lanes at the shape phase 3 launched
 most, reduce_lanes with its unfused route's time in turns and its time
 stopped after each level), the kernel's
@@ -242,13 +253,14 @@ over 3.35 TB/s; for chain's ten launches the sum of theirs) and, for grid_copy, 
 computes the same function (``library_ms``; for select_small
 select_plain's three torch.gather; null where there is none).
 The kernel lines of phase 2, and the JSON line (``chain``), also give, for
-tail_horner, horner, fold, fold_many, select_reduce_fused, padd, table_flat,
-reduce_block and reduce_lanes, the time per point operation and per product round of the
+tail_horner, horner, fold, fold_many, complete_square, select_reduce_fused, padd,
+table_flat, reduce_block and reduce_lanes, the time per point operation and per product round of the
 kernel's longest dependent chain (``bounds.*_chain``; padd's, table_flat's
 and reduce_block's by design, fold_many's by group width), for decompress
 the time per dependent field product of its chain, and for inv and
 to_affine the time per divstep batch of theirs (fold_many's rows also
-``group_ms``, each group width's time, and ``replaced_route_ms``);
+``group_ms``, each group width's time, and ``replaced_route_ms``;
+complete_square's ``unfused_route_ms``, in turns);
 the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 CUDA is not available.
 """
@@ -283,6 +295,10 @@ PROVE_BATCH = (("64bit", 16), ("32bit", 4), ("rec_test", 4), ("bin_test", 4), ("
 # (provers, lanes of each): lockstep's commonest and widest launches, and at
 # 2,048 lanes the narrowest that takes the 8-thread group
 FOLD_MANY_CASES = ((2, 16), (16, 16), (2, 512), (4, 512), (16, 512))
+# (provers, lanes of each) of complete_square: the paths' square completions
+# (one prover of 16 to 256 lanes, lockstep's 2 and 16 of 16, 4 of 64) and 16
+# of 128, 2,048 lanes a launch, where it takes the 8-thread group
+CSQ_CASES = ((1, 16), (1, 256), (2, 16), (16, 16), (4, 64), (16, 128))
 
 # phase 11: mp-prove of the widest example over 4 parties of 32 ranges, the
 # binary family (an assumed range) over 2, mp-demo over 3, and the engine's
@@ -312,8 +328,10 @@ BENCH_SUBPROCESS_N = 16
 
 # phase 15: the lane-wise kernels' shapes (the main paths' and a little
 # beyond: msm_many stacks B MSMs of L lanes under 1,024, interleaves K
-# entries of n lanes, complete_square(_many) runs endo and pneg over a
-# prover's lanes or lockstep's 16 x 16, normalize3 K results)
+# entries of n lanes, endo and pneg over a prover's lanes or lockstep's 16
+# x 16, as complete_square ran them before it took them in, normalize3 K
+# results) and endo's interleave at the bench's basis (32,768 points) and
+# the sharded MSM's 2^20 pairs (ENDO_WIDE)
 SELECT_BATCHES = (1, 2, 6, 66)
 SELECT_LANES = (16, 64, 128, 512)
 ENDO_STACKS = ((2, 8), (3, 32), (5, 128), (66, 16))  # (K, n)
@@ -322,6 +340,7 @@ NORMALIZE_K = (1, 2, 6, 66, 130)
 # the shapes of phase 15's timed rows, among those checked: (B, L), (K, n), K
 SELECT_TIMED = ((2, 16), (1, 512))
 ENDO_TIMED = ((2, 8), (1, 2048))
+ENDO_WIDE = (32768, 1 << 20)
 NORMALIZE_TIMED = (2, 130)
 # phase 15 (a'): the MSM route from 128 to 1,023 lanes with the select in its
 # first launch (reduce_block at 256 and 512 lanes, tail_horner at 128) and
@@ -345,13 +364,17 @@ ASSEMBLE_SMALL_CAPACITY = 4048  # table bytes a launch carries under CUDA before
 REDUCE_LANES_L = (16, 32, 64)
 REDUCE_LANES_B = (1, 2, 6, 66, 130)
 ASSEMBLY_OPS = ("assemble", "reduce_lanes")
+# the launches complete_square took in: none on cli test, prove-batch, serve
+SQUARE_OPS = ("endo", "pneg", "padd")
 # the plain routes bring the eager select back, with the digits' widening
 # (select_plain's gathers take int64), through reduce_lanes: a 64bit prove's
 # MSMs are all under 128 lanes.  reduce_block and tail_horner keep their
 # kernels: tail_horner's plain version is the eager Horner too, ~57,000
-# launches in a 64bit verify, past where a profile has lost launches
-REMAINDER_ROUTES = {"kernels": (), "plain_assembly": ASSEMBLY_OPS,
-                    "plain_lanes_and_assembly": ("endo", "pneg") + ASSEMBLY_OPS}
+# launches in a 64bit verify, past where a profile has lost launches.  No
+# prove or verify launches endo or pneg (complete_square makes phi and the
+# negation), and complete_square's plain version is the eager fold (tens of
+# thousands of launches): it keeps its kernel
+REMAINDER_ROUTES = {"kernels": (), "plain_assembly": ASSEMBLY_OPS}
 REMAINDER_MAX = 0  # library launches a 64bit or 128by64 prove may make on the kernels' route
 REMAINDER_PROVES = ("64bit", "128by64")  # profiled on the kernels' route
 MEASURE_L = 65536  # the measurement tools' width (32,768 points)
@@ -814,6 +837,7 @@ def check_kernels(dev):
                  time_ms(lambda: kernels.fold_plain(e, o, digits), 1, paced=True), "L=512 rows=33",
                  bounds.fold(512, digits)))
     rows += check_fold_many(dev, rng)
+    rows += check_complete_square(dev, rng)
     rows += check_fused(dev, rng)
 
     rows += check_decompress(dev, rng)
@@ -947,6 +971,52 @@ def check_fold_many(dev, rng):
                      f"B={B} L={L} G={g} rows={ROWS}", bounds.fold_many(B * L, digits),
                      {"chain": bounds.fold_many_chain(ROWS, g), "group_ms": groups,
                       "replaced_route_ms": means["table_flat x 2 + B folds"]}))
+    return rows
+
+
+def check_complete_square(dev, rng):
+    """Phase 2, complete_square at CSQ_CASES: g0 and g1 of B provers' L lanes
+    end to end (about 1/8 identity lanes), digits per prover
+    (``prover_digits``); exactly one launch, of the group width its lanes
+    pick, and no endo, pneg, padd, table_flat, fold or fold_many launch;
+    (gx, hy) equal word for word to the unfused route (endo, fold_many,
+    padd(g1, rp), pneg, padd(g1, -rp)) and to its plain version after
+    normalization.  Timed in turns with the unfused route on the same
+    inputs.  Returns a row for each case."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    def unfused(g0, g1, digits):
+        rp = kernels.fold_many(g0, kernels.endo(g0), digits)
+        return kernels.padd(g1, rp), kernels.padd(g1, kernels.pneg(rp))
+
+    rows = []
+    for B, L in CSQ_CASES:
+        g0, g1 = (random_points(B * L, rng, dev)[0] for _ in range(2))
+        digits = prover_digits(B, rng)
+        g = kernels.fold_many_group(B * L)
+        kernels.reset_counts()
+        gx, hy = kernels.complete_square(g0, g1, digits)
+        launched = {k: n for k, n in kernels.counts().items() if n}
+        if (launched != {"complete_square": 1} or kernels.shape_counts()["complete_square"]
+                != {f"B={B} L={L} G={g}": 1}):
+            raise AssertionError(f"complete_square B={B} L={L} launched {kernels.shape_counts()}")
+        ux, uy = unfused(g0, g1, digits)
+        same_raw(f"complete_square B={B} L={L} gx against the unfused route", gx, ux)
+        same_raw(f"complete_square B={B} L={L} hy against the unfused route", hy, uy)
+        plain_ms, want = plain_once(lambda: kernels.complete_square_plain(g0, g1, digits))
+        err = max(compare(f"complete_square B={B} L={L} gx", gx, want[0]),
+                  compare(f"complete_square B={B} L={L} hy", hy, want[1]))
+        means, both = in_turns({"complete_square": lambda: kernels.complete_square(g0, g1, digits),
+                                "unfused": lambda: unfused(g0, g1, digits)}, 5)
+        log(f"complete_square B={B} L={L} G={g}: one launch, equal word for word to endo + "
+            f"fold_many + padd + pneg + padd and to its plain version after normalization; in "
+            f"turns with that route (ms) {json.dumps(both)}; fused / unfused "
+            f"{means['complete_square'] / means['unfused']:.4f}")
+        rows.append(("complete_square", err, means["complete_square"], plain_ms,
+                     f"B={B} L={L} G={g} rows={ROWS}", bounds.complete_square(B * L, digits),
+                     {"chain": bounds.complete_square_chain(ROWS, g),
+                      "unfused_route_ms": means["unfused"]}))
     return rows
 
 
@@ -1171,6 +1241,14 @@ def require_launched(path, launches, names):
     idle = sorted(k for k in names if launches[k] == 0)
     if idle:
         raise AssertionError(f"kernels never launched on {path}: {idle}")
+
+
+def require_none(path, by_shape, names):
+    """Raises if a kernel of ``names`` launched on the path ({kernel: {shape:
+    launches}})."""
+    busy = {k: sum(by_shape[k].values()) for k in names if sum(by_shape[k].values())}
+    if busy:
+        raise AssertionError(f"{path} launched {busy}")
 
 
 def msm_wide(dev):
@@ -1918,6 +1996,13 @@ def check_lane_ops(dev):
             timed("endo", err, lambda: kernels.endo(p, interleave=True),
                   lambda: kernels.endo_plain(p, interleave=True), f"K={k} n={n} interleave",
                   bounds.endo(k * n, True))
+    for n in ENDO_WIDE:  # the interleave of lanes uploaded from the host
+        p = points((n,), n % 7)
+        err = lanes_equal(f"endo n={n} interleave", kernels.endo(p, interleave=True),
+                          kernels.endo_plain(p, interleave=True))
+        timed("endo", err, lambda: kernels.endo(p, interleave=True),
+              lambda: kernels.endo_plain(p, interleave=True), f"K=1 n={n} interleave",
+              bounds.endo(n, True))
     for shape in [(n,) for n in NEG_LANES] + [(16, 16)]:
         p = points(shape, len(shape))
         errs = {name: lanes_equal(f"{name} {shape}", getattr(kernels, name)(p),
@@ -1936,7 +2021,8 @@ def check_lane_ops(dev):
             timed("normalize3", err, lambda: kernels.normalize3(*q),
                   lambda: kernels.normalize3_plain(*q), f"K={K}", bounds.normalize3(K))
     log(f"lane kernels against their plain versions: select_small at B = {SELECT_BATCHES} x L = "
-        f"{SELECT_LANES} word for word; endo interleaved at 8-2,048 lanes and {ENDO_STACKS}, endo "
+        f"{SELECT_LANES} word for word; endo interleaved at 8-2,048 lanes, {ENDO_STACKS} and "
+        f"{ENDO_WIDE} lanes, endo "
         f"and pneg at {NEG_LANES} and (16, 16, 16) after normalization, strict; normalize3 at K = "
         f"{NORMALIZE_K} word for word (edge lanes in every input)")
     return rows
@@ -2314,8 +2400,8 @@ def reduce_lanes_equal(label, tabs, absd, sgn) -> int:
 
 def library_remainder(dev, route: str):
     """Phases 15 (b) and 16 (c), one route of REMAINDER_ROUTES (the kernels;
-    assemble and reduce_lanes; those, endo and pneg, swapped for their
-    plain versions by ``engine_profile.plain_versions``, as
+    assemble and reduce_lanes swapped for their plain versions by
+    ``engine_profile.plain_versions``, as
     ``engine_profile --plain``: the eager select, with the digits'
     widening, in reduce_lanes_plain):
     ``engine_profile.profile_verify`` and then ``profile_prove`` of
@@ -2327,8 +2413,9 @@ def library_remainder(dev, route: str):
     line, with the memory copies by kind (``engine_profile.copies``: ms and
     count).  Fails if a profile misses some of the port's launches
     (``engine_profile.profile_complete``) or if a proof is not golden; on
-    the kernels' route also if the 64bit prove does not launch endo, pneg,
-    assemble, reduce_lanes and horner (its MSMs are all under 128 lanes:
+    the kernels' route also if the 64bit prove does not launch
+    complete_square, assemble, reduce_lanes and horner or launches endo,
+    pneg or padd (its MSMs are all under 128 lanes:
     reduce_lanes selects, horner stores canonical), if the verify's MSM of
     128 lanes does not select in tail_horner, if select_small or normalize3
     launches in a prove or the verify (no MSM launches them), if a prove
@@ -2354,11 +2441,12 @@ def library_remainder(dev, route: str):
             raise AssertionError(f"the profile of the {route} route's {step} misses some of its "
                                  f"launches {p['launched']}")
     if route == "kernels":
-        if not ({"endo", "pneg", *ASSEMBLY_OPS, "horner"} <= set(out["prove"]["launched"])
-                and "tail_horner" in out["verify"]["launched"]):
-            raise AssertionError(f"the 64bit prove and verify did not launch every lane, "
-                                 f"assembly and MSM kernel: {out['prove']['launched']}, "
-                                 f"{out['verify']['launched']}")
+        if not ({"complete_square", *ASSEMBLY_OPS, "horner"} <= set(out["prove"]["launched"])
+                and "tail_horner" in out["verify"]["launched"]
+                and not set(SQUARE_OPS) & set(out["prove"]["launched"])):
+            raise AssertionError(f"the 64bit prove and verify did not launch every square, "
+                                 f"assembly and MSM kernel, or launched {SQUARE_OPS}: "
+                                 f"{out['prove']['launched']}, {out['verify']['launched']}")
         for step, p in out.items():
             if "HtoD (Pinned -> Device)" in p["copies"]:
                 raise AssertionError(f"the {step} made pinned host-to-device copies: "
@@ -2541,9 +2629,11 @@ def main() -> int:
         log(f"launches on the main path: {launches}")
         require_launched("cli test", launches, set(launches) - {
             "select_reduce_fused", "sr_variant", "grid_copy", "chain", "fold_many", "inv",
-            "to_affine", "select_small", "normalize3"})
-        unfused = {k: launches[k] for k in ("select_small", "normalize3")}
-        if any(unfused.values()):  # the MSMs select in their reductions, store canonical
+            "to_affine", "select_small", "normalize3", *SQUARE_OPS})
+        # the MSMs select in their reductions and store canonical; the square
+        # completion makes phi, the negation and both sums in its launch
+        unfused = {k: launches[k] for k in ("select_small", "normalize3", *SQUARE_OPS)}
+        if any(unfused.values()):
             raise AssertionError(f"cli test launched {unfused}")
         require_port_only()
         prove_verify_times(work)
@@ -2552,12 +2642,15 @@ def main() -> int:
         batch, batch_blobs = batch_1024(dev, work)
         prove_batch, batch_items = prove_batch_phase(dev, work)
         require_launched("prove-batch", {k: sum(v.values()) for k, v in prove_batch.items()},
-                         {"padd", "horner", "tail_horner", "table_flat", "fold_many",
+                         {"complete_square", "horner", "tail_horner", "table_flat", "fold_many",
                           *ASSEMBLY_OPS})
+        require_none("prove-batch", prove_batch, SQUARE_OPS)
         require_port_only()
         served = serve_phase(dev, batch_items)
         require_launched("serve", {k: sum(v.values()) for k, v in served.items()},
-                         {"padd", "table_flat", "fold_many", "decompress", *ASSEMBLY_OPS})
+                         {"complete_square", "table_flat", "fold_many", "decompress",
+                          *ASSEMBLY_OPS})
+        require_none("serve", served, SQUARE_OPS)
         require_port_only()
         multiparty = multiparty_phase(
             dev, work, {k for k, n in by_example[MP_EXAMPLE].items() if n})
@@ -2589,9 +2682,10 @@ def main() -> int:
         for k, by_shape in run.items():
             shapes[k].update(by_shape)
     launches = {k: sum(v.values()) for k, v in shapes.items()}
-    # inv and select_small: on no path (select_small's launches, the unfused
-    # route's yardstick, are phase 15's and 16's, made after the counts)
-    require_launched("the main paths", launches, set(launches) - {"inv", "select_small"})
+    # inv, select_small and pneg: on no path (select_small's and pneg's
+    # launches, the unfused routes' yardsticks, are phase 2's, 15's and 16's,
+    # made outside the counted runs)
+    require_launched("the main paths", launches, set(launches) - {"inv", "select_small", "pneg"})
     narrow = [sh for sh in shapes["reduce_lanes"] if not 2 <= parse_shape(sh)["L"] < 128]
     if narrow or launches["select_small"]:  # every MSM selects in its first reduction
         raise AssertionError(f"reduce_lanes outside 2-127 lanes {narrow}, select_small "

@@ -276,6 +276,35 @@ def test_cuda_fold_many_matches_plain_version(B, L):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L", [(1, 16), (2, 16), (16, 16), (16, 128), (20, 16)])
+def test_cuda_complete_square_equals_the_unfused_route(B, L):
+    """g1 +- r g0 of B provers of L lanes in one launch a 16 provers (16 x
+    128: 2,048 lanes, the 8-thread group): word for word the route it
+    replaced, endo, fold_many, padd(g1, rp) and padd(g1, pneg(rp)), and its
+    plain version after normalization; nothing uploaded or synchronized."""
+    dev = _card()
+    g0, g1 = _points(B * L, 75, dev), _points(B * L, 76, dev)
+    digits = _prover_digits(B, 77)
+    kernels.complete_square(g0, g1, digits)  # builds the library
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gx, hy = kernels.complete_square(g0, g1, digits)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    chunks = [min(16, B - p0) for p0 in range(0, B, 16)]
+    assert kernels.shape_counts()["complete_square"] == {
+        f"B={c} L={L} G={kernels.fold_many_group(c * L)}": 1 for c in chunks}
+    assert {k for k, n in kernels.counts().items() if n} == {"complete_square"}
+    rp = kernels.fold_many(g0, kernels.endo(g0), digits)
+    want = kernels.padd(g1, rp), kernels.padd(g1, kernels.pneg(rp))
+    assert all(torch.equal(a, b) for a, b in zip((*gx, *hy), (*want[0], *want[1])))
+    plain = kernels.complete_square_plain(g0, g1, digits)
+    assert _same(gx, plain[0]) and _same(hy, plain[1])
+
+
 def _repeat_scaled(p, n: int, seed: int):
     """n lanes: the lanes of p repeated, each scaled by its own random
     factor (another projective representative of the same point)."""
@@ -688,7 +717,8 @@ def test_cuda_reduce_lanes_matches_plain_version(L, batch):
 @pytest.mark.cuda
 def test_cuda_prove_assembles_and_reduces_through_the_kernels():
     """A 64bit prove on the card: golden bytes; assemble and reduce_lanes
-    launched, and no padd launch outside complete_square's two."""
+    launched; one complete_square launch (its one square completion) and no
+    endo, pneg or padd launch (phi, the negation and both sums are in it)."""
     import hashlib
 
     from bulletproofspp_tpu_torch import engine_profile
@@ -704,7 +734,8 @@ def test_cuda_prove_assembles_and_reduces_through_the_kernels():
         "fe39faef84b016b82b017a4ef07ba3f31c5237b0f79c0653376c86f5dbba8c5d")
     counts = kernels.counts()
     assert counts["assemble"] > 0 and counts["reduce_lanes"] > 0
-    assert counts["padd"] == 2 * counts["pneg"]
+    assert counts["complete_square"] == 1
+    assert counts["endo"] == counts["pneg"] == counts["padd"] == 0
     # the MSMs select in reduce_lanes and store canonical in horner
     assert counts["select_small"] == counts["normalize3"] == 0
     assert kernels.shape_counts()["horner"] and all(

@@ -1,13 +1,15 @@
-"""The batched fold of the lockstep prover on the CPU: ``msm.fold_mul_many``
-and ``msm.complete_square_many`` (the plain versions of the fold_many
-kernel, B provers' lanes end to end) against the JAX package's vmapped
+"""The batched fold of the lockstep prover and the square completion on the
+CPU: ``msm.fold_mul_many``, ``msm.complete_square_many`` and
+``kernels.complete_square`` (the plain versions of the fold_many and
+complete_square kernels, B provers' lanes end to end) against the JAX
+package's ``complete_square_kernel`` after ``curve.endo`` and its vmapped
 kernels (``jax.vmap(fold_mul_kernel)`` and ``jax.vmap(_csq_with_endo)``,
 ``bulletproofspp_tpu/ops/msm.py:297`` and ``:306``) on the same numpy-seeded
 planes and digits, limb for limb after normalization (tolerance 0: they are
 integers); ``kernels.fold_many`` on the two bases' points against the route
 it replaced (``table_flat_plain`` of each basis, then ``fold_plain`` per
-prover) word for word; the wrapper's checks, its launches split by
-FOLD_MAX_PROVERS with the group width by lanes, and its bound."""
+prover) word for word; the wrappers' checks, their launches split by
+FOLD_MAX_PROVERS with the group width by lanes, and their bounds."""
 
 import ctypes
 
@@ -20,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from bulletproofspp_tpu.core import ec  # noqa: E402
 from bulletproofspp_tpu.core.fields import R  # noqa: E402
+from bulletproofspp_tpu.ops import curve as jcurve  # noqa: E402
 from bulletproofspp_tpu.ops import limb as jlimb  # noqa: E402
 from bulletproofspp_tpu.ops import msm as jmsm  # noqa: E402
 from bulletproofspp_tpu_torch import bounds  # noqa: E402
@@ -93,15 +96,95 @@ def test_fold_mul_many_matches_the_vmapped_jax_kernel():
         assert np.array_equal(_canon_port(one), _canon_port(got)[:, :, b * L:(b + 1) * L])
 
 
-def test_complete_square_many_matches_the_vmapped_jax_kernel():
+@pytest.fixture(scope="module")
+def csq_many():
+    """B provers' g0, g1 and digits, and the vmapped ``_csq_with_endo``'s
+    normalized (gx, hy) on them (one compile for the tests below)."""
     rng = np.random.default_rng(91)
     g0, g1, d = _lanes(rng), _lanes(rng), _digits(rng, split=True)
-    gx, hy = msm.complete_square_many(_stacked_port(g0), _stacked_port(g1), d)
     want = jmsm._csq_many_compiled(*(jnp.asarray(g0[:, c]) for c in range(3)),
                                    *(jnp.asarray(g1[:, c]) for c in range(3)),
                                    *(jnp.asarray(d[:, q]) for q in range(4)))
-    assert np.array_equal(_canon_port(gx), _canon_jax(want[:3]))
-    assert np.array_equal(_canon_port(hy), _canon_jax(want[3:]))
+    return _stacked_port(g0), _stacked_port(g1), d, (_canon_jax(want[:3]), _canon_jax(want[3:]))
+
+
+def test_complete_square_many_matches_the_vmapped_jax_kernel(csq_many):
+    g0, g1, d, (want_gx, want_hy) = csq_many
+    gx, hy = msm.complete_square_many(g0, g1, d)
+    assert np.array_equal(_canon_port(gx), want_gx)
+    assert np.array_equal(_canon_port(hy), want_hy)
+
+
+def test_complete_square_wrapper_matches_the_vmapped_jax_kernel(csq_many):
+    """``kernels.complete_square`` on the CPU (its plain version: endo, the
+    batched fold, pneg and two additions) at B = 3 provers of 16 lanes,
+    exact after normalization; no launch is counted."""
+    g0, g1, d, (want_gx, want_hy) = csq_many
+    kernels.reset_counts()
+    gx, hy = kernels.complete_square(g0, g1, d)
+    assert not any(kernels.counts().values())
+    assert np.array_equal(_canon_port(gx), want_gx)
+    assert np.array_equal(_canon_port(hy), want_hy)
+    rp = kernels.fold_many_plain(g0, kernels.endo_plain(g0), d)
+    want = (kernels.padd_plain(g1, rp), kernels.padd_plain(g1, kernels.pneg_plain(rp)))
+    assert all(torch.equal(a, b) for a, b in zip((*gx, *hy), (*want[0], *want[1])))
+
+
+def test_complete_square_wrapper_at_one_prover_matches_the_jax_kernel_after_endo():
+    """B = 1, L = 16, an identity lane in g0 and in g1: the JAX package's
+    ``complete_square_kernel`` after ``curve.endo`` (the single prover's
+    route, ``ops/engine.py:425-426``), exact after normalization."""
+    rng = np.random.default_rng(96)
+    g0, g1, d = _lanes(rng, 1), _lanes(rng, 1), _digits(rng, split=True, count=1)
+    ident = _planes([None])[..., 0]
+    g0[0, :, :, 3], g1[0, :, :, 5] = ident, ident
+    gx, hy = kernels.complete_square(_stacked_port(g0), _stacked_port(g1), d)
+    j0 = tuple(jnp.asarray(g0[0, c]) for c in range(3))
+    want = jmsm._csq_compiled(*j0, *jcurve.endo(j0), *(jnp.asarray(g1[0, c]) for c in range(3)),
+                              *(jnp.asarray(d[0, q]) for q in range(4)))
+    assert np.array_equal(_canon_port(gx), _canon_jax(tuple(c[None] for c in want[:3])))
+    assert np.array_equal(_canon_port(hy), _canon_jax(tuple(c[None] for c in want[3:])))
+
+
+def test_complete_square_wrapper_checks_its_arguments(monkeypatch):
+    """Digits of (B, 4, ROWS) whose B divides the lanes, in range (on the
+    CPU too); on a CUDA tensor (stubbed) g0 and g1 of one (16, B L) shape;
+    20 provers take two launches of 16 and 4 over the same planes, each
+    with its provers' digits by value and fold_many's group width."""
+    rng = np.random.default_rng(97)
+    g0, g1 = _stacked_port(_lanes(rng)), _stacked_port(_lanes(rng))
+    d = _digits(rng)
+    with pytest.raises(ValueError, match="complete_square: digits must be"):
+        kernels.complete_square(g0, g1, d[0])
+    with pytest.raises(ValueError, match="complete_square: digits must be"):
+        kernels.complete_square(g0, g1, np.concatenate([d, d[:2]]))
+    bad = d.copy()
+    bad[1, 3, 7] = 2
+    with pytest.raises(ValueError, match="fold digits"):
+        kernels.complete_square(g0, g1, bad)
+    seen = []
+
+    def launch(name, shape, dev, *args):
+        packed = ctypes.string_at(args[6], kernels.FOLD_MAX_PROVERS * 132)
+        seen.append((name, shape, args[-5:], packed))
+
+    monkeypatch.setattr(kernels, "_launch", launch)
+    monkeypatch.setattr(kernels, "_check", lambda *planes: torch.device("cuda", 0))
+    monkeypatch.setattr(kernels, "_empty", lambda shape, like: tuple(
+        torch.zeros(shape, dtype=torch.int64, device="meta") for _ in range(3)))
+    n = 20 * L
+    meta = [torch.zeros((16, n), dtype=torch.int64, device="meta") for _ in range(3)]
+    with pytest.raises(ValueError, match="complete_square takes its points"):
+        kernels.complete_square(meta, [t[:, :-16] for t in meta], np.stack([d[0]] * 20))
+    many = np.stack([d[b % B] for b in range(20)])
+    gx, hy = kernels.complete_square(meta, meta, many)
+    g16, g4 = kernels.fold_many_group(16 * L), kernels.fold_many_group(4 * L)
+    assert [(s[0], s[1], s[2]) for s in seen] == [
+        ("complete_square", f"B=16 L={L} G={g16}", (n, L, 0, 16, g16)),
+        ("complete_square", f"B=4 L={L} G={g4}", (n, L, 16 * L, 4, g4))]
+    assert seen[0][3] == b"".join(kernels.fold_digits(x) for x in many[:16])
+    assert seen[1][3] == b"".join(kernels.fold_digits(x) for x in many[16:]) + bytes(12 * 132)
+    assert len(gx) == len(hy) == 3 and gx[0] is not hy[0]
 
 
 def test_fold_many_wrapper_on_cpu_takes_the_plain_version_and_checks_digits():
@@ -182,6 +265,23 @@ def test_fold_many_bound_is_the_sum_of_the_provers_folds():
 def test_fold_many_chain_counts_the_tables_by_group(group, chain):
     """At 16 and 32 threads a lane the two tables are built at once."""
     assert bounds.fold_many_chain(33, group) == chain
+
+
+def test_complete_square_bound_adds_phi_and_the_two_additions_to_fold_many():
+    """fold_many's multiplies plus, a lane, phi's product, the negation and
+    the two additions; g0 and g1 in, g1 + r g0 and g1 - r g0 out."""
+    rng = np.random.default_rng(98)
+    d = _digits(rng, split=True)
+    ops, nbytes = bounds.complete_square(B * L, d)
+    lane = bounds.FE_MUL + bounds.FE_SUB + 2 * bounds.PT_ADD
+    assert ops == bounds.fold_many(B * L, d)[0] + B * L * lane
+    assert nbytes == B * L * 4 * bounds.PT_BYTES
+
+
+@pytest.mark.parametrize("group,chain", [(8, (14 + 198 + 2, 429)), (16, (7 + 198 + 1, 413))])
+def test_complete_square_chain_adds_phi_and_the_additions_by_group(group, chain):
+    """At 16 threads a lane the two additions run at once, one a half."""
+    assert bounds.complete_square_chain(33, group) == chain
 
 
 def _edge_digits(rng, count):

@@ -196,8 +196,9 @@ def test_select_plain_equals_the_jax_tables_indexed_by_digit(jax_tables, batch, 
 
 
 def test_lanes_source_holds_beta():
-    """lanes.cu's beta words are core.ec.BETA."""
-    with open(os.path.join(kernels.CSRC, "lanes.cu")) as f:
+    """The beta words of lanes.cu's endo and assemble (and kernels.cu's
+    complete_square), csrc/curve.cuh: fe_beta, are core.ec.BETA."""
+    with open(os.path.join(kernels.CSRC, "curve.cuh")) as f:
         text = f.read()
     body = re.search(r"Fe fe_beta\(\) \{\s*const u32 w\[8\] = \{([^}]*)\}", text).group(1)
     words = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
@@ -267,17 +268,18 @@ class _Guard:
 def test_prove_and_verify_on_the_cpu_reach_the_four_wrappers(monkeypatch):
     """A 64bit prove and verify on TorchEngine("cpu") through counting stubs
     on kernels.select_small, endo, pneg and normalize3, and on the wrappers
-    that took over the select and the normalization: assemble (msm_many's
-    [P, phi(P)] interleave), reduce_lanes (the select under 128 lanes),
-    reduce_block and tail_horner (their first level selects from 128 to
-    1,023 lanes) and horner (its canonical stores).  endo and pneg are
-    reached (no call site runs the plain limb functions directly); no MSM
+    that took over their work: complete_square (phi and the negation of the
+    square completion), assemble (msm_many's [P, phi(P)] interleave),
+    reduce_lanes (the select under 128 lanes), reduce_block and tail_horner
+    (their first level selects from 128 to 1,023 lanes) and horner (its
+    canonical stores).  The prove reaches complete_square and neither endo
+    nor pneg (no call site runs the plain limb functions directly); no MSM
     reaches select_small or normalize3; the bytes stay golden and the proof
     verifies.  The prove's MSMs are all under 128 lanes (reduce_lanes, then
     horner canonical); the verify's one MSM of 128 lanes selects in
     tail_horner, which stores it canonical."""
-    names = ("select_small", "endo", "pneg", "normalize3", "assemble", "reduce_lanes",
-             "reduce_block", "tail_horner", "horner")
+    names = ("select_small", "endo", "pneg", "normalize3", "complete_square", "assemble",
+             "reduce_lanes", "reduce_block", "tail_horner", "horner")
     reached = {name: 0 for name in names}
     forms = collections.Counter()
     for name in reached:
@@ -299,10 +301,10 @@ def test_prove_and_verify_on_the_cpu_reach_the_four_wrappers(monkeypatch):
     assert rpm.verify(setup, rpm.decode_proof(setup, coms_b, proof_b, engine=eng), eng)
     assert reached["select_small"] == reached["normalize3"] == 0, reached
     assert proved["tail_horner"] == proved["reduce_block"] == 0, proved
-    assert all(proved[k] for k in ("endo", "pneg", "assemble", "reduce_lanes", "horner")), proved
-    assert set(proved_forms) == {(k, False, False) for k in ("endo", "pneg", "assemble",
-                                                           "reduce_lanes")} | {("horner", True,
-                                                                                False)}
+    assert proved["endo"] == proved["pneg"] == 0, proved
+    assert all(proved[k] for k in ("complete_square", "assemble", "reduce_lanes", "horner")), proved
+    assert set(proved_forms) == {(k, False, False) for k in (
+        "complete_square", "assemble", "reduce_lanes")} | {("horner", True, False)}
     assert forms["tail_horner", True, True] > 0 and reached["assemble"] > proved["assemble"], forms
 
 

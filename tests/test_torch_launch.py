@@ -101,6 +101,8 @@ CALLS = {
                                                    _digits(1, 3, 1024)),
     "fold": lambda: kernels.fold(_tables(16), _tables(16), _DIGITS),
     "fold_many": lambda: kernels.fold_many(_pt(32), _pt(32), np.stack([_DIGITS] * 2)),
+    "complete_square": lambda: kernels.complete_square(_pt(32), _pt(32),
+                                                       np.stack([_DIGITS] * 2)),
     "select_reduce_fused": lambda: kernels.select_reduce_fused(_pt(1024), _digits(1, 3, 1024),
                                                                _digits(1, 3, 1024)),
     "decompress": lambda: kernels.decompress(_meta(16, 64), _meta(64)),
@@ -161,10 +163,11 @@ def test_every_form_launches_under_its_tensors_device(launches, monkeypatch, for
 
 @pytest.mark.parametrize("provers", [2, 20])
 def test_batched_folds_launch_no_table_flat(launches, monkeypatch, provers):
-    """``msm.fold_mul_many`` and ``msm.complete_square_many`` hand the bases'
-    points to fold_many, which builds the tables in its own launch: the
-    counts show fold_many (one launch per 16 provers) and, for the square
-    completion, endo, pneg and two padd, and no table_flat."""
+    """``msm.fold_mul_many`` hands the bases' points to fold_many, which
+    builds the tables in its own launch, and ``msm.complete_square_many``
+    its points to complete_square, which also makes phi and both sums: the
+    counts show one launch per 16 provers of fold_many, then of
+    complete_square alone (no table_flat, endo, pneg or padd)."""
     from bulletproofspp_tpu_torch.ops import msm
 
     monkeypatch.setattr(kernels, "_check", lambda *planes, contiguous=True: DEV1)
@@ -174,5 +177,4 @@ def test_batched_folds_launch_no_table_flat(launches, monkeypatch, provers):
     assert {k: n for k, n in kernels.counts().items() if n} == {"fold_many": per}
     kernels.reset_counts()
     msm.complete_square_many(_pt(provers * 16), _pt(provers * 16), digits)
-    assert {k: n for k, n in kernels.counts().items() if n} == {
-        "fold_many": per, "endo": 1, "pneg": 1, "padd": 2}
+    assert {k: n for k, n in kernels.counts().items() if n} == {"complete_square": per}
