@@ -19,9 +19,9 @@
 //    squarings and 13 multiplications, where square-and-multiply over its
 //    bits took 253 and 246.  The steps are bounds.py: SQRT_CHAIN, which a
 //    test evaluates on integers;
-//  * each squaring through field.cuh: fe_sqr, 36 word products summed by
-//    columns, so that they issue together, where fe_mul forms 64 with one
-//    carry through each row.
+//  * each squaring through field.cuh: fe_sqr, 36 word products (the cross
+//    products once, doubled) where fe_mul forms 64, on the same aligned
+//    word pairs and carry chains.
 // The exponent's steps are the same for every lane: no divergence.
 // decompress emits only the canonical y and ok (fe_eq canonicalises), so
 // fe_sqr's representatives, not fe_mul's, give the same bytes.

@@ -2,9 +2,13 @@
 //
 // Inside a kernel an element is 8 little-endian 32-bit words; every function
 // returns a value < 2^256 (not necessarily < p), which is the "strict" form
-// of the port's limb planes; fe_canon gives the value < p.  Products use 32x32->64 multiplies with 64-bit
-// carry chains, and the reduction folds the high half through
-// 2^256 = 2^32 + 977 (mod p).  Integers only.
+// of the port's limb planes; fe_canon gives the value < p.  Products,
+// additions, subtractions and the reduction run as Hopper's 32-bit carry
+// chains (PTX mad.lo.cc / madc.hi.cc, add.cc / addc, sub.cc / subc), and the
+// reduction folds the high half through 2^256 = 2^32 + 977 (mod p).  Each
+// function's words are a fixed integer function of its inputs (its
+// representative), which ops/kernels.py: field_words models and the tests
+// and chip_smoke.py hold the kernels to.  Integers only.
 //
 // At the kernel boundary the layout is fixed: (16, N) int64 planes of
 // 16-bit limbs (limb i of lane j at i * stride + j), strict in and out.
@@ -56,122 +60,189 @@ __device__ __forceinline__ void fe_store(int64_t* p, int64_t stride, int64_t j, 
   }
 }
 
-// r + c * (2^32 + 977), c < 2^35, wrapped below 2^256.  If the first
-// addition carries out of 2^256, the remainder is < c * C < 2^68, so adding
-// C once more cannot carry again.
-__device__ __forceinline__ void fe_fold(Fe& r, u64 c) {
-  u64 m = c * 977u;  // < 2^45
-  u64 acc = (u64)r.w[0] + (m & 0xffffffffu);
-  r.w[0] = (u32)acc;
-  acc >>= 32;
-  acc += (u64)r.w[1] + (m >> 32) + (c & 0xffffffffu);
-  r.w[1] = (u32)acc;
-  acc >>= 32;
-  acc += (u64)r.w[2] + (c >> 32);
-  r.w[2] = (u32)acc;
-  acc >>= 32;
-#pragma unroll
-  for (int k = 3; k < 8; k++) {
-    acc += r.w[k];
-    r.w[k] = (u32)acc;
-    acc >>= 32;
+// --- 32-bit carry chains.  Each helper is one PTX instruction in an asm
+// volatile statement of its own (CGBN's and sppark's idiom): the carry flag
+// passes from one to the next in program order, and nothing the compiler
+// emits between them touches it.  A chain opens with a .cc instruction that
+// takes no carry (add.cc, sub.cc, mad.lo.cc, mad.hi.cc) and closes with one
+// that takes the carry without setting it (addc, subc, madc.hi);
+// addc(0, 0) captures the carry out, subc(0, 0) the borrow as 0 or ~0.
+#define BPPP_CC2(name, op)                                      \
+  __device__ __forceinline__ u32 name(u32 a, u32 b) {           \
+    u32 r;                                                      \
+    asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b)); \
+    return r;                                                   \
   }
-  u32 o = (u32)acc;  // 0 or 1
-  acc = (u64)r.w[0] + (u64)o * 977u;
-  r.w[0] = (u32)acc;
-  acc >>= 32;
-  acc += (u64)r.w[1] + o;
-  r.w[1] = (u32)acc;
-  acc >>= 32;
-#pragma unroll
-  for (int k = 2; k < 8; k++) {
-    acc += r.w[k];
-    r.w[k] = (u32)acc;
-    acc >>= 32;
+#define BPPP_CC3(name, op)                                                      \
+  __device__ __forceinline__ u32 name(u32 a, u32 b, u32 c) {                    \
+    u32 r;                                                                      \
+    asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));     \
+    return r;                                                                   \
   }
+BPPP_CC2(add_cc, "add.cc.u32")
+BPPP_CC2(addc_cc, "addc.cc.u32")
+BPPP_CC2(addc, "addc.u32")
+BPPP_CC2(sub_cc, "sub.cc.u32")
+BPPP_CC2(subc_cc, "subc.cc.u32")
+BPPP_CC2(subc, "subc.u32")
+BPPP_CC3(mad_lo_cc, "mad.lo.cc.u32")    // lo(a b) + c
+BPPP_CC3(madc_lo_cc, "madc.lo.cc.u32")
+BPPP_CC3(mad_hi_cc, "mad.hi.cc.u32")    // hi(a b) + c
+BPPP_CC3(madc_hi_cc, "madc.hi.cc.u32")
+BPPP_CC3(madc_hi, "madc.hi.u32")
+#undef BPPP_CC2
+#undef BPPP_CC3
+
+// r + W, W = w0 + w1 2^32 + w2 2^64 < 2^68, wrapped below 2^256: where the
+// sum carries out of 2^256, C = 2^32 + 977 is added to its low 256 bits.
+// The wrapped sum is then < W < 2^68, so adding C reaches no word past the
+// third and cannot carry again: that second chain is three words long.
+__device__ __forceinline__ void fe_fold_words(Fe& r, u32 w0, u32 w1, u32 w2) {
+  r.w[0] = add_cc(r.w[0], w0);
+  r.w[1] = addc_cc(r.w[1], w1);
+  r.w[2] = addc_cc(r.w[2], w2);
+#pragma unroll
+  for (int k = 3; k < 8; k++) r.w[k] = addc_cc(r.w[k], 0);
+  const u32 o = addc(0, 0);  // 0 or 1
+  r.w[0] = add_cc(r.w[0], o * 977u);
+  r.w[1] = addc_cc(r.w[1], o);
+  r.w[2] = addc(r.w[2], 0);
+}
+
+// r + c * (2^32 + 977), c = clo + chi 2^32 < 2^35, wrapped below 2^256 as
+// fe_fold_words does.  c C (< 2^68) is formed first, apart from r.
+__device__ __forceinline__ void fe_fold(Fe& r, u32 clo, u32 chi) {
+  const u32 w1 = add_cc(__umulhi(clo, 977u) + chi * 977u, clo);  // < 2^14 + clo
+  const u32 w2 = addc(chi, 0);
+  fe_fold_words(r, clo * 977u, w1, w2);
 }
 
 __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
   Fe r;
-  u64 acc = 0;
+  r.w[0] = add_cc(a.w[0], b.w[0]);
 #pragma unroll
-  for (int k = 0; k < 8; k++) {
-    acc += (u64)a.w[k] + b.w[k];
-    r.w[k] = (u32)acc;
-    acc >>= 32;
-  }
-  fe_fold(r, acc);
+  for (int k = 1; k < 8; k++) r.w[k] = addc_cc(a.w[k], b.w[k]);
+  const u32 c = addc(0, 0);  // 0 or 1
+  fe_fold_words(r, c * 977u, c, 0);
   return r;
 }
 
 // r - o * (2^32 + 977) with o in {0, 1}; returns the borrow out of 2^256.
 __device__ __forceinline__ u32 fe_sub_c(Fe& r, u32 o) {
-  int64_t t = (int64_t)r.w[0] - (int64_t)o * 977;
-  r.w[0] = (u32)t;
-  t >>= 32;  // arithmetic: 0 or -1
-  t += (int64_t)r.w[1] - (int64_t)o;
-  r.w[1] = (u32)t;
-  t >>= 32;
+  r.w[0] = sub_cc(r.w[0], o * 977u);
+  r.w[1] = subc_cc(r.w[1], o);
 #pragma unroll
-  for (int k = 2; k < 8; k++) {
-    t += (int64_t)r.w[k];
-    r.w[k] = (u32)t;
-    t >>= 32;
-  }
-  return (u32)(-t);
+  for (int k = 2; k < 8; k++) r.w[k] = subc_cc(r.w[k], 0);
+  return subc(0, 0) & 1u;
 }
 
 // a - b: on a borrow the wrapped result r = a - b + 2^256 is corrected by
 // subtracting C (a - b + p = r - C); if that borrows again, r < C and the
-// new wrapped value is >= 2^256 - C > C, so a second C never borrows.
+// new wrapped value is >= 2^256 - C > C, so a second C never borrows.  That
+// value's words past the second are all ones and its low 64 bits are >=
+// 2^64 - C > C, so the second C is subtracted from two words.
 __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
   Fe r;
-  int64_t t = 0;
+  r.w[0] = sub_cc(a.w[0], b.w[0]);
 #pragma unroll
-  for (int k = 0; k < 8; k++) {
-    t += (int64_t)a.w[k] - (int64_t)b.w[k];
-    r.w[k] = (u32)t;
-    t >>= 32;
-  }
-  u32 borrow = fe_sub_c(r, (u32)(-t));
-  fe_sub_c(r, borrow);
+  for (int k = 1; k < 8; k++) r.w[k] = subc_cc(a.w[k], b.w[k]);
+  const u32 first = subc(0, 0) & 1u;
+  const u32 borrow = fe_sub_c(r, first);
+  r.w[0] = sub_cc(r.w[0], borrow * 977u);
+  r.w[1] = subc(r.w[1], borrow);
   return r;
 }
 
 __device__ __forceinline__ Fe fe_neg(const Fe& a) { return fe_sub(fe_zero(), a); }
 
+// One reduction pass over a 512-bit product t[0..15] (words), T = L + H
+// 2^256: S = L + 977 H + 2^32 H (= T mod p).  Returns S mod 2^256 in r and S
+// >> 256 (< 2^33) as (the return value, chi).  Two chains that do not wait
+// on each other, each of four 32 x 32 -> 64-bit multiply-adds on word pairs:
+// L + 977 h_k 2^(32 k) for k even (pairs (k, k + 1) of L), and (977 h_k +
+// h_(k-1) + 2^32 h_k) 2^(32 k) for k odd (pairs (h_(k-1), h_k) of H), which
+// together hold 977 H + 2^32 H; then one chain that adds them.
+__device__ __forceinline__ u32 fe_reduce_pass(const u32* t, Fe& r, u32& chi) {
+  const u32* h = t + 8;
+  u32 q[9];
+#pragma unroll
+  for (int k = 0; k < 8; k += 2) {
+    r.w[k] = k ? madc_lo_cc(h[k], 977u, t[k]) : mad_lo_cc(h[k], 977u, t[k]);
+    r.w[k + 1] = madc_hi_cc(h[k], 977u, t[k + 1]);
+  }
+  const u32 r8 = addc(0, 0);
+#pragma unroll
+  for (int k = 1; k < 8; k += 2) {
+    q[k] = k > 1 ? madc_lo_cc(h[k], 977u, h[k - 1]) : mad_lo_cc(h[k], 977u, h[k - 1]);
+    q[k + 1] = madc_hi_cc(h[k], 977u, h[k]);
+  }
+  const u32 q9 = addc(0, 0);
+  r.w[1] = add_cc(r.w[1], q[1]);
+#pragma unroll
+  for (int k = 2; k < 8; k++) r.w[k] = addc_cc(r.w[k], q[k]);
+  const u32 clo = addc_cc(r8, q[8]);
+  chi = addc(q9, 0);
+  return clo;
+}
+
 // Reduce a 512-bit product t[0..15] (words) mod p to < 2^256:
-// T = L + H * 2^256 = L + H * 977 + H * 2^32 (mod p).
+// T = L + H * 2^256 = L + H * 977 + H * 2^32 (mod p), then fe_fold.
 __device__ __forceinline__ Fe fe_reduce512(const u32* t) {
   Fe r;
-  u64 acc = 0;
-#pragma unroll
-  for (int k = 0; k < 8; k++) {
-    acc += (u64)t[k] + (u64)t[8 + k] * 977u;  // < 2^43 with the carry
-    if (k > 0) acc += t[7 + k];
-    r.w[k] = (u32)acc;
-    acc >>= 32;
-  }
-  fe_fold(r, acc + t[15]);  // < 2^11 + 2^32
+  u32 chi;
+  const u32 clo = fe_reduce_pass(t, r, chi);
+  fe_fold(r, clo, chi);
   return r;
 }
 
-// The 512-bit product a * b into t[0..15] (words), schoolbook.
-__device__ __forceinline__ void fe_mul_wide(const Fe& a, const Fe& b, u32* t) {
+// acc[i + j] += lo(a_j b) and acc[i + j + 1] += hi(a_j b) for j = j0, j0 +
+// 2, ... < 8, as one carry chain of 32 x 32 -> 64-bit multiply-adds on the
+// word pairs (i + j, i + j + 1), its carry into the word after the last
+// pair (which no earlier row's pairs reach, so it holds at most earlier
+// rows' carries and no carry goes past it); words from W on are left out
+// (their carries are dropped).
+template <int W>
+__device__ __forceinline__ void fe_mul_row(const Fe& a, u32 b, int i, int j0, u32* acc) {
+  if (j0 >= 8) return;
 #pragma unroll
-  for (int k = 0; k < 16; k++) t[k] = 0;
+  for (int j = j0; j < 8; j += 2) {
+    const int k = i + j;
+    if (k < W) acc[k] = j > j0 ? madc_lo_cc(a.w[j], b, acc[k]) : mad_lo_cc(a.w[j], b, acc[k]);
+    if (k + 1 < W) acc[k + 1] = madc_hi_cc(a.w[j], b, acc[k + 1]);
+  }
+  const int top = i + j0 + (7 - j0) / 2 * 2 + 2;
+  if (top < W) acc[top] = addc(acc[top], 0);
+}
+
+// The low W words (W <= 16) of the product a * b into t[0..W-1].  Each word
+// product a_j b_i is one 32 x 32 -> 64-bit multiply-add into the word pair
+// (i + j, i + j + 1), and the products of one row i whose pairs start at an
+// even word do not overlap, nor do those that start at an odd word: each
+// row adds the first into one accumulator, whose pairs are always (2m, 2m
+// + 1), and the second into another, whose pairs are (2m + 1, 2m + 2): two
+// carry chains of four multiply-adds that do not wait on each other, on
+// pairs that stay in place from row to row.  The two accumulators are
+// added at the end; neither reaches 2^512 (each is part of the product).
+// Chains are cut at word W: the low words are exact mod 2^(32 W).
+template <int W>
+__device__ __forceinline__ void fe_mul_words(const Fe& a, const Fe& b, u32* t) {
+  u32 e[17], o[17];  // pairs from even words, pairs from odd words
+#pragma unroll
+  for (int k = 0; k < 17; k++) e[k] = o[k] = 0;
 #pragma unroll
   for (int i = 0; i < 8; i++) {
-    u64 c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      // (2^32-1)^2 + 2 (2^32-1) = 2^64 - 1: never overflows
-      c += (u64)a.w[i] * b.w[j] + t[i + j];
-      t[i + j] = (u32)c;
-      c >>= 32;
-    }
-    t[i + 8] = (u32)c;
+    fe_mul_row<W>(a, b.w[i], i, i & 1, e);
+    fe_mul_row<W>(a, b.w[i], i, 1 - (i & 1), o);
   }
+  t[0] = e[0];
+  if (W > 1) t[1] = add_cc(e[1], o[1]);
+#pragma unroll
+  for (int k = 2; k < W; k++) t[k] = k + 1 < W ? addc_cc(e[k], o[k]) : addc(e[k], o[k]);
+}
+
+// The 512-bit product a * b into t[0..15] (words).
+__device__ __forceinline__ void fe_mul_wide(const Fe& a, const Fe& b, u32* t) {
+  fe_mul_words<16>(a, b, t);
 }
 
 __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
@@ -180,59 +251,62 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
   return fe_reduce512(t);
 }
 
-// a^2 mod p, strict, for decompress's square-root chain.  36 word products
-// (each cross product a_i a_j, i < j, once, then doubled, and the 8 squares)
-// against fe_mul's 64, summed by columns: column k holds the low words of
-// the products of weight k and the high words of those of weight k - 1, as
-// a 64-bit sum of 32-bit halves.  No product waits on another, and a
-// column's sum waits only on its own (at most 8 halves), where fe_mul's
-// schoolbook runs one carry through every product of a row.  Each column
-// is < 2^37 (at most 8 halves, doubled, plus a square's half), so the
-// columns go into the reduction without a carry pass of their own:
-// T = L + 977 H + 2^32 H (mod p), as in fe_reduce512.  Equal to fe_mul(a,
-// a) mod p (not necessarily the same representative).
+// a^2 mod p, strict, for decompress's square-root chain: 36 word products
+// against fe_mul's 64.  The 28 cross products a_i a_j (i < j) go into two
+// accumulators by the parity of their word i + j, as fe_mul_words does
+// (rows of at most four multiply-adds on aligned pairs); their sum is
+// doubled by a one-bit funnel shift, and the 8 squares a_i^2, on the pairs
+// (2i, 2i + 1), are added in one chain; then fe_reduce512.  Equal to
+// fe_mul(a, a) mod p (not necessarily the same representative).
 __device__ __forceinline__ Fe fe_sqr(const Fe& a) {
-  u64 col[16];
+  u32 e[17], o[17], t[16];
 #pragma unroll
-  for (int k = 0; k < 16; k++) col[k] = 0;
+  for (int k = 0; k < 17; k++) e[k] = o[k] = 0;
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
-#pragma unroll
-    for (int j = i + 1; j < 8; j++) {
-      const u64 p = (u64)a.w[i] * a.w[j];
-      col[i + j] += (u32)p;
-      col[i + j + 1] += p >> 32;
-    }
+  for (int i = 0; i < 7; i++) {
+    fe_mul_row<16>(a, a.w[i], i, i + 2, e);
+    fe_mul_row<16>(a, a.w[i], i, i + 1, o);
   }
+  u32 c = add_cc(e[1], o[1]);  // the cross products' sum: word 0 is 0
+  t[0] = 0;
+  t[1] = c << 1;
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
-    const u64 s = (u64)a.w[i] * a.w[i];
-    col[2 * i] = 2 * col[2 * i] + (u32)s;
-    col[2 * i + 1] = 2 * col[2 * i + 1] + (s >> 32);
+  for (int k = 2; k < 16; k++) {
+    const u32 next = k < 15 ? addc_cc(e[k], o[k]) : addc(e[k], o[k]);
+    t[k] = __funnelshift_l(c, next, 1);  // twice the sum, word k
+    c = next;
   }
-  Fe r;
-  u64 acc = 0;
+  t[0] = mad_lo_cc(a.w[0], a.w[0], t[0]);
+  t[1] = madc_hi_cc(a.w[0], a.w[0], t[1]);
 #pragma unroll
-  for (int k = 0; k < 8; k++) {
-    // one addition waits on the carry; the column sum beside it does not
-    acc += col[k] + col[8 + k] * 977u + (k > 0 ? col[7 + k] : 0);  // < 2^47
-    r.w[k] = (u32)acc;
-    acc >>= 32;
+  for (int i = 1; i < 8; i++) {
+    t[2 * i] = madc_lo_cc(a.w[i], a.w[i], t[2 * i]);
+    t[2 * i + 1] = i < 7 ? madc_hi_cc(a.w[i], a.w[i], t[2 * i + 1]) : madc_hi(a.w[i], a.w[i], t[15]);
   }
-  fe_fold(r, acc + col[15]);  // col[15] is the high word of a_7^2: < 2^15 + 2^32
-  return r;
+  return fe_reduce512(t);
 }
 
+// a * k mod p, strict (k < 2^32 - 1; the curve's 3, 8 and 21).  The word
+// products a_i k of even i fill the word pairs (i, i + 1) without
+// overlapping, and so do those of odd i; the two sums are added in one
+// carry chain, and its carry out of 2^256 (< k) is folded.
 __device__ __forceinline__ Fe fe_mul_small(const Fe& a, u32 k) {
-  Fe r;
-  u64 acc = 0;
+  u32 e[8], o[9];
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
-    acc += (u64)a.w[i] * k;
-    r.w[i] = (u32)acc;
-    acc >>= 32;
+  for (int i = 0; i < 8; i += 2) {
+    const u64 pe = (u64)a.w[i] * k, po = (u64)a.w[i + 1] * k;
+    e[i] = (u32)pe;
+    e[i + 1] = (u32)(pe >> 32);
+    o[i + 1] = (u32)po;
+    o[i + 2] = (u32)(po >> 32);
   }
-  fe_fold(r, acc);
+  Fe r;
+  r.w[0] = e[0];
+  r.w[1] = add_cc(e[1], o[1]);
+#pragma unroll
+  for (int i = 2; i < 8; i++) r.w[i] = addc_cc(e[i], o[i]);
+  const u32 c = addc(o[8], 0);
+  fe_fold(r, c, 0);
   return r;
 }
 
@@ -272,19 +346,11 @@ __device__ __forceinline__ FeLadder fe_ladder(const Fe& a) {
 // the low 256 bits of a + C are a - p (a < 2^256 < 2p, so once is enough).
 __device__ __forceinline__ Fe fe_canon(const Fe& a) {
   Fe r;
-  u64 acc = (u64)a.w[0] + 977u;
-  r.w[0] = (u32)acc;
-  acc >>= 32;
-  acc += (u64)a.w[1] + 1u;
-  r.w[1] = (u32)acc;
-  acc >>= 32;
+  r.w[0] = add_cc(a.w[0], 977u);
+  r.w[1] = addc_cc(a.w[1], 1u);
 #pragma unroll
-  for (int k = 2; k < 8; k++) {
-    acc += a.w[k];
-    r.w[k] = (u32)acc;
-    acc >>= 32;
-  }
-  return acc ? r : a;
+  for (int k = 2; k < 8; k++) r.w[k] = addc_cc(a.w[k], 0);
+  return addc(0, 0) ? r : a;
 }
 
 // a > b as 256-bit integers (the highest differing word decides).

@@ -29,8 +29,9 @@
 // rate and the register footprint (a point is 24 words), not memory.  The
 // design is the simple one: one thread per independent lane, coalesced
 // limb-plane loads (neighbouring threads read neighbouring lanes), 8 x 32-bit
-// words in registers with 64-bit carry chains.  Making them fast (fewer
-// carries, madc chains, more lanes per SM) is later work.  Ten are
+// words in registers, the field arithmetic as Hopper's 32-bit carry chains
+// (field.cuh: a product is 64 32 x 32 -> 64-bit multiply-adds on word pairs
+// in two chains that do not wait on each other).  Ten are
 // designed for this card instead: horner, tail_horner and fold, whose work
 // is one chain of dependent point operations per MSM or lane, bound by its
 // latency (they run it on a warp: curve_warp.cuh); fold_many, the same
@@ -453,52 +454,33 @@ __global__ void __launch_bounds__(kThreads)
 //
 // What bounds it: its adds (7 a partial, 1.9 M at 65,536 lanes and 33 rows),
 // once the selection is cheap.  A gather with one thread per output and the
-// rows outermost in the grid (sr_variant's body, tools.cu) takes more time
-// for the selection than for the adds: a sector of a digit-chosen plane
+// rows outermost in the grid takes more time for the selection than for
+// the adds: a sector of a digit-chosen plane
 // serves about one thread, and each row streams the whole table (4,608 B a
 // lane, 302 MB at 65,536 lanes: six times L2) through L2 again.  Two
 // designs; the wrapper (ops/kernels.py: select_reduce) takes the staged one
 // from STAGE_MIN_LANES = 65,536 lanes a call, where it was 2-12% the faster
 // on the H100 (tools/r5_experiments.py H5, up to prove's 130 MSMs of 4,096
 // lanes), and the gather below:
-//  * select_reduce_kernel, staged: each block first stages its 128 lanes'
-//    entries 1..8 (select_reduce.cuh: sr_rows) into shared memory in coalesced
-//    16-byte reads, then runs sr_rows over all rows.  Each lane's table
-//    leaves device memory once for all rows.
+//  * select_reduce_kernel, staged: the F = 8, blk 1,024, out 128 instance
+//    of select_reduce.cuh's staged row phase (sr_staged, which the tools'
+//    sr_variant shares): each block first stages its 128 lanes' entries
+//    1..8 into shared memory in coalesced 16-byte reads, then runs sr_rows
+//    over all rows.  Each lane's table leaves device memory once for all
+//    rows.
 //  * select_reduce_rows_kernel, the gather: one thread per output, the grid
 //    reordered so that the rows of a lane block run in consecutive blocks
 //    and the lane block's table (4.7 MB) stays in L2 across its rows.
 //    Where the lanes fill few blocks, staging a block's table costs more
 //    than gathering from L2.
-__global__ void __launch_bounds__(kSrThreads, 2)
+__global__ void __launch_bounds__(kSrThreads<8>, 2)
     select_reduce_kernel(const int64_t* __restrict__ tx, const int64_t* __restrict__ ty2,
                          const int64_t* __restrict__ tz, const uint8_t* __restrict__ absd,
                          const uint8_t* __restrict__ sgn, int64_t* __restrict__ ox,
                          int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch,
                          int64_t rows, int64_t L) {
   extern __shared__ u32 tab[];  // [entry 1..8][24 words][128 lanes]
-  const int64_t n = batch * L;
-  const SrBlock blk = sr_block(L);
-
-  // stage: thread i takes the staged lanes 2 l', 2 l' + 1 of one word, one
-  // 16-byte load of each of the word's two limb planes
-  const longlong2* planes[3] = {reinterpret_cast<const longlong2*>(tx),
-                                reinterpret_cast<const longlong2*>(ty2),
-                                reinterpret_cast<const longlong2*>(tz)};
-#pragma unroll 4
-  for (int i = threadIdx.x; i < kSrWords / 2; i += kSrThreads) {
-    const int lp = i % (kSrLanes / 2), ew = i / (kSrLanes / 2);  // ew = (e - 1) * 24 + word
-    const int e = ew / 24 + 1, w = ew % 24;
-    const int l = 2 * lp;
-    const int64_t col = blk.b * L + blk.lane(l);
-    const longlong2* p = planes[w / 8] + ((16 * e + 2 * (w % 8)) * n + col) / 2;
-    const longlong2 lo = __ldg(p), hi = __ldg(p + n / 2);
-    reinterpret_cast<uint2*>(tab)[(ew * kSrLanes + l) / 2] =
-        make_uint2(((u32)lo.x & 0xffffu) | ((u32)hi.x << 16),
-                   ((u32)lo.y & 0xffffu) | ((u32)hi.y << 16));
-  }
-  __syncthreads();
-  sr_rows(tab, absd, sgn, ox, oy, oz, batch, rows, L, blk);
+  sr_staged<8, false>(tab, tx, ty2, tz, absd, sgn, ox, oy, oz, batch, rows, L, 128);
 }
 
 // Output o over (b, k, r, t): 128 outputs t of lane block k and row r a
@@ -999,7 +981,7 @@ int bppp_select_reduce(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
                        int64_t* oz, int64_t batch, int64_t rows, int64_t L, int staged,
                        void* stream) {
   if (L % 1024) return (int)cudaErrorInvalidValue;
-  const int64_t n_out = batch * rows * (L / 8), blocks = batch * (L / 1024) * kSrGroups;
+  const int64_t n_out = batch * rows * (L / 8), blocks = sr_blocks(batch, L);
   if (n_out <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (!staged) {
@@ -1011,8 +993,8 @@ int bppp_select_reduce(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
   cudaError_t e = cudaFuncSetAttribute(select_reduce_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSrSmem);
   if (e != cudaSuccess) return (int)e;
-  select_reduce_kernel<<<(unsigned)blocks, kSrThreads, kSrSmem, s>>>(tx, ty2, tz, absd, sgn, ox, oy,
-                                                                      oz, batch, rows, L);
+  select_reduce_kernel<<<(unsigned)blocks, kSrThreads<8>, kSrSmem, s>>>(tx, ty2, tz, absd, sgn, ox,
+                                                                         oy, oz, batch, rows, L);
   return (int)cudaGetLastError();
 }
 

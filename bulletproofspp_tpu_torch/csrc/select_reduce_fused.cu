@@ -13,9 +13,9 @@
 // What bounds it on the H100: the table, then the chain.  The TPU kernel
 // keeps a 1,024-lane block's table (2.36 MB) in VMEM; a block here has at
 // most 227 KB of shared memory.  So a block takes the 128 lanes of 16 output
-// columns, the layout of select_reduce's staged design (select_reduce.cuh: sr_rows),
-// and builds what that design stages: 128 of its 176 threads load one lane
-// each and form 1P..8P with table_flat's chain (acc = pt_add(acc, base), 7
+// columns, the layout of select_reduce's staged design (select_reduce.cuh,
+// its F = 8 instance), and builds what that design stages: 128 of its 176
+// threads load one lane each and form 1P..8P with table_flat's chain (acc = pt_add(acc, base), 7
 // dependent additions), written as packed words straight into the shared
 // [entry][word][lane] table (neighbouring threads, neighbouring words).  One
 // __syncthreads, then sr_rows: one thread per (row, column), 11 rows at a
@@ -46,7 +46,7 @@ __device__ __forceinline__ void sr_put(u32* tab, int e, int l, const Pt& p) {
   }
 }
 
-__global__ void __launch_bounds__(kSrThreads, 2)
+__global__ void __launch_bounds__(kSrThreads<8>, 2)
     select_reduce_fused_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
                                const int64_t* __restrict__ pz, const uint8_t* __restrict__ absd,
                                const uint8_t* __restrict__ sgn, int64_t* __restrict__ ox,
@@ -54,11 +54,12 @@ __global__ void __launch_bounds__(kSrThreads, 2)
                                int64_t rows, int64_t L) {
   extern __shared__ u32 tab[];  // [entry 1..8][24 words][128 lanes]
   const int l = threadIdx.x;
-  const SrBlock blk = sr_block(L);
+  const SrBlock blk = sr_block<8>(L, 128);
 
   // build: entries 1P..8P of shared-memory lane l, in table_flat's order
   if (l < kSrLanes) {
-    const Pt base = pt_load(px, py, pz, batch * L, blk.b * L + blk.lane(l));
+    const int64_t j = blk.b * L + blk.lane(l % kSrCols<8>, l / kSrCols<8>);
+    const Pt base = pt_load(px, py, pz, batch * L, j);
     Pt acc = base;
     sr_put(tab, 1, l, acc);
     for (int e = 2; e <= 8; e++) {
@@ -67,7 +68,7 @@ __global__ void __launch_bounds__(kSrThreads, 2)
     }
   }
   __syncthreads();
-  sr_rows(tab, absd, sgn, ox, oy, oz, batch, rows, L, blk);
+  sr_rows<8, false>(tab, absd, sgn, ox, oy, oz, batch, rows, blk);
 }
 
 }  // namespace
@@ -79,14 +80,15 @@ int bppp_select_reduce_fused(const int64_t* px, const int64_t* py, const int64_t
                              int64_t* oz, int64_t batch, int64_t rows, int64_t L,
                              void* stream) {
   if (L % 1024) return (int)cudaErrorInvalidValue;
-  int64_t blocks = batch * (L / 1024) * kSrGroups;
+  int64_t blocks = sr_blocks(batch, L);
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   if (blocks > 0 && rows > 0) {
     cudaError_t e = cudaFuncSetAttribute(select_reduce_fused_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSrSmem);
     if (e != cudaSuccess) return (int)e;
-    select_reduce_fused_kernel<<<(unsigned)blocks, kSrThreads, kSrSmem, (cudaStream_t)stream>>>(
-        px, py, pz, absd, sgn, ox, oy, oz, batch, rows, L);
+    select_reduce_fused_kernel<<<(unsigned)blocks, kSrThreads<8>, kSrSmem,
+                                 (cudaStream_t)stream>>>(px, py, pz, absd, sgn, ox, oy, oz, batch,
+                                                         rows, L);
   }
   return (int)cudaGetLastError();
 }

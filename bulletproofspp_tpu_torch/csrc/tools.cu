@@ -12,29 +12,35 @@
 // What bounds them on the H100, and what the design does about it:
 //  * sr_variant: integer multiply-adds, as select_reduce (kernels.cu): F - 1
 //    complete additions of ~1,840 32-bit multiplies each per output lane
-//    against F selected entries of 384 B.  One thread per output lane.  The
-//    halving order is a template recursion (curve.cuh: halving_tree), so
-//    at most log2 F + 1 partial sums are live: F = 16 (blk 2,048, out 128)
-//    keeps 5 points in registers instead of 16, and no narrowing crosses
-//    threads.  The digit-dependent gathers, not the adds, set the pace on
-//    the card (r5 H3: the same adds without the selection take under half
-//    the time).  At blk 1,024 / out 128 it computes select_reduce's
-//    function (kernels.cu) in the gather design with the rows outermost.
+//    against F selected entries of 384 B, once the selection is cheap.  It
+//    runs select_reduce's staged row phase (select_reduce.cuh), the design
+//    the MSM runs, at the tool's F and geometry: a block stages 128 lanes'
+//    entries 1..8 in shared memory (C = 128 / F columns of a lane block,
+//    blk / 128 column groups a lane block), then one thread per (row,
+//    column) sums its F entries with halving_tree<F> (at most log2 F + 1
+//    partial sums live).  So r5's H3 (the selection's cost: noselect stages
+//    the same words and reads entry 1) and H4 (wider or narrower blocks)
+//    measure the MSM's own design.  At blk 1,024 / out 128 it is
+//    select_reduce_kernel's launch.
 //  * grid_copy: bytes.  It does no arithmetic: 128 B read and 33 x 128 B
 //    written per lane.  One block per (lane block, row), as the TPU grid,
 //    so its time over the block count is the fixed cost of a block; inside
 //    it, 16-byte accesses without index division and streaming stores.
 //  * chain: by bounds.py's count the padd phase is bound by its multiplies
 //    and the one-plane phases by their bytes (384 B a lane for 8 steps);
-//    their carry chains, which that count leaves out, set the pace.  One
-//    thread per lane, the phase a template argument, the state in
-//    registers across the steps.
+//    their carry chains, which that count leaves out, set the pace.  Its
+//    steps are field.cuh's functions (32-bit PTX carry chains), so it
+//    times the arithmetic every kernel runs: one thread per lane, the phase
+//    a template argument, the state in registers across the steps; at
+//    65,536 lanes its throughput, at one warp (32 lanes) the latency of a
+//    dependent step (tools/phase_bench.py).
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
-#include "curve.cuh"
+#include "select_reduce.cuh"
 
 using namespace bppp;
 
@@ -52,26 +58,34 @@ inline int blocks_for(int64_t n) {
 // lanes, digits (rows, L); output (16, rows * L / F) in (row, block, lane)
 // order, F = blk / out_w: output lane t of block i, row r sums the entries
 // selected by the digits of lanes i * blk + t + m * out_w, m < F (noselect:
-// entry 1 with +Y for every lane, the digits unread).  At blk 1,024 and
-// out_w 128 this is select_reduce's function.
+// entry 1 with +Y for every lane, the digits unread).  The staged row phase
+// of select_reduce (select_reduce.cuh: sr_staged) at this F and geometry,
+// one MSM: at blk 1,024 / out 128 it is select_reduce_kernel's launch.
+template <int F, bool NoSelect>
+__global__ void __launch_bounds__(kSrThreads<F>, 2)
+    sr_variant_kernel(const int64_t* __restrict__ tx, const int64_t* __restrict__ ty2,
+                      const int64_t* __restrict__ tz, const uint8_t* __restrict__ absd,
+                      const uint8_t* __restrict__ sgn, int64_t* __restrict__ ox,
+                      int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t rows, int64_t L,
+                      int64_t out_w) {
+  extern __shared__ u32 tab[];  // [entry 1..8][24 words][128 lanes]
+  sr_staged<F, NoSelect>(tab, tx, ty2, tz, absd, sgn, ox, oy, oz, 1, rows, L, out_w);
+}
+
 template <int F>
-__global__ void sr_variant_kernel(const int64_t* __restrict__ tx, const int64_t* __restrict__ ty2,
-                                  const int64_t* __restrict__ tz, const uint8_t* __restrict__ absd,
-                                  const uint8_t* __restrict__ sgn, int64_t* __restrict__ ox,
-                                  int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t rows,
-                                  int64_t L, int64_t out_w, int noselect) {
-  const int64_t blk = out_w * F, per_row = L / F, n_out = rows * per_row;
-  for (int64_t o = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; o < n_out;
-       o += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t r = o / per_row, q = o % per_row;
-    const int64_t lane0 = (q / out_w) * blk + (q % out_w);
-    auto load = [&](int m) {
-      const int64_t l = lane0 + m * out_w;
-      if (noselect) return table_entry(tx, ty2, tz, L, l, 1, 0);
-      return table_entry(tx, ty2, tz, L, l, absd[r * L + l], sgn[r * L + l]);
-    };
-    pt_store(ox, oy, oz, n_out, o, halving_tree<F>(load, 0, 1));
-  }
+int launch_sr_variant(const int64_t* tx, const int64_t* ty2, const int64_t* tz,
+                      const uint8_t* absd, const uint8_t* sgn, int64_t* ox, int64_t* oy,
+                      int64_t* oz, int64_t rows, int64_t L, int64_t out_w, int noselect,
+                      cudaStream_t s) {
+  const int64_t blocks = sr_blocks(1, L);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  auto* kernel = noselect ? sr_variant_kernel<F, true> : sr_variant_kernel<F, false>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSrSmem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)blocks, kSrThreads<F>, kSrSmem, s>>>(tx, ty2, tz, absd, sgn, ox, oy, oz, rows,
+                                                          L, out_w);
+  return (int)cudaGetLastError();
 }
 
 // --- grid_copy: replaces tools/r5_experiments.py: grid_copy (:145) --------
@@ -116,26 +130,17 @@ enum Phase {
 // The product reduced by one pass T = L + 977 H + 2^32 H, with the carry out
 // of 2^256 dropped (fe_reduce512 without its fe_fold).
 __device__ __forceinline__ Fe fe_mul_unfolded(const Fe& a, const Fe& b) {
-  u32 t[16];
+  u32 t[16], chi;
   fe_mul_wide(a, b, t);
   Fe r;
-  u64 acc = 0;
-#pragma unroll
-  for (int k = 0; k < 8; k++) {
-    acc += (u64)t[k] + (u64)t[8 + k] * 977u;
-    if (k > 0) acc += t[7 + k];
-    r.w[k] = (u32)acc;
-    acc >>= 32;
-  }
+  fe_reduce_pass(t, r, chi);
   return r;
 }
 
+// The low 256 bits of the product: its 36 word products under 2^256.
 __device__ __forceinline__ Fe fe_mul_low(const Fe& a, const Fe& b) {
-  u32 t[16];
-  fe_mul_wide(a, b, t);
   Fe r;
-#pragma unroll
-  for (int k = 0; k < 8; k++) r.w[k] = t[k];
+  fe_mul_words<8>(a, b, r.w);
   return r;
 }
 
@@ -190,29 +195,18 @@ int bppp_sr_variant(const int64_t* tx, const int64_t* ty2, const int64_t* tz, co
   if (out_w <= 0 || blk % out_w || L % blk) return (int)cudaErrorInvalidValue;
   const int64_t n_out = rows * (L / (blk / out_w));
   if (n_out <= 0) return (int)cudaGetLastError();
-  const int blocks = blocks_for(n_out);
   cudaStream_t s = (cudaStream_t)stream;
   switch (blk / out_w) {
     case 2:
-      sr_variant_kernel<2><<<blocks, kThreads, 0, s>>>(tx, ty2, tz, absd, sgn, ox, oy, oz, rows, L,
-                                                       out_w, noselect);
-      break;
+      return launch_sr_variant<2>(tx, ty2, tz, absd, sgn, ox, oy, oz, rows, L, out_w, noselect, s);
     case 4:
-      sr_variant_kernel<4><<<blocks, kThreads, 0, s>>>(tx, ty2, tz, absd, sgn, ox, oy, oz, rows, L,
-                                                       out_w, noselect);
-      break;
+      return launch_sr_variant<4>(tx, ty2, tz, absd, sgn, ox, oy, oz, rows, L, out_w, noselect, s);
     case 8:
-      sr_variant_kernel<8><<<blocks, kThreads, 0, s>>>(tx, ty2, tz, absd, sgn, ox, oy, oz, rows, L,
-                                                       out_w, noselect);
-      break;
+      return launch_sr_variant<8>(tx, ty2, tz, absd, sgn, ox, oy, oz, rows, L, out_w, noselect, s);
     case 16:
-      sr_variant_kernel<16><<<blocks, kThreads, 0, s>>>(tx, ty2, tz, absd, sgn, ox, oy, oz, rows,
-                                                        L, out_w, noselect);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+      return launch_sr_variant<16>(tx, ty2, tz, absd, sgn, ox, oy, oz, rows, L, out_w, noselect, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 int bppp_grid_copy(const int64_t* x, int64_t* o, int64_t L, int64_t rows, int64_t blk,

@@ -42,8 +42,9 @@ sign (``_check_digits``; the plain versions widen them for
 ``csrc/field.cuh`` (device functions); ``kernels.cu`` also
 ``csrc/curve_warp.cuh`` (the cooperative addition and doubling of a warp
 or of a group of threads in one), and
-``kernels.cu`` and ``select_reduce_fused.cu`` ``csrc/select_reduce.cuh``
-(the staged row phase they share).
+``kernels.cu``, ``select_reduce_fused.cu`` and ``tools.cu``
+``csrc/select_reduce.cuh`` (the staged row phase select_reduce,
+select_reduce_fused and sr_variant share).
 
 Every wrapper takes the plain version, written below in PyTorch, only for
 tensors that lie on the CPU; on a CUDA tensor it launches its kernel or
@@ -1347,6 +1348,9 @@ def sr_variant_plain(tables, absd, sgn, blk: int = 1024, out_w: int = 128, nosel
 
 
 def sr_variant(tables, absd, sgn, blk: int = 1024, out_w: int = 128, noselect: bool = False):
+    """``sr_variant_plain`` on the card: select_reduce's staged row phase
+    (``csrc/select_reduce.cuh``) at F = blk / out_w and this geometry, one
+    MSM; at blk 1,024 / out 128 the words of ``select_reduce``."""
     rows, L = absd.shape
     if out_w <= 0 or blk % out_w or blk // out_w not in (2, 4, 8, 16) or L % blk:
         raise ValueError(f"sr_variant: blk {blk} / out_w {out_w} must be 2, 4, 8 or 16 and "
@@ -1421,6 +1425,62 @@ def _mul_unfolded(x, b):
     s = lo + limb.C_LOW * hi
     s[2:] += hi[:-2]
     return _carry(s)
+
+
+def _fold_words(r, c):
+    """``field.cuh: fe_fold``: r + c (2^32 + 977), c < 2^35, and where that
+    carries out of 2^256, 2^32 + 977 once more on its low 256 bits."""
+    v = torch.zeros((limb.NLIMB + 1, *r.shape[1:]), dtype=torch.int64, device=r.device)
+    v[: limb.NLIMB] = r
+    m = c * limb.C_LOW
+    v[0] += m & limb.MASK
+    v[1] += (m >> 16) & limb.MASK
+    v[2] += (m >> 32) + (c & limb.MASK)
+    v[3] += (c >> 16) & limb.MASK
+    v[4] += c >> 32
+    v = _carry(v)
+    r, o = v[: limb.NLIMB], v[limb.NLIMB]
+    r[0] += o * limb.C_LOW
+    r[2] += o
+    return _carry(r)
+
+
+def _sub_c(r, o):
+    """``field.cuh: fe_sub_c``: r - o (2^32 + 977) mod 2^256, o in {0, 1},
+    and the borrow out of 2^256."""
+    v = torch.cat([r, torch.ones_like(r[:1])])  # + 2^256: the borrow is 1 - the top limb
+    v[0] -= o * limb.C_LOW
+    v[2] -= o
+    v = _carry(v)
+    return v[: limb.NLIMB], 1 - v[limb.NLIMB]
+
+
+def field_words(op: str, x, b):
+    """The exact words (as strict 16-bit limbs) that ``csrc/field.cuh``
+    returns for ``fe_mul`` ("mul"), ``fe_add`` ("add") and ``fe_sub``
+    ("sub") of strict (16, ...) limbs: its representative, not only its
+    value mod p.  mul: one pass S = L + 977 H + 2^32 H over the product L +
+    2^256 H, then ``fe_fold`` of S's carry; add: the sum's carry folded;
+    sub: the difference, then C subtracted on each borrow, at most twice.
+    Exact integer arithmetic on int64 limbs; ``chip_smoke.py`` holds the
+    chain kernel's mul_f16, add and sub phases to it raw."""
+    n = limb.NLIMB
+    if op == "mul":
+        t = _product(x, b)
+        lo, hi = t[:n], t[n:]
+        s = torch.zeros((n + 3, *x.shape[1:]), dtype=torch.int64, device=x.device)
+        s[:n] = lo + limb.C_LOW * hi
+        s[2 : n + 2] += hi
+        s = _carry(s)
+        return _fold_words(s[:n], s[n] + (s[n + 1] << 16) + (s[n + 2] << 32))
+    if op == "add":
+        s = _carry(torch.cat([x + b, torch.zeros_like(x[:1])]))
+        return _fold_words(s[:n], s[n])
+    if op == "sub":
+        r, borrow = _sub_c(x - b, torch.zeros_like(x[0]))
+        r, borrow = _sub_c(r, borrow)
+        return _sub_c(r, borrow)[0]
+    raise ValueError(f"field_words: no operation {op!r}")
 
 
 # name -> (phase index of tools.cu, state planes, value phase).  Value

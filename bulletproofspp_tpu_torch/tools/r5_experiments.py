@@ -12,11 +12,14 @@ digit rows:
   H2  ``grid_copy``, one block per (1,024-lane block, row), 64 x 33 blocks:
       its time over the block count is the fixed cost of a block;
   H3  ``sr_variant`` at blk 1,024 / out 128 with the digit selection and
-      without it (entry 1 for every lane), beside ``select_reduce``, the
-      MSM's kernel for the same function (its staged design at this
-      size), and its gather design (the rows of a lane block in
-      consecutive blocks), on the same inputs;
-  H4  ``sr_variant`` at blk 512, 1,024, 2,048 and out 128, 256;
+      without it (entry 1 for every lane, the same entries staged), beside
+      ``select_reduce``, the MSM's kernel for the same function (its
+      staged design at this size, whose row phase ``sr_variant`` runs),
+      and its gather design (the rows of a lane block in consecutive
+      blocks), on the same inputs: the selection's cost in the MSM's
+      design;
+  H4  ``sr_variant`` at blk 512, 1,024, 2,048 and out 128, 256: the staged
+      row phase at F = blk / out_w of 2 to 16;
   H5  ``select_reduce``'s two designs at 4,096 to 532,480 lanes a call:
       one MSM of 4,096 to 65,536 lanes, two of 65,536, and prove's
       ``msm_many`` calls of 66 MSMs of 2,048 and 98 and 130 of 4,096

@@ -47,9 +47,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      back (enqueued while the stream sleeps), a plain version's as the host
      sends them.  select_reduce is timed in turns with its yardsticks on
      the same inputs: at 4,096 lanes (its gather design) with sr_variant
-     (blk 1,024 / out 128, its function with the rows outermost), at 65,536
+     (blk 1,024 / out 128: its function, on the staged row phase), at 65,536
      (its staged design) with sr_variant, sr_variant noselect and its gather
-     design (all equal to it limb for limb).  select_reduce_fused, with a
+     design (all equal to it limb for limb); chain's ten phases on lanes
+     with edge values (``edge_planes``), mul_f16, add and sub also equal
+     raw, at 1 and 8 steps, to field.cuh's representative
+     (``kernels.field_words``).  select_reduce_fused, with a
      row of zero digits and sign 1, equals the two kernels table_flat +
      select_reduce limb for limb (raw) at 4,096 lanes and at 2^21 lanes,
      and is timed in turns with them, each route's peak device memory
@@ -789,8 +792,8 @@ def check_kernels(dev):
     # msm_many's 130 MSMs of 4,096 lanes (the staged design), three and one
     # (the gather), row 0 all zero digits with sign 1; each call must take
     # the design its lane count picks and equal the other design limb for
-    # limb.  At B = 1 timed in turns with sr_variant (the same function,
-    # the rows outermost in the grid)
+    # limb.  At B = 1 timed in turns with sr_variant (the same function on
+    # the staged row phase)
     for batch in (130, 3, 1):
         absd = torch.as_tensor(rng.integers(0, 9, size=(batch, ROWS, L)), dtype=torch.uint8, device=dev)
         sgn = torch.as_tensor(rng.integers(0, 2, size=(batch, ROWS, L)), dtype=torch.uint8, device=dev)
@@ -814,7 +817,7 @@ def check_kernels(dev):
                             "sr_variant": lambda: kernels.sr_variant(tabs, absd[0], sgn[0])}, 10)
     log(f"select_reduce L={L} rows={ROWS}: equal to its plain version and its other design (B = "
         f"130 staged, 3 and 1 the gather) and to sr_variant limb for limb; in turns select_reduce "
-        f"{both['select_reduce']} ms, sr_variant (rows outermost) {both['sr_variant']} ms")
+        f"{both['select_reduce']} ms, sr_variant (staged) {both['sr_variant']} ms")
     rows.append(("select_reduce", err, means["select_reduce"],
                  time_ms(lambda: kernels.select_reduce_plain(tabs, absd, sgn), 2, paced=True),
                  f"B=1 L={L} rows={ROWS}", bounds.select_reduce(absd, sgn)))
@@ -1080,15 +1083,24 @@ def check_measurement_kernels(dev, rng):
                  time_ms(lambda: kernels.grid_copy_plain(x), 5, paced=True), f"L={L} rows={ROWS}",
                  bounds.grid_copy(L, ROWS), {"library_ms": means["library"]}))
 
+    # chain: random limbs with edge_planes lanes first (every phase's state
+    # and operands rotated apart, so edge values meet each other); the
+    # value phases normalized against their plain versions, the limb-form
+    # ones raw, and the phases that are one field.cuh function (mul_f16,
+    # add, sub) raw against its representative (kernels.field_words)
     ms = plain_ms = 0.0
     works = []
+    words = {"mul_f16": "mul", "add": "add", "sub": "sub"}
     for phase, (_, nstate, value) in kernels.CHAIN_PHASES.items():
-        a = tuple(torch.as_tensor(rng.integers(0, 1 << 16, size=(16, L)), device=dev)
-                  for _ in range(nstate))
-        b = tuple(torch.as_tensor(rng.integers(0, 1 << 16, size=(16, L)), device=dev)
-                  for _ in range(3))
+        a = tuple(edge_planes(L, rng, dev, s) for s in (0, 5, 3)[:nstate])
+        b = tuple(edge_planes(L, rng, dev, s) for s in (7, 2, 9))
         for rep in (1, 8):
             got, want = kernels.chain(phase, a, b, rep), kernels.chain_plain(phase, a, b, rep)
+            if phase in words:
+                model = a[0]
+                for _ in range(rep):
+                    model = kernels.field_words(words[phase], model, b[0])
+                same_raw(f"chain {phase} rep={rep} against field_words", (got,), (model,))
             if value:
                 got, want = limb.normalize(got), limb.normalize(want)
             err = int((got - want).abs().max().item())
@@ -1098,7 +1110,8 @@ def check_measurement_kernels(dev, rng):
         ms += time_ms(lambda: kernels.chain(phase, a, b, 8), 5)
         plain_ms += time_ms(lambda: kernels.chain_plain(phase, a, b, 8), 1, paced=True)
         works.append(bounds.chain(phase, L, 8))
-    log(f"chain L={L}: all ten phases equal to their plain versions, 1 and 8 steps")
+    log(f"chain L={L}, edge lanes: all ten phases equal to their plain versions, 1 and 8 steps; "
+        "mul_f16, add and sub equal raw to field.cuh's representative (kernels.field_words)")
     # ten launches: the bound is the sum of each phase's own
     rows.append(("chain", 0, ms, plain_ms, f"L={L} rep=8, 10 phases summed", works))
     return rows

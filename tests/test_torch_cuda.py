@@ -71,6 +71,11 @@ def test_cuda_kernels_match_plain_versions():
     many = np.stack([digits, np.stack([*glv.recode_signed(7**40), *glv.recode_signed(-(2**100))])])
     pe, po = _points(64, 45, dev), _points(64, 46, dev)
     assert _same(kernels.fold_many(pe, po, many), kernels.fold_many_plain(pe, po, many))
+    # the square completion of the same two provers, 16 lanes each
+    g0, g1 = _points(32, 45, dev), _points(32, 46, dev)
+    for got, want in zip(kernels.complete_square(g0, g1, many),
+                         kernels.complete_square_plain(g0, g1, many)):
+        assert _same(got, want)
     # two stacked MSMs of 1,024 lanes, 3 rows
     pts = _points(2 * 1024, 49, dev)
     absd = torch.as_tensor(rng.integers(0, 9, size=(2, 3, 1024)), dtype=torch.uint8, device=dev)
@@ -121,7 +126,8 @@ def _card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("blk,out_w,noselect", [(1024, 128, False), (1024, 128, True),
-                                                (2048, 128, False), (512, 256, False)])
+                                                (2048, 128, False), (512, 256, False),
+                                                (64, 16, False), (8, 4, True)])
 def test_cuda_sr_variant_matches_plain_version(blk, out_w, noselect):
     dev = _card()
     tabs = kernels.table_flat(_points(2048, 60, dev))
@@ -191,8 +197,17 @@ def test_cuda_chain_matches_plain_version(phase):
     _, nstate, value = kernels.CHAIN_PHASES[phase]
     a, b = ([torch.as_tensor(rng.integers(0, 1 << 16, size=(16, 512)), device=dev)
              for _ in range(k)] for k in (nstate, 3))
+    for t in (*a, *b):
+        t[:, :4] = 0xFFFF  # saturated lanes
+    a[0][:, 4:7] = limb.from_ints([0, Q - 1, (1 << 256) - 1], dev)
+    model = {"mul_f16": "mul", "add": "add", "sub": "sub"}.get(phase)
     for rep in (1, 8):
         got, want = kernels.chain(phase, a, b, rep), kernels.chain_plain(phase, a, b, rep)
+        if model:  # field.cuh's representative, word for word
+            words = a[0]
+            for _ in range(rep):
+                words = kernels.field_words(model, words, b[0])
+            assert torch.equal(got, words), rep
         if value:
             got, want = limb.normalize(got), limb.normalize(want)
         assert torch.equal(got, want), rep

@@ -340,7 +340,8 @@ ptxas info    : Used 27 registers, 384 bytes cmem[0]
 
 
 @pytest.mark.parametrize("module", ["bench", "tools.r5_experiments", "tools.phase_bench",
-                                    "tools.padd_timing", "tools.assemble_host"])
+                                    "tools.padd_timing", "tools.assemble_host",
+                                    "tools.kernel_turns"])
 def test_bench_and_tools_refuse_to_run_without_cuda(monkeypatch, capsys, module):
     mod = importlib.import_module(f"bulletproofspp_tpu_torch.{module}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -364,3 +365,358 @@ def test_bench_scalar_digits_match_native_recode():
     assert absd.shape == (1, 33, 32) and absd.dtype == sgn.dtype == torch.uint8
     assert np.array_equal(absd[0].numpy(), na) and np.array_equal(sgn[0].numpy(), ns)
 
+
+
+# --- csrc/field.cuh's representatives ------------------------------------
+# Two transcriptions, word by word, in Python integers: the 64-bit carry
+# code field.cuh had before its carry chains (the words every raw equality
+# on the card was first taken with), and its carry chains, one PTX
+# instruction a call with the carry flag beside them.  The model
+# (kernels.field_words) must equal the first; the second must equal it.
+
+M32, M64 = (1 << 32) - 1, (1 << 64) - 1
+DROPPED_CARRY = 94329926858193610711403129864407773699609837703255222953893265490612872160623
+FIELD_EDGE = [0, 1, Q - 1, Q, Q + 1, Q - 2, (1 << 256) - 1, (1 << 256) % Q, (1 << 256) % Q - 1,
+              (1 << 32) + 976, int("FFFF" * 8 + "0000" * 8, 16), int("FFFF0000" * 8, 16),
+              int("0000FFFF" * 8, 16), (1 << 128) - 1, (1 << 255), DROPPED_CARRY,
+              DROPPED_CARRY * DROPPED_CARRY % Q]
+
+
+def _words(v):
+    return [(v >> (32 * k)) & M32 for k in range(8)]
+
+
+def _value(w):
+    return sum(x << (32 * k) for k, x in enumerate(w))
+
+
+def _i64(v):
+    v &= M64
+    return v - (1 << 64) if v >> 63 else v
+
+
+def _u64_fold(r, c):
+    m = (c * 977) & M64
+    acc = (r[0] + (m & M32)) & M64
+    r[0] = acc & M32
+    acc = ((acc >> 32) + r[1] + (m >> 32) + (c & M32)) & M64
+    r[1] = acc & M32
+    acc = ((acc >> 32) + r[2] + (c >> 32)) & M64
+    r[2] = acc & M32
+    acc >>= 32
+    for k in range(3, 8):
+        acc = (acc + r[k]) & M64
+        r[k] = acc & M32
+        acc >>= 32
+    o = acc & M32
+    acc = (r[0] + o * 977) & M64
+    r[0] = acc & M32
+    acc = ((acc >> 32) + r[1] + o) & M64
+    r[1] = acc & M32
+    acc >>= 32
+    for k in range(2, 8):
+        acc = (acc + r[k]) & M64
+        r[k] = acc & M32
+        acc >>= 32
+    return r
+
+
+def _u64_sub_c(r, o):
+    t = _i64(r[0] - o * 977)
+    r[0] = t & M32
+    t = _i64((t >> 32) + r[1] - o)
+    r[1] = t & M32
+    t >>= 32
+    for k in range(2, 8):
+        t = _i64(t + r[k])
+        r[k] = t & M32
+        t >>= 32
+    return (-t) & M32
+
+
+def _u64_field(op, a, b):
+    """fe_mul / fe_add / fe_sub (and fe_mul_small by b's low word, fe_canon)
+    as field.cuh wrote them with u64 and int64 carries (fe_mul_wide's
+    schoolbook, fe_reduce512, fe_fold, fe_sub_c)."""
+    r = [0] * 8
+    if op == "add":
+        acc = 0
+        for k in range(8):
+            acc = (acc + a[k] + b[k]) & M64
+            r[k] = acc & M32
+            acc >>= 32
+        return _u64_fold(r, acc)
+    if op == "sub":
+        t = 0
+        for k in range(8):
+            t = _i64(t + a[k] - b[k])
+            r[k] = t & M32
+            t >>= 32
+        _u64_sub_c(r, _u64_sub_c(r, (-t) & M32))
+        return r
+    if op == "mul_small":  # a * k, k = b's low word
+        acc = 0
+        for k in range(8):
+            acc = (acc + a[k] * b[0]) & M64
+            r[k] = acc & M32
+            acc >>= 32
+        return _u64_fold(r, acc)
+    if op == "canon":
+        acc = a[0] + 977
+        r[0] = acc & M32
+        acc = (acc >> 32) + a[1] + 1
+        r[1] = acc & M32
+        acc >>= 32
+        for k in range(2, 8):
+            acc += a[k]
+            r[k] = acc & M32
+            acc >>= 32
+        return r if acc else list(a)
+    t = [0] * 16
+    for i in range(8):
+        c = 0
+        for j in range(8):
+            c = (c + a[i] * b[j] + t[i + j]) & M64
+            t[i + j] = c & M32
+            c >>= 32
+        t[i + 8] = c & M32
+    acc = 0
+    for k in range(8):
+        acc = (acc + t[k] + t[8 + k] * 977 + (t[7 + k] if k else 0)) & M64
+        r[k] = acc & M32
+        acc >>= 32
+    return _u64_fold(r, (acc + t[15]) & M64)
+
+
+class _Ptx:
+    """The PTX carry instructions field.cuh issues, on one carry flag."""
+
+    def __init__(self):
+        self.cf = 0
+
+    def _set(self, v, cc):
+        if cc:
+            self.cf = v >> 32 if v >= 0 else 1
+        return v & M32
+
+    def add(self, a, b, carry_in=False, cc=True):
+        return self._set(a + b + (self.cf if carry_in else 0), cc)
+
+    def sub(self, a, b, borrow_in=False, cc=True):
+        return self._set(a - b - (self.cf if borrow_in else 0), cc)
+
+    def mad(self, a, b, c, hi=False, carry_in=False, cc=True):
+        p = a * b
+        return self._set(((p >> 32) if hi else (p & M32)) + c + (self.cf if carry_in else 0), cc)
+
+
+def _ptx_fold_words(x, r, w0, w1, w2):
+    r[0] = x.add(r[0], w0)
+    r[1] = x.add(r[1], w1, True)
+    r[2] = x.add(r[2], w2, True)
+    for k in range(3, 8):
+        r[k] = x.add(r[k], 0, True)
+    o = x.add(0, 0, True, cc=False)
+    r[0] = x.add(r[0], o * 977 & M32)
+    r[1] = x.add(r[1], o, True)
+    r[2] = x.add(r[2], 0, True, cc=False)
+
+
+def _ptx_mul_words(x, a, b, W):
+    e, o = [0] * 17, [0] * 17  # pairs from even words, pairs from odd words
+    for i in range(8):
+        for acc, j0 in ((e, i & 1), (o, 1 - (i & 1))):
+            for n in range(4):
+                j = j0 + 2 * n
+                k = i + j
+                if k < W:
+                    acc[k] = x.mad(a[j], b[i], acc[k], carry_in=n > 0)
+                if k + 1 < W:
+                    acc[k + 1] = x.mad(a[j], b[i], acc[k + 1], hi=True, carry_in=True)
+            if i + j0 + 8 < W:
+                acc[i + j0 + 8] = x.add(acc[i + j0 + 8], 0, True, cc=False)
+    t = [e[0], x.add(e[1], o[1])]
+    for k in range(2, W):
+        t.append(x.add(e[k], o[k], True, cc=k + 1 < W))
+    return t
+
+
+def _ptx_reduce_pass(x, t):
+    h, r, q = t[8:], [0] * 8, [0] * 9
+    for k in range(0, 8, 2):
+        r[k] = x.mad(h[k], 977, t[k], carry_in=k > 0)
+        r[k + 1] = x.mad(h[k], 977, t[k + 1], hi=True, carry_in=True)
+    r8 = x.add(0, 0, True, cc=False)
+    for k in range(1, 8, 2):
+        q[k] = x.mad(h[k], 977, h[k - 1], carry_in=k > 1)
+        q[k + 1] = x.mad(h[k], 977, h[k], hi=True, carry_in=True)
+    q9 = x.add(0, 0, True, cc=False)
+    r[1] = x.add(r[1], q[1])
+    for k in range(2, 8):
+        r[k] = x.add(r[k], q[k], True)
+    clo = x.add(r8, q[8], True)
+    return r, clo, x.add(q9, 0, True, cc=False)
+
+
+def _ptx_sqr_wide(x, a):
+    """fe_sqr's 512-bit square: the cross products by the parity of their
+    word, their sum doubled by a funnel shift, the squares added."""
+    e, o = [0] * 17, [0] * 17
+    for i in range(7):
+        for acc, j0 in ((e, i + 2), (o, i + 1)):
+            if j0 >= 8:
+                continue
+            for j in range(j0, 8, 2):
+                acc[i + j] = x.mad(a[j], a[i], acc[i + j], carry_in=j > j0)
+                acc[i + j + 1] = x.mad(a[j], a[i], acc[i + j + 1], hi=True, carry_in=True)
+            top = i + j0 + (7 - j0) // 2 * 2 + 2
+            if top < 16:
+                acc[top] = x.add(acc[top], 0, True, cc=False)
+    c = x.add(e[1], o[1])
+    t = [0, (c << 1) & M32]
+    for k in range(2, 16):
+        nxt = x.add(e[k], o[k], True, cc=k < 15)
+        t.append(((nxt << 1) | (c >> 31)) & M32)
+        c = nxt
+    t[0] = x.mad(a[0], a[0], t[0])
+    t[1] = x.mad(a[0], a[0], t[1], hi=True, carry_in=True)
+    for i in range(1, 8):
+        t[2 * i] = x.mad(a[i], a[i], t[2 * i], carry_in=True)
+        t[2 * i + 1] = x.mad(a[i], a[i], t[2 * i + 1], hi=True, carry_in=True, cc=i < 7)
+    return t
+
+
+def _ptx_field(op, a, b):
+    """field.cuh's fe_mul, fe_add, fe_sub (and the chain tool's unfolded and
+    low products), instruction by instruction."""
+    x = _Ptx()
+    if op == "add":
+        r = [x.add(a[0], b[0])] + [x.add(a[k], b[k], True) for k in range(1, 8)]
+        c = x.add(0, 0, True, cc=False)
+        _ptx_fold_words(x, r, c * 977, c, 0)
+        return r
+    if op == "sub":
+        r = [x.sub(a[0], b[0])] + [x.sub(a[k], b[k], True) for k in range(1, 8)]
+        borrow = x.sub(0, 0, True, cc=False) & 1
+        for step in (0, 1):
+            r[0] = x.sub(r[0], borrow * 977)
+            r[1] = x.sub(r[1], borrow, True, cc=step == 0)
+            if step == 0:
+                for k in range(2, 8):
+                    r[k] = x.sub(r[k], 0, True)
+                borrow = x.sub(0, 0, True, cc=False) & 1
+        return r
+    if op == "mul_small":
+        e, o = [0] * 8, [0] * 9
+        for i in range(0, 8, 2):
+            pe, po = a[i] * b[0], a[i + 1] * b[0]
+            e[i], e[i + 1], o[i + 1], o[i + 2] = pe & M32, pe >> 32, po & M32, po >> 32
+        r = [e[0], x.add(e[1], o[1])] + [x.add(e[i], o[i], True) for i in range(2, 8)]
+        c = x.add(o[8], 0, True, cc=False)
+        w1 = x.add(((c * 977) >> 32) & M32, c)
+        _ptx_fold_words(x, r, c * 977 & M32, w1, x.add(0, 0, True, cc=False))
+        return r
+    if op == "canon":
+        r = [x.add(a[0], 977), x.add(a[1], 1, True)] + [x.add(a[k], 0, True) for k in range(2, 8)]
+        return r if x.add(0, 0, True, cc=False) else list(a)
+    if op == "prod_form":
+        return _ptx_mul_words(x, a, b, 8)
+    if op == "sqr_wide":
+        return _ptx_sqr_wide(x, a)
+    r, clo, chi = _ptx_reduce_pass(x, _ptx_sqr_wide(x, a) if op == "sqr" else
+                                   _ptx_mul_words(x, a, b, 16))
+    if op == "mul_w16":
+        return r
+    w1 = x.add((((clo * 977) >> 32) + chi * 977) & M32, clo)
+    w2 = x.add(chi, 0, True, cc=False)
+    _ptx_fold_words(x, r, clo * 977 & M32, w1, w2)
+    return r
+
+
+def _field_pairs(seed):
+    rng = random.Random(seed)
+    pairs = [(u, v) for u in FIELD_EDGE for v in FIELD_EDGE]
+    pairs += [(rng.getrandbits(256), rng.getrandbits(256)) for _ in range(128)]
+    pairs += [(rng.getrandbits(256), v) for v in FIELD_EDGE]
+    return pairs
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+def test_field_words_model_the_u64_field_code(op):
+    """kernels.field_words gives, limb for limb, the words field.cuh's
+    64-bit carry code gave: at 0, 1, p - 1, p, p + 1, 2^256 - 1, C, the
+    saturated 0xFFFF limb patterns, the round-2 dropped-carry operand and
+    seeded values, every pair of edge values included."""
+    pairs = _field_pairs(74)
+    a = limb.from_ints([u for u, _ in pairs], "cpu")
+    b = limb.from_ints([v for _, v in pairs], "cpu")
+    got = limb.unpack_ints(kernels.field_words(op, a, b))
+    want = [_value(_u64_field(op, _words(u), _words(v))) for u, v in pairs]
+    assert got == want
+    ref = {"mul": lambda u, v: u * v, "add": lambda u, v: u + v, "sub": lambda u, v: u - v}[op]
+    assert all(g < 1 << 256 and (g - ref(u, v)) % Q == 0 for g, (u, v) in zip(got, pairs))
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub", "mul_w16", "prod_form", "mul_small",
+                                "canon", "sqr_wide", "sqr"])
+def test_field_carry_chains_give_the_models_words(op):
+    """field.cuh's carry chains, transcribed instruction by instruction,
+    equal the model (fe_mul, fe_add, fe_sub), the chain tool's limb-form
+    phases (fe_mul_unfolded, the low words of fe_mul_words<8>), the
+    64-bit carry code's words (fe_mul_small by 3, 8 and 21, fe_canon), or
+    for fe_sqr the exact square (its 16 words) and then a strict value
+    equal to it mod p (fe_sqr keeps no earlier representative)."""
+    pairs = _field_pairs(75)
+    if op == "mul_small":
+        pairs = [(u, k) for u, _ in pairs[::3] for k in (3, 8, 21)]
+    got = [_value(_ptx_field(op, _words(u), _words(v))) for u, v in pairs]
+    if op == "sqr_wide":
+        assert got == [u * u for u, _ in pairs]
+        return
+    if op == "sqr":
+        assert all(g < 1 << 256 and (g - u * u) % Q == 0 for g, (u, _) in zip(got, pairs))
+        return
+    if op in ("mul_w16", "prod_form"):
+        want = [LIMB_FORM[op](u, v) for u, v in pairs]
+    else:
+        want = [_value(_u64_field(op, _words(u), _words(v))) for u, v in pairs]
+    assert got == want
+
+
+def _fold_cases():
+    """(r, c) with c < 2^35 where r + c (2^32 + 977) wraps past 2^256 and
+    the wrapped value's low words make adding 2^32 + 977 again carry into
+    the third word, beside plain and random cases."""
+    C = (1 << 32) + 977
+    rng = random.Random(77)
+    cases = [(0, 0), ((1 << 256) - 1, 0), ((1 << 256) - 1, 1), (0, (1 << 35) - 1),
+             ((1 << 256) - 1, (1 << 35) - 1)]
+    for wrapped in ((0xFFFFFFFF << 32) | 0xFFFFFFF0, (0xF << 64) | (0xFFFFFFFF << 32) | 0xFFFFFC2F,
+                    (1 << 64) - 1):
+        for c in (1 << 32, (1 << 33) - 1, (1 << 35) - 1, rng.getrandbits(35)):
+            if c * C > wrapped:
+                cases.append((wrapped + (1 << 256) - c * C, c))
+    cases += [(rng.getrandbits(256), rng.getrandbits(35)) for _ in range(64)]
+    return cases
+
+
+def test_field_fold_words_where_the_second_wrap_carries():
+    """fe_fold: the model, the 64-bit carry code and the carry chains agree
+    where r + c C wraps past 2^256 and adding C once more carries out of the
+    low two words (fe_mul reaches such (r, c); random operands rarely)."""
+    cases = _fold_cases()
+    r = limb.from_ints([v for v, _ in cases], "cpu")
+    c = torch.tensor([v for _, v in cases], dtype=torch.int64)
+    got = limb.unpack_ints(kernels._fold_words(r, c))
+    want = [_value(_u64_fold(_words(v), k)) for v, k in cases]
+    assert got == want
+    chains = []
+    for v, k in cases:
+        x, w = _Ptx(), _words(v)
+        w1 = x.add((((k & M32) * 977) >> 32) + (k >> 32) * 977, k & M32)
+        _ptx_fold_words(x, w, (k & M32) * 977 & M32, w1, x.add(k >> 32, 0, True, cc=False))
+        chains.append(_value(w))
+    assert chains == want
+    # the case the second wrap exists for is among them
+    C = (1 << 32) + 977
+    assert any(v + k * C >= 1 << 256 and ((v + k * C) % (1 << 64) + C) >> 64 for v, k in cases)
