@@ -261,6 +261,13 @@ def fold_many_chain(rows: int, group: int):
     return ops, 2 * ops
 
 
+def fold_phi_chain(rows: int, group: int):
+    """fold_many's chain with phi: phi's product (one round) before O's
+    table, then fold_many's."""
+    ops, rounds = fold_many_chain(rows, group)
+    return ops, rounds + 1
+
+
 def complete_square_chain(rows: int, group: int):
     """complete_square's chain, a lane on a group of ``group`` threads: phi's
     product (one round) before O's table, fold_many's chain, then the two
@@ -320,6 +327,12 @@ def fold_many(n: int, digits):
     tables never leave the SM).  The chain: ``fold_many_chain``."""
     ops = sum(fold(n // len(digits), d)[0] for d in digits) + 2 * table_flat(n)[0]
     return ops, n * 3 * PT_BYTES
+
+
+def fold_phi(n: int, digits):
+    """``fold_many`` of n lanes whose O basis is phi(E), made in the launch:
+    its multiplies and phi's product a lane; E read, the result written."""
+    return fold_many(n, digits)[0] + n * FE_MUL, n * 2 * PT_BYTES
 
 
 def complete_square(n: int, digits):

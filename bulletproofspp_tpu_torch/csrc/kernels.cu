@@ -3,8 +3,10 @@
 // padd, horner, reduce_block, tail_horner, table_flat and select_reduce
 // each replace one Pallas TPU kernel of bulletproofspp_tpu/ops/pallas_field.py;
 // fold replaces the XLA fold_mul_kernel of bulletproofspp_tpu/ops/msm.py,
-// fold_many its vmap over the provers of a lockstep batch (from the bases'
-// points, its lanes' tables built in the launch), complete_square the
+// fold_many its vmap over the provers of a lockstep batch and, at one
+// prover, every fold of the prover and the engine (from the bases' points,
+// its lanes' tables built in the launch; with phi, shared_mul's fold of P
+// and phi(P)), and fold stays as its yardstick; complete_square the
 // square completion around that fold (msm.py:283 and :301: phi, the fold and
 // g1 +- r g0 in one launch), and reduce_lanes
 // the XLA table select and lane tree of its MSMs under 128 lanes (the
@@ -35,7 +37,8 @@
 // designed for this card instead: horner, tail_horner and fold, whose work
 // is one chain of dependent point operations per MSM or lane, bound by its
 // latency (they run it on a warp: curve_warp.cuh); fold_many, the same
-// chain on a group of 16 or 8 threads by the launch's width (below), and
+// chain on a group of 16 or 8 threads by the launch's width (below; at 16
+// each product of a round on two threads: curve_warp.cuh), and
 // complete_square, fold_many's launch with phi before it and two additions
 // after; padd, table_flat,
 // reduce_block and reduce_lanes, which at the narrow widths most of their
@@ -645,16 +648,20 @@ __device__ __forceinline__ Pt fold_entry(const FoldEntry* t, int d, int s) {
 // The lane's fold on its group of G threads, after its two tables are in
 // t (t[0] E's, t[1] O's): per row 4 doublings, + the E entry, + the O entry
 // (the JAX scan's order and fold's).  Every thread of the group ends with
-// the sum.
+// the sum.  At G >= 16 each product of a round on two threads
+// (curve_warp.cuh: fe_mul_split); at G = 8 (wide launches, bound by
+// instruction issue; an addition's 12 threads would not fit) one a thread.
+// The same words.
 template <int G>
 __device__ __forceinline__ Pt fold_rows(const FoldEntry (&t)[2][9], const FoldDigits& dg) {
+  constexpr int S = G >= 16 ? 2 : 1;
   Pt acc = pt_identity();
 #pragma unroll 1
   for (int r = 0; r < kFoldRows; r++) {
 #pragma unroll 1
-    for (int k = 0; k < 4; k++) acc = pt_dbl_warp<G>(acc);
-    acc = pt_add_warp<G>(acc, fold_entry(t[0], dg.d[0][r], dg.d[1][r]));
-    acc = pt_add_warp<G>(acc, fold_entry(t[1], dg.d[2][r], dg.d[3][r]));
+    for (int k = 0; k < 4; k++) acc = pt_dbl_warp<G, S>(acc);
+    acc = pt_add_warp<G, S>(acc, fold_entry(t[0], dg.d[0][r], dg.d[1][r]));
+    acc = pt_add_warp<G, S>(acc, fold_entry(t[1], dg.d[2][r], dg.d[3][r]));
   }
   return acc;
 }
@@ -684,8 +691,11 @@ __device__ __forceinline__ Pt pt_select(bool c, const Pt& a, const Pt& b) {
 // Lane w of the launch (of prover w / lanes) on a group of G threads.  The
 // loop is uniform over the block; a group past the last lane computes lane
 // count - 1 again and stores nothing (every thread takes part in the
-// shuffles).
-template <int G>
+// shuffles).  With Phi the O basis is phi(E) (GLV's k P = k1 P + k2 phi(P):
+// shared_mul's fold): the group loads E_j once and makes phi(E_j) =
+// (fe_mul(x, fe_beta()), y, z) in registers, endo_kernel's words, as
+// complete_square_kernel's prologue does; ox..oz are not read.
+template <int G, bool Phi>
 __global__ void __launch_bounds__(32 * kFoldWarps)
     fold_many_kernel(const int64_t* __restrict__ ex, const int64_t* __restrict__ ey,
                      const int64_t* __restrict__ ez, const int64_t* __restrict__ ox,
@@ -699,7 +709,18 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
   FoldEntry(&tab)[2][9] = tabs[slot];
   for (int64_t w0 = blockIdx.x * (int64_t)per; w0 < count; w0 += (int64_t)gridDim.x * per) {
     const int64_t w = w0 + slot, wl = w < count ? w : count - 1, j = first + wl;
-    if constexpr (G >= 16) {  // E on the group's first half, O on its second
+    if constexpr (Phi) {
+      const Pt e = pt_load(ex, ey, ez, n, j);
+      Pt phi = e;
+      phi.x = fe_mul(e.x, fe_beta());
+      if constexpr (G >= 16) {  // E on the group's first half, phi(E) on its second
+        const int h = fold_half<G>();
+        fold_table<G / 2>(tab[h], pt_select(h, phi, e));
+      } else {
+        fold_table<G>(tab[0], e);
+        fold_table<G>(tab[1], phi);
+      }
+    } else if constexpr (G >= 16) {  // E on the group's first half, O on its second
       const int h = fold_half<G>();
       fold_table<G / 2>(tab[h], pt_load(h ? ox : ex, h ? oy : ey, h ? oz : ez, n, j));
     } else {
@@ -799,6 +820,22 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
 // complete_square's parameters: the digits, twelve pointers, four int64s
 static_assert(sizeof(FoldDigitsMany) + 12 * sizeof(void*) + 4 * sizeof(int64_t) <= 4096,
               "complete_square's parameters must fit in 4 KB");
+
+// fold_many_kernel<G, Phi> over `count` lanes; Phi where ox is null.
+template <int G>
+void fold_many_launch(const int64_t* ex, const int64_t* ey, const int64_t* ez, const int64_t* ox,
+                      const int64_t* oy, const int64_t* oz, const FoldDigitsMany& dig,
+                      int64_t* rx, int64_t* ry, int64_t* rz, int64_t n, int64_t lanes,
+                      int64_t first, int64_t count, cudaStream_t s) {
+  const int blocks = blocks_for(count, kFoldManyLanes<G>);
+  if (ox) {
+    fold_many_kernel<G, false><<<blocks, 32 * kFoldWarps, 0, s>>>(ex, ey, ez, ox, oy, oz, dig, rx,
+                                                                  ry, rz, n, lanes, first, count);
+  } else {
+    fold_many_kernel<G, true><<<blocks, 32 * kFoldWarps, 0, s>>>(ex, ey, ez, ex, ey, ez, dig, rx,
+                                                                 ry, rz, n, lanes, first, count);
+  }
+}
 
 inline int fold_blocks(int64_t lanes) {
   const int64_t b = (lanes + kFoldWarps - 1) / kFoldWarps;
@@ -1009,7 +1046,8 @@ int bppp_fold(const int64_t* ex, const int64_t* ey2, const int64_t* ez, const in
 }
 
 // digits: kFoldMaxProvers FoldDigits (those past the launch's provers
-// unused); ex..oz the two bases' (16, n) strict points; the launch folds
+// unused); ex..oz the two bases' (16, n) strict points, or with ox null
+// phi(E) for the O basis (fold_many_kernel<G, true>); the launch folds
 // lanes [first, first + provers * lanes) on groups of `group` threads (8,
 // 16 or 32).
 int bppp_fold_many(const int64_t* ex, const int64_t* ey, const int64_t* ez, const int64_t* ox,
@@ -1023,16 +1061,18 @@ int bppp_fold_many(const int64_t* ex, const int64_t* ey, const int64_t* ez, cons
   const FoldDigitsMany& dig = *static_cast<const FoldDigitsMany*>(digits);
   const int64_t count = provers * lanes;
   const cudaStream_t s = (cudaStream_t)stream;
-#define BPPP_FOLD_MANY(G)                                                                      \
-  fold_many_kernel<G><<<blocks_for(count, kFoldManyLanes<G>), 32 * kFoldWarps, 0, s>>>(        \
-      ex, ey, ez, ox, oy, oz, dig, rx, ry, rz, n, lanes, first, count)
   switch (group) {
-    case 8: BPPP_FOLD_MANY(8); break;
-    case 16: BPPP_FOLD_MANY(16); break;
-    case 32: BPPP_FOLD_MANY(32); break;
+    case 8:
+      fold_many_launch<8>(ex, ey, ez, ox, oy, oz, dig, rx, ry, rz, n, lanes, first, count, s);
+      break;
+    case 16:
+      fold_many_launch<16>(ex, ey, ez, ox, oy, oz, dig, rx, ry, rz, n, lanes, first, count, s);
+      break;
+    case 32:
+      fold_many_launch<32>(ex, ey, ez, ox, oy, oz, dig, rx, ry, rz, n, lanes, first, count, s);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef BPPP_FOLD_MANY
   return (int)cudaGetLastError();
 }
 

@@ -33,13 +33,16 @@
 //    times the arithmetic every kernel runs: one thread per lane, the phase
 //    a template argument, the state in registers across the steps; at
 //    65,536 lanes its throughput, at one warp (32 lanes) the latency of a
-//    dependent step (tools/phase_bench.py).
+//    dependent step (tools/phase_bench.py).  Its round phases run the point
+//    chains' additions and doublings on 16 threads a lane (curve_warp.cuh,
+//    a product on one thread or two) and can clock each part of a round.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+#include "curve_warp.cuh"
 #include "select_reduce.cuh"
 
 using namespace bppp;
@@ -125,6 +128,14 @@ enum Phase {
   kSubRaw2,    // x - 2 b mod p (_sub_f16 of the raw 2 b)
   kCarryFull,  // the canonical value of 2 x + b mod p
   kProdForm,   // the 8 x 8-word schoolbook, its low 256 bits
+  // a complete addition or doubling on a group of kRoundGroup threads a
+  // lane, 3 state planes, in curve_warp.cuh's rounds: a product a thread
+  // (every chain's but fold_rows'), and each product on two threads
+  // (fold_rows' at 16 and 32 threads a lane)
+  kAddWarp,
+  kDblWarp,
+  kAddSplit,
+  kDblSplit,
 };
 
 // The product reduced by one pass T = L + 977 H + 2^32 H, with the carry out
@@ -185,6 +196,91 @@ void launch_chain(const int64_t* a0, const int64_t* a1, const int64_t* a2, const
   chain_kernel<P><<<blocks_for(n), kThreads, 0, s>>>(a0, a1, a2, b0, b1, b2, out, n, rep);
 }
 
+// --- the rounds' phases: x <- pt_add(x, b) or pt_dbl(x) on a group of
+// kRoundGroup threads a lane, its rounds' products on one thread or two.
+// At one warp (2 lanes) the latency of a dependent addition or doubling,
+// two product rounds.  With clocks, group
+// thread 0 of each lane also sums the SM cycles (clock64) each part of its
+// rounds took, RoundPart by RoundPart, into clocks[part * n + lane]: a part
+// ends when its results are ready (PartClock folds their words into a sink
+// before reading the clock).
+constexpr int kRoundGroup = 16;
+
+struct PartClock {
+  long long last;
+  long long cyc[kRoundParts];
+  u32 sink;
+
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int k = 0; k < kRoundParts; k++) cyc[k] = 0;
+    sink = 0;
+    last = clock64();
+  }
+
+  template <class T>
+  __device__ __forceinline__ void wait(const T& v) {
+    const u32* w = reinterpret_cast<const u32*>(&v);
+    u32 x = 0;
+#pragma unroll
+    for (int k = 0; k < (int)(sizeof(T) / 4); k++) x ^= w[k];
+    asm volatile("xor.b32 %0, %0, %1;" : "+r"(sink) : "r"(x));
+  }
+
+  template <class... T>
+  __device__ __forceinline__ void mark(int part, const T&... v) {
+    (wait(v), ...);
+    const long long t = clock64();
+    cyc[part] += t - last;
+    last = t;
+  }
+};
+
+template <int P, class Parts>
+__device__ __forceinline__ Pt round_step(const Pt& x, const Pt& b, Parts& parts) {
+  constexpr int G = kRoundGroup;
+  if constexpr (P == kAddWarp) return pt_add_warp<G, 1>(x, b, parts);
+  if constexpr (P == kDblWarp) return pt_dbl_warp<G, 1>(x, parts);
+  if constexpr (P == kAddSplit) return pt_add_warp<G, 2>(x, b, parts);
+  return pt_dbl_warp<G, 2>(x, parts);
+}
+
+// One launch covers every lane; a group past the last lane runs lane n - 1
+// again and stores nothing (every thread takes part in the shuffles).
+template <int P>
+__global__ void round_kernel(const int64_t* __restrict__ a0, const int64_t* __restrict__ a1,
+                             const int64_t* __restrict__ a2, const int64_t* __restrict__ b0,
+                             const int64_t* __restrict__ b1, const int64_t* __restrict__ b2,
+                             int64_t* __restrict__ out, int64_t n, int rep,
+                             int64_t* __restrict__ clocks) {
+  const int64_t w = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / kRoundGroup;
+  const int64_t j = w < n ? w : n - 1;
+  const bool lead = w < n && (threadIdx.x & (kRoundGroup - 1)) == 0;
+  Pt x = pt_load(a0, a1, a2, n, j);
+  const Pt b = pt_load(b0, b1, b2, n, j);
+  if (clocks) {
+    PartClock pc;
+    pc.start();
+    for (int i = 0; i < rep; i++) x = round_step<P>(x, b, pc);
+    if (lead) {
+#pragma unroll
+      for (int k = 0; k < kRoundParts; k++) clocks[k * n + w] = pc.cyc[k] + (pc.sink == 1u);
+    }
+  } else {
+    NoParts none;
+    for (int i = 0; i < rep; i++) x = round_step<P>(x, b, none);
+  }
+  if (lead) fe_store(out, n, w, x.x);
+}
+
+template <int P>
+void launch_round(const int64_t* a0, const int64_t* a1, const int64_t* a2, const int64_t* b0,
+                  const int64_t* b1, const int64_t* b2, int64_t* out, int64_t n, int rep,
+                  int64_t* clocks, cudaStream_t s) {
+  round_kernel<P><<<blocks_for(n * kRoundGroup), kThreads, 0, s>>>(a0, a1, a2, b0, b1, b2, out, n,
+                                                                   rep, clocks);
+}
+
 }  // namespace
 
 extern "C" {
@@ -221,9 +317,11 @@ int bppp_grid_copy(const int64_t* x, int64_t* o, int64_t L, int64_t rows, int64_
   return (int)cudaGetLastError();
 }
 
+// clocks: null, or for the rounds' phases (kAddWarp..kDblSplit) the
+// (kRoundParts, n) int64 SM cycles of each part (round_kernel).
 int bppp_chain(int phase, const int64_t* a0, const int64_t* a1, const int64_t* a2,
                const int64_t* b0, const int64_t* b1, const int64_t* b2, int64_t* out, int64_t n,
-               int rep, void* stream) {
+               int rep, int64_t* clocks, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   switch (phase) {
@@ -237,6 +335,13 @@ int bppp_chain(int phase, const int64_t* a0, const int64_t* a1, const int64_t* a
     case kSubRaw2: launch_chain<kSubRaw2>(a0, a1, a2, b0, b1, b2, out, n, rep, s); break;
     case kCarryFull: launch_chain<kCarryFull>(a0, a1, a2, b0, b1, b2, out, n, rep, s); break;
     case kProdForm: launch_chain<kProdForm>(a0, a1, a2, b0, b1, b2, out, n, rep, s); break;
+#define BPPP_ROUND(P) \
+  case P: launch_round<P>(a0, a1, a2, b0, b1, b2, out, n, rep, clocks, s); break;
+    BPPP_ROUND(kAddWarp)
+    BPPP_ROUND(kDblWarp)
+    BPPP_ROUND(kAddSplit)
+    BPPP_ROUND(kDblSplit)
+#undef BPPP_ROUND
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

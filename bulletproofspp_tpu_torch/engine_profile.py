@@ -32,9 +32,10 @@ points and lane bucket.
 and the same N one at a time through ``range_proof.prove``, each once to
 warm up, once timed and once under ``torch.profiler``: wall seconds, device
 seconds and the device's idle share, device ms and launches by wrapper,
-and the fold launches of each route (``fold`` one prover a launch,
-``fold_many`` all of a lockstep bucket's, and ``table_flat``: fold_many
-builds its tables in its own launch, fold takes two table_flat launches);
+and the fold launches of each route (``fold_many``: one prover a launch
+one at a time, all of a lockstep bucket's at once, each building its
+tables in its launch; ``fold`` and ``table_flat``, which a fold took two
+of before fold_many took the one-prover fold, stay counted);
 the two routes' proofs must be equal byte for byte.
 
 ``--mp P`` proves examples/128by64 with P parties (contiguous slices of its
@@ -42,8 +43,8 @@ ranges, seeds ``mp party <k>``) on threads and the dealer on another, all
 on one ``TorchEngine`` (``mp-prove --local``'s route), and the same schema
 once by one prover (``range_proof.prove``), each once to warm up, once
 timed and once under ``torch.profiler``: wall and device seconds, the
-idle share, device ms and launches by wrapper, and the fold, table_flat
-and select_reduce launches, for the multiparty route split at the moment
+idle share, device ms and launches by wrapper, and the fold, fold_many,
+table_flat and select_reduce launches, for the multiparty route split at the moment
 the dealer holds every party's final share (before it: the parties'
 phase commitments; after it: the dealer's argument rounds).
 
@@ -249,7 +250,7 @@ def profile_lockstep(n: int, eng):
 
 
 MP_CASE = "128by64"
-MP_COUNTED = ("fold", "table_flat", "select_reduce")
+MP_COUNTED = ("fold", "fold_many", "table_flat", "select_reduce")
 
 
 class _ShareClock:
@@ -288,7 +289,7 @@ def run_multiparty(setup, values, seeds, eng, party_eng=None):
 def profile_multiparty(parties: int, eng, case: str = MP_CASE):
     """Example ``case`` by ``parties`` parties and the dealer on threads over
     one engine, against one prover: for each route the wall seconds of one run
-    and its fold, table_flat and select_reduce launches (the multiparty
+    and its fold, fold_many, table_flat and select_reduce launches (the multiparty
     route's split into the parties' and the dealer's), then the device
     seconds, idle share and device ms by wrapper of another run under the
     profiler."""

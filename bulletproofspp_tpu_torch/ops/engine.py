@@ -276,7 +276,8 @@ class TorchEngine:
     # -- the same on host affine lists (``bulletproofspp_tpu/ops/engine.py:547-587``)
     def fold_bases(self, b: int, a: int, g_even, g_odd):
         """b E_i + a O_i lanes as host affine points / None (None lanes are
-        the identity): one fold and one affine conversion on the device
+        the identity): one fold (a fold_many launch) and one affine
+        conversion on the device
         (``msm.run_fold``), then one copy."""
         if len(g_even) == 0:
             return []
@@ -285,22 +286,22 @@ class TorchEngine:
 
     def shared_mul(self, k: int, pts):
         """k P_i lanes as host affine points / None: k split into its GLV
-        halves (k1, k2), one fold of (P_i, phi(P_i)) with them and one affine
-        conversion on the device, then one copy."""
+        halves (k1, k2), one fold of (P_i, phi(P_i)) with them (phi made in
+        the fold's launch) and one affine conversion on the device, then one
+        copy."""
         if len(pts) == 0:
             return []
         p = self.basevec(pts)
         n = len(p)
         pe = _padded([p], _bucket(n))[0].coords()
         k1, k2 = glv.split(int(k) % R)
-        out = msm.run_fold(pe, curve.endo(pe), *native.recode_signed(k1), *native.recode_signed(k2))
+        out = msm.run_fold(pe, None, *native.recode_signed(k1), *native.recode_signed(k2))
         return curve.affine_lanes_to_host(*out)[:n]
 
     # -- the same for N lockstep provers at once -------------------------------
     def fold_bv_many(self, calls):
         """``fold_bv`` for N lockstep provers: calls is a list of (b, a, even,
-        odd) with identical shapes; one table_flat launch a basis and one
-        batched fold launch for all of them
+        odd) with identical shapes; one fold_many launch a 16 of them
         (``bulletproofspp_tpu/ops/engine.py:511``)."""
         if len(calls) == 1:
             return [self.fold_bv(*calls[0])]

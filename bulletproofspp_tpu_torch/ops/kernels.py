@@ -7,8 +7,12 @@ of 2^21 lanes and more); three replace the Pallas kernels of the JAX
 package's measurement tools (sr_variant and grid_copy of
 ``tools/r5_experiments.py``, chain of ``tools/phase_bench.py``); twelve
 replace XLA-only functions: fold (``fold_mul_kernel`` of
-``bulletproofspp_tpu/ops/msm.py``, basis folding in prove), fold_many
-(its vmap over the provers of a lockstep batch), complete_square (the
+``bulletproofspp_tpu/ops/msm.py``, from two table_flat launches' tables;
+on no path since fold_many takes the one-prover fold: the route fold_many
+is held and timed against), fold_many (basis folding in prove: one
+prover's fold and its vmap over the provers of a lockstep batch, from the
+bases' points; ``fold_phi`` makes its O basis phi(E) in the launch),
+complete_square (the
 square completion the JAX package compiles into one program,
 ``complete_square_kernel`` / ``_csq_with_endo``: phi, that fold and g1 +-
 r g0 in one launch) and decompress
@@ -169,9 +173,21 @@ KERNELS = {
                "tools/r5_experiments.py:115", ("sr_variant_kernel",)),
         Kernel("grid_copy", "tools.cu", "bppp_grid_copy", [_P] * 2 + [_I64] * 3 + [_P],
                "tools/r5_experiments.py:145", ("grid_copy_kernel",)),
-        Kernel("chain", "tools.cu", "bppp_chain", [_I32] + [_P] * 7 + [_I64, _I32, _P],
+        Kernel("chain", "tools.cu", "bppp_chain", [_I32] + [_P] * 7 + [_I64, _I32, _P, _P],
                "tools/phase_bench.py:43", ("chain_kernel",)),
     )
+}
+
+
+# Kernels no main path launches, each with the route it is the yardstick
+# of: the smoke (``chip_smoke.py``) and the tests hold that route against
+# it word for word and time them side by side, and require that no main
+# path launches it.  Each stays while that check stands.
+OFF_PATH = {
+    "select_small": "the select in reduce_lanes', reduce_block's and tail_horner's first level",
+    "pneg": "complete_square's negation",
+    "inv": "to_affine's inverse (limb.inv / limb.batch_inv, which only to_affine calls)",
+    "fold": "fold_many at B = 1 and fold_phi (table_flat x 2 + fold, endo + that route)",
 }
 
 
@@ -743,7 +759,12 @@ def fold_digits(digits) -> bytes:
 
 def fold(te, to, digits):
     """``fold_plain`` on the card: the digits go to the kernel by value
-    (``fold_digits``), so the call neither uploads nor synchronizes."""
+    (``fold_digits``), so the call neither uploads nor synchronizes.  No
+    path calls it: every fold, one prover's too (``msm.fold_mul``), is
+    fold_many's, whose tables are built in its launch.  It stays as the
+    route fold_many replaced (table_flat x 2 + fold), which the smoke and
+    the tests hold fold_many and fold_phi against, word for word, and time
+    them beside."""
     packed = ctypes.create_string_buffer(fold_digits(digits), 4 * glv.ROWS)
     if te[0].device.type == "cpu":
         return fold_plain(te, to, digits)
@@ -789,21 +810,24 @@ def _prover_lanes(pe, digits, name: str = "fold_many") -> tuple:
     return len(d), n // len(d)
 
 
-def _fold_launches(name: str, pts, packed, lanes: int, group, *out):
+def _fold_launches(name: str, pts, packed, lanes: int, group, *out, phi: bool = False):
     """One launch of ``name`` per FOLD_MAX_PROVERS provers over their lanes
     of the (16, B L) planes ``pts``, each with its provers' digits (packed:
     ``fold_digits``) by value and groups of ``group`` threads (None:
-    ``fold_many_group`` of its lanes)."""
+    ``fold_many_group`` of its lanes).  With ``phi`` (fold_many only),
+    ``pts`` is one basis E and the launch makes its O basis phi(E): null O
+    pointers select ``fold_many_kernel<G, true>``."""
     dev = _check(*pts)
     n = pts[0].shape[1]
     if any(t.shape != (limb.NLIMB, n) for t in pts):
         raise ValueError(f"{name} takes its points as (16, B L) planes of one shape")
+    ptrs = _ptrs(*pts) + ([0, 0, 0] if phi else [])
     size = FOLD_MAX_PROVERS * 4 * glv.ROWS
     for p0 in range(0, len(packed), FOLD_MAX_PROVERS):
         chunk = packed[p0:p0 + FOLD_MAX_PROVERS]
         g = group or fold_many_group(len(chunk) * lanes)
         buf = ctypes.create_string_buffer(b"".join(chunk), size)
-        _launch(name, f"B={len(chunk)} L={lanes} G={g}", dev, *_ptrs(*pts),
+        _launch(name, f"B={len(chunk)} L={lanes} G={g}" + (" phi" if phi else ""), dev, *ptrs,
                 ctypes.addressof(buf), *_ptrs(*out), n, lanes, p0 * lanes, len(chunk), g)
 
 
@@ -822,7 +846,9 @@ def fold_many(pe, po, digits):
     """``fold_many_plain`` on the card: one launch per FOLD_MAX_PROVERS
     provers, each prover's digits packed by value (``fold_digits``) into
     the launch, the lanes' tables built in it; the group width by the
-    launch's lanes (``fold_many_group``)."""
+    launch's lanes (``fold_many_group``).  At B = 1 its words are
+    ``fold(table_flat(pe), table_flat(po), digits[0])``'s: the one-prover
+    route (``msm.fold_mul``)."""
     return fold_many_design(pe, po, digits)
 
 
@@ -839,6 +865,27 @@ def fold_many_design(pe, po, digits, group: int | None = None):
     pts = [t.contiguous() for t in (*pe, *po)]
     out = _empty(pts[0].shape, pts[0])
     _fold_launches("fold_many", pts, packed, L, group, *out)
+    return out
+
+
+def fold_phi_plain(p, digits):
+    """``fold_many_plain(p, endo_plain(p), digits)``: per lane b P + a phi(P),
+    GLV's k P for k = b + a lambda (``shared_mul``)."""
+    return fold_many_plain(p, endo_plain(p), digits)
+
+
+def fold_phi(p, digits):
+    """``fold_phi_plain`` on the card: fold_many's launches (counted as
+    fold_many, shape ``"... phi"``) with the O basis phi(p) made in the
+    launch, ``endo``'s words (``fold_many_kernel<G, true>``): equal word for
+    word to ``fold_many(p, endo(p), digits)``, with no endo launch."""
+    _, L = _prover_lanes(p, digits, "fold_phi")
+    packed = [fold_digits(d) for d in digits]
+    if p[0].device.type == "cpu":
+        return fold_phi_plain(p, digits)
+    pts = [t.contiguous() for t in p]
+    out = _empty(pts[0].shape, pts[0])
+    _fold_launches("fold_many", pts, packed, L, None, *out, phi=True)
     return out
 
 
@@ -1455,24 +1502,49 @@ def _sub_c(r, o):
     return v[: limb.NLIMB], 1 - v[limb.NLIMB]
 
 
+def _reduce_words(t):
+    """``field.cuh: fe_reduce512`` of the 32 strict limbs t of a 512-bit
+    product: one pass S = L + 977 H + 2^32 H, then ``fe_fold`` of S's carry."""
+    n = limb.NLIMB
+    lo, hi = t[:n], t[n:]
+    s = torch.zeros((n + 3, *t.shape[1:]), dtype=torch.int64, device=t.device)
+    s[:n] = lo + limb.C_LOW * hi
+    s[2 : n + 2] += hi
+    s = _carry(s)
+    return _fold_words(s[:n], s[n] + (s[n + 1] << 16) + (s[n + 2] << 32))
+
+
+def _split_product(x, b):
+    """``curve_warp.cuh: fe_mul_split``'s 512-bit product, limb for limb: thread
+    2j forms x times b's low 128 bits and thread 2j + 1 x times its high 128
+    (``fe_mul_half``: 24 limbs each); the second is added at limb 8 (word
+    4) by a carry chain over the 32 limbs of the 512-bit product."""
+    h = limb.NLIMB // 2
+    low = torch.cat([b[:h], torch.zeros_like(b[h:])])
+    high = torch.cat([b[h:], torch.zeros_like(b[h:])])
+    p0, p1 = _product(x, low), _product(x, high)
+    cols = p0.clone()
+    cols[h:] += p1[:-h]
+    return _carry(cols)
+
+
 def field_words(op: str, x, b):
     """The exact words (as strict 16-bit limbs) that ``csrc/field.cuh``
     returns for ``fe_mul`` ("mul"), ``fe_add`` ("add") and ``fe_sub``
     ("sub") of strict (16, ...) limbs: its representative, not only its
     value mod p.  mul: one pass S = L + 977 H + 2^32 H over the product L +
-    2^256 H, then ``fe_fold`` of S's carry; add: the sum's carry folded;
-    sub: the difference, then C subtracted on each borrow, at most twice.
-    Exact integer arithmetic on int64 limbs; ``chip_smoke.py`` holds the
-    chain kernel's mul_f16, add and sub phases to it raw."""
-    n = limb.NLIMB
+    2^256 H, then ``fe_fold`` of S's carry; "mul_split": the same reduction
+    of the product formed as ``fe_mul_split`` forms it
+    (``_split_product``: two halves on two threads, added at word 4), which
+    must be fe_mul's words; add: the sum's carry folded; sub: the
+    difference, then C subtracted on each borrow, at most twice.  Exact
+    integer arithmetic on int64 limbs; ``chip_smoke.py`` holds the chain
+    kernel's mul_f16, add and sub phases to it raw."""
     if op == "mul":
-        t = _product(x, b)
-        lo, hi = t[:n], t[n:]
-        s = torch.zeros((n + 3, *x.shape[1:]), dtype=torch.int64, device=x.device)
-        s[:n] = lo + limb.C_LOW * hi
-        s[2 : n + 2] += hi
-        s = _carry(s)
-        return _fold_words(s[:n], s[n] + (s[n + 1] << 16) + (s[n + 2] << 32))
+        return _reduce_words(_product(x, b))
+    if op == "mul_split":
+        return _reduce_words(_split_product(x, b))
+    n = limb.NLIMB
     if op == "add":
         s = _carry(torch.cat([x + b, torch.zeros_like(x[:1])]))
         return _fold_words(s[:n], s[n])
@@ -1543,5 +1615,58 @@ def chain(phase: str, a, b, rep: int = 8):
         raise ValueError("chain planes must all be (16, L)")
     a = a + [a[0]] * (3 - nstate)
     out = torch.empty_like(a[0])
-    _launch("chain", f"L={n}", dev, idx, *_ptrs(*a, *b, out), n, rep)
+    _launch("chain", f"L={n}", dev, idx, *_ptrs(*a, *b, out), n, rep, 0)
+    return out
+
+
+# The rounds of the point chains as phases of the chain kernel
+# (``csrc/tools.cu: round_kernel``): name -> (phase index, addition).  The
+# state is a point, b a point: x <- x + b (addition) or 2 x each step, a
+# lane on 16 threads (``tools.cu: kRoundGroup``), in ``csrc/curve_warp.cuh``'s
+# rounds: "warp", a product a thread (every point chain's but fold_rows'),
+# or "split", each product on two threads (``fe_mul_split``: fold_rows' at
+# 16 and 32 threads a lane).
+ROUND_PHASES = {
+    "add_warp": (10, True), "dbl_warp": (11, False),
+    "add_split": (12, True), "dbl_split": (13, False),
+}
+# curve_warp.cuh: RoundPart, the parts round_chain's clocks sum
+ROUND_PARTS = ("form", "product", "combine", "broadcast", "steps")
+
+
+def round_chain_plain(phase: str, a, b, rep: int = 8):
+    """x <- x + b (``padd_plain``) or 2 x (``curve.pdbl``) ``rep`` times;
+    returns the first state plane."""
+    add = ROUND_PHASES[phase][1]
+    x = tuple(a)
+    for _ in range(rep):
+        x = padd_plain(x, b) if add else curve.pdbl(x)
+    return x[0]
+
+
+def round_chain(phase: str, a, b, rep: int = 8, clocks=None):
+    """``round_chain_plain`` on the card through the chain kernel, a lane on
+    ROUND_GROUP threads (ROUND_PHASES: which rounds).  a, b: three (16, L)
+    planes each.  ``clocks``: None, or a (len(ROUND_PARTS), L) int64 tensor
+    on the card that receives, a lane, the SM cycles each part of its
+    rounds took over the ``rep`` steps (``clock64`` in the kernel; the card
+    only)."""
+    idx = ROUND_PHASES[phase][0]
+    if len(a) != 3 or len(b) != 3:
+        raise ValueError(f"round_chain {phase}: 3 state planes and 3 b planes")
+    if a[0].device.type == "cpu":
+        return round_chain_plain(phase, a, b, rep)
+    a = [t.contiguous() for t in a]
+    b = [t.contiguous() for t in b]
+    dev = _check(*a, *b)
+    n = a[0].shape[1]
+    if any(t.shape != (limb.NLIMB, n) for t in (*a, *b)):
+        raise ValueError("round_chain planes must all be (16, L)")
+    if clocks is not None and (clocks.shape != (len(ROUND_PARTS), n) or clocks.dtype != torch.int64
+                               or clocks.device != dev or not clocks.is_contiguous()):
+        raise ValueError(f"round_chain clocks must be a contiguous ({len(ROUND_PARTS)}, {n}) "
+                         "int64 tensor on the planes' device")
+    out = torch.empty_like(a[0])
+    _launch("chain", f"L={n} {phase}", dev, idx, *_ptrs(*a, *b, out), n, rep,
+            0 if clocks is None else clocks.data_ptr())
     return out

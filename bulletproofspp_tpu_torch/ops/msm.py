@@ -121,16 +121,22 @@ def fold_mul(pe, po, de, se, do, so):
     (``bulletproofspp_tpu/ops/msm.py:247`` fold_mul_kernel).
 
     pe, po: (16, L) strict projective lanes (identity encodes None);
-    de/se, do/so: host digit rows (ROWS,) of the scalars for E and O.
-    The tables come from the table_flat kernel, the 33 rows from the fold
-    kernel."""
-    return kernels.fold(kernels.table_flat(pe), kernels.table_flat(po), np.stack([de, se, do, so]))
+    de/se, do/so: host digit rows (ROWS,) of the scalars for E and O.  One
+    fold_many launch at B = 1, which builds the lanes' two tables itself
+    (as ``fold_mul_kernel`` does) and runs the 33 rows: no table_flat
+    launch.  Its words are table_flat + fold's, the route it replaced."""
+    return kernels.fold_many(pe, po, np.stack([de, se, do, so])[None])
 
 
 def run_fold(pe, po, de, se, do, so):
     """``fold_mul``, then the lanes to affine on the device
     (``bulletproofspp_tpu/ops/msm.py:313-321``): (x, y, inf) of
-    ``curve.to_affine``."""
+    ``curve.to_affine``.  With ``po`` None the O basis is phi(pe), made in
+    the fold_many launch (``kernels.fold_phi``: GLV's halves of a shared
+    scalar, ``shared_mul``'s fold; the JAX engine runs ``curve.endo`` before
+    ``run_fold``): no endo launch."""
+    if po is None:
+        return curve.to_affine(kernels.fold_phi(pe, np.stack([de, se, do, so])[None]))
     return curve.to_affine(fold_mul(pe, po, de, se, do, so))
 
 

@@ -7,7 +7,11 @@ times each case below back to back (``bench.sampled``: the median of
 CUDA-event samples, repetitions doubling until the IQR is under 10%), on
 numpy-seeded inputs at the shapes of ``chip_smoke.py``'s kernel rows: the
 wide and narrow padd, table_flat, reduce_block, tail_horner, horner, fold,
-fold_many, complete_square, select_reduce (both designs), sr_variant
+fold_many (B = 1 at 16, 512 and 4,096 lanes beside table_flat x 2 + fold,
+the one-prover route it replaced, and endo + that route, shared_mul's,
+against its phi form where the checkout has it; B = 2 and 16 at 16 lanes,
+16 at 512), complete_square (B = 1 at 16 and 256 lanes, 16 at 16),
+select_reduce (both designs), sr_variant
 (blk 1,024 / out 128, with and without its selection), select_reduce_fused
 at 4,096 and 2^21 lanes, decompress, to_affine, inv, endo, pneg,
 normalize3, select_small, assemble and reduce_lanes.  Then, unless ``--quick``, the rows of ``tools.phase_bench``
@@ -101,10 +105,19 @@ def cases(rng) -> dict:
     fd = fold_digits(1, rng)
     fe, fo = kernels.table_flat(points(512, rng)), kernels.table_flat(points(512, rng))
     out["fold L=512"] = lambda: kernels.fold(fe, fo, fd[0])
-    for B, L in ((2, 16), (16, 512)):
+    for B, L in ((1, 16), (1, 512), (1, 4096), (2, 16), (16, 16), (16, 512)):
         pe, po, d = points(B * L, rng), points(B * L, rng), fold_digits(B, rng)
         out[f"fold_many B={B} L={L}"] = lambda pe=pe, po=po, d=d: kernels.fold_many(pe, po, d)
-    for B, L in ((1, 16), (16, 16)):
+        if B > 1:
+            continue
+        # the one-prover route before fold_many took it, and shared_mul's
+        out[f"table_flat x 2 + fold L={L}"] = lambda pe=pe, po=po, d=d: kernels.fold(
+            kernels.table_flat(pe), kernels.table_flat(po), d[0])
+        out[f"endo + table_flat x 2 + fold L={L}"] = lambda pe=pe, d=d: kernels.fold(
+            kernels.table_flat(pe), kernels.table_flat(kernels.endo(pe)), d[0])
+        if hasattr(kernels, "fold_phi"):
+            out[f"fold_many phi B=1 L={L}"] = lambda pe=pe, d=d: kernels.fold_phi(pe, d)
+    for B, L in ((1, 16), (1, 256), (16, 16)):
         g0, g1, d = points(B * L, rng), points(B * L, rng), fold_digits(B, rng)
         out[f"complete_square B={B} L={L}"] = (
             lambda g0=g0, g1=g1, d=d: kernels.complete_square(g0, g1, d))

@@ -37,7 +37,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      digits and sign 1, no table_flat launch, its three group widths equal
      raw and timed in turns, the wrapper in turns with the route it
      replaced (two table_flat launches and B fold launches on the same
-     lanes), and at B = 1 equal word for word to table_flat + fold;
+     lanes), and at B = 1 equal word for word to table_flat + fold; the
+     one-prover fold (``msm.fold_mul``'s and ``shared_mul``'s route) at
+     ``FOLD_ONE_LANES`` (16, 512 and 4,096 lanes): fold_many at B = 1 and
+     its phi form (``kernels.fold_phi``, the O basis phi(E) made in the
+     launch), one fold_many launch each, equal word for word to table_flat
+     x 2 + fold and to endo + table_flat x 2 + fold, timed in turns with
+     them;
      complete_square, the square completion in one launch (phi, fold_many's
      fold and g1 +- r g0), at ``CSQ_CASES`` (B provers of L lanes: 1 x 16
      and 256, 2 x 16, 16 x 16, 4 x 64, and 16 x 128, 2,048 lanes, the
@@ -52,7 +58,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      design (all equal to it limb for limb); chain's ten phases on lanes
      with edge values (``edge_planes``), mul_f16, add and sub also equal
      raw, at 1 and 8 steps, to field.cuh's representative
-     (``kernels.field_words``).  select_reduce_fused, with a
+     (``kernels.field_words``), and its round phases
+     (``kernels.ROUND_PHASES``: the point chains' rounds, fold_rows' split
+     product among them) at 4,096 lanes against their plain versions, 1 and
+     8 steps (phase_bench, in phase 8, times them on one warp and prints
+     each round's parts and the old and new fold_rows round).
+     select_reduce_fused, with a
      row of zero digits and sign 1, equals the two kernels table_flat +
      select_reduce limb for limb (raw) at 4,096 lanes and at 2^21 lanes,
      and is timed in turns with them, each route's peak device memory
@@ -122,7 +133,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      on ``TorchEngine`` equal to the same run on ``HostEngine``; ``mp-demo
      --parties 3`` over TCP and ``--local`` ("True"); ``fold_bases`` and
      ``shared_mul`` at 16, 512 and 4,096 lanes equal to ``HostEngine``'s,
-     each call through exactly one ``to_affine`` launch; and
+     each call exactly one fold_many and one ``to_affine`` launch; and
      ``engine_profile``'s multiparty profile (4 parties and the dealer
      on one engine against one prover);
   12. the sharded MSM: (a) log ``torch.cuda.device_count()``; (b) hold the
@@ -146,8 +157,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      Q, Q - 1, x = 0, saturated limbs, values in [Q, 2^256)), word for
      word, each timed at 16, 4,096 and 65,536; (b) counted from 0, the
      affine path at 4,096 lanes alone: one ``fold_bases`` and one
-     ``shared_mul`` on ``TorchEngine``, which launch fold 2, table_flat 4,
-     to_affine 2, endo 1 and no other kernel (``inv`` is on no path: the JAX
+     ``shared_mul`` on ``TorchEngine``, which launch fold_many 2 (the second
+     making phi in its launch), to_affine 2 and no other kernel (``inv`` is
+     on no path: the JAX
      package calls ``limb.inv`` / ``batch_inv`` only from ``to_affine``,
      which the to_affine kernel fuses); then, after the counts are read,
      both equal to their route before device conversion
@@ -227,7 +239,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   its first reduction), reduce_lanes only under 128 lanes; none of
   normalize3 on cli test (each MSM's result leaves horner canonical); no
   endo, pneg or padd on cli test, prove-batch and the service (their
-  square completions launch complete_square), and pneg on no path.
+  square completions launch complete_square), pneg on no path, and fold on
+  no path (every fold, one prover's too, is fold_many's).
 
 The line before the last is one JSON object with, for each kernel and
 each shape it is timed at (select_reduce twice: 4,096 lanes, its gather
@@ -237,7 +250,8 @@ route; padd at 1,056 lanes, the halving trees' commonest, and 65,536;
 table_flat at 16, fold's, and 4,096; reduce_block at W = 33,792, f = 8,
 the bench's second launch, and W = 16,896, f = 4, cli test's commonest;
 decompress at 16 lanes, cli test's smallest, and 16,384; fold_many at B =
-2 and 16 of L = 16 and 512 and B = 4 of 512; complete_square at each of
+2 and 16 of L = 16 and 512 and B = 4 of 512, and at B = 1 with and without
+phi at 16, 512 and 4,096; complete_square at each of
 CSQ_CASES; inv and to_affine at 16, 4,096 and 65,536;
 select_small at B = 2, L = 16 and B = 1, L = 512; endo interleaved at K =
 2 of 8 lanes, 2,048, 32,768 and 2^20 lanes, and at 16 lanes; pneg at 16; normalize3 at
@@ -298,6 +312,11 @@ PROVE_BATCH = (("64bit", 16), ("32bit", 4), ("rec_test", 4), ("bin_test", 4), ("
 # (provers, lanes of each): lockstep's commonest and widest launches, and at
 # 2,048 lanes the narrowest that takes the 8-thread group
 FOLD_MANY_CASES = ((2, 16), (16, 16), (2, 512), (4, 512), (16, 512))
+# lanes of the one-prover fold (fold_bases' and shared_mul's 16 to 4,096: at
+# 4,096 fold_many takes the 8-thread group), fold_many at B = 1 with and
+# without phi
+FOLD_ONE_LANES = (16, 512, 4096)
+ROUND_LANES = 4096  # chain's round phases, held against their plain versions
 # (provers, lanes of each) of complete_square: the paths' square completions
 # (one prover of 16 to 256 lanes, lockstep's 2 and 16 of 16, 4 of 64) and 16
 # of 128, 2,048 lanes a launch, where it takes the 8-thread group
@@ -321,8 +340,7 @@ AFFINE_LANES = 4096
 # phase 14: the kernels each proof leg of the bench must launch, and the
 # size of the batch leg's run as a subprocess
 BENCH_REQUIRED = {
-    "proofs": {"fold", "fold_many", "table_flat", "horner", "tail_horner", "assemble",
-               "reduce_lanes"},
+    "proofs": {"fold_many", "table_flat", "horner", "tail_horner", "assemble", "reduce_lanes"},
     "mixed": set(),
     "serve": {"fold_many", "decompress"},
     "batch": {"decompress", "table_flat", "select_reduce", "reduce_block", "tail_horner"},
@@ -840,6 +858,7 @@ def check_kernels(dev):
                  time_ms(lambda: kernels.fold_plain(e, o, digits), 1, paced=True), "L=512 rows=33",
                  bounds.fold(512, digits)))
     rows += check_fold_many(dev, rng)
+    rows += check_fold_one(dev, rng)
     rows += check_complete_square(dev, rng)
     rows += check_fused(dev, rng)
 
@@ -974,6 +993,53 @@ def check_fold_many(dev, rng):
                      f"B={B} L={L} G={g} rows={ROWS}", bounds.fold_many(B * L, digits),
                      {"chain": bounds.fold_many_chain(ROWS, g), "group_ms": groups,
                       "replaced_route_ms": means["table_flat x 2 + B folds"]}))
+    return rows
+
+
+def check_fold_one(dev, rng):
+    """Phase 2, the one-prover fold at FOLD_ONE_LANES: fold_many at B = 1
+    (``msm.fold_mul``'s launch) and its phi form (``kernels.fold_phi``,
+    ``shared_mul``'s), each one fold_many launch and nothing else, equal word
+    for word to the routes they replaced on the same lanes (table_flat x 2 +
+    fold, and endo + table_flat x 2 + fold) and to their plain versions after
+    normalization; each timed in turns with its replaced route.  Returns a
+    row for each (lanes, form)."""
+    from bulletproofspp_tpu_torch import bounds
+    from bulletproofspp_tpu_torch.ops import kernels
+
+    rows = []
+    for L in FOLD_ONE_LANES:
+        pe, po = (random_points(L, rng, dev)[0] for _ in range(2))
+        digits = prover_digits(1, rng)
+        g = kernels.fold_many_group(L)
+        forms = {
+            "": (lambda: kernels.fold_many(pe, po, digits),
+                 lambda: kernels.fold(kernels.table_flat(pe), kernels.table_flat(po), digits[0]),
+                 lambda: kernels.fold_many_plain(pe, po, digits), "table_flat x 2 + fold",
+                 bounds.fold_many(L, digits), bounds.fold_many_chain(ROWS, g)),
+            " phi": (lambda: kernels.fold_phi(pe, digits),
+                     lambda: kernels.fold(kernels.table_flat(pe),
+                                          kernels.table_flat(kernels.endo(pe)), digits[0]),
+                     lambda: kernels.fold_phi_plain(pe, digits), "endo + table_flat x 2 + fold",
+                     bounds.fold_phi(L, digits), bounds.fold_phi_chain(ROWS, g)),
+        }
+        for form, (fn, route, plain, route_name, work, chain) in forms.items():
+            shape = f"B=1 L={L} G={g}{form}"
+            kernels.reset_counts()
+            got = fn()
+            launched = {k: v for k, v in kernels.shape_counts().items() if v}
+            if launched != {"fold_many": {shape: 1}}:
+                raise AssertionError(f"fold_many {shape} launched {launched}")
+            same_raw(f"fold_many {shape} against {route_name}", got, route())
+            plain_ms, want = plain_once(plain)
+            err = compare(f"fold_many {shape}", got, want)
+            means, both = in_turns({"fold_many": fn, route_name: route}, 5)
+            log(f"fold_many {shape}: one launch, equal word for word to {route_name} and to its "
+                f"plain version after normalization; in turns with that route (ms) "
+                f"{json.dumps(both)}; fold_many / route "
+                f"{means['fold_many'] / means[route_name]:.4f}")
+            rows.append(("fold_many", err, means["fold_many"], plain_ms, f"{shape} rows={ROWS}",
+                         work, {"chain": chain, "replaced_route_ms": means[route_name]}))
     return rows
 
 
@@ -1114,6 +1180,21 @@ def check_measurement_kernels(dev, rng):
         "mul_f16, add and sub equal raw to field.cuh's representative (kernels.field_words)")
     # ten launches: the bound is the sum of each phase's own
     rows.append(("chain", 0, ms, plain_ms, f"L={L} rep=8, 10 phases summed", works))
+    # chain's round phases (kernels.ROUND_PHASES: the point chains' rounds,
+    # fold_rows' among them, a lane on 16 threads) at ROUND_LANES lanes with
+    # edge lanes, 1 and 8 steps, against their plain versions; phase_bench
+    # (phase 8) times them on one warp
+    for phase in kernels.ROUND_PHASES:
+        a = tuple(edge_planes(ROUND_LANES, rng, dev, sh) for sh in (0, 5, 3))
+        b = tuple(edge_planes(ROUND_LANES, rng, dev, sh) for sh in (7, 2, 9))
+        for rep in (1, 8):
+            got = limb.normalize(kernels.round_chain(phase, a, b, rep))
+            want = limb.normalize(kernels.round_chain_plain(phase, a, b, rep))
+            if not torch.equal(got, want):
+                raise AssertionError(f"chain's round phase {phase} rep={rep} disagrees with its "
+                                     "plain version")
+    log(f"chain's round phases {sorted(kernels.ROUND_PHASES)} at {ROUND_LANES} lanes, edge lanes: "
+        "equal to their plain versions after normalization, 1 and 8 steps")
     return rows
 
 
@@ -1612,10 +1693,11 @@ def engine_interface(dev):
     rng = np.random.default_rng(SEED + 11)
 
     def one_to_affine(call, *args):
-        before = kernels.counts()["to_affine"]
+        before = kernels.counts()
         out = getattr(eng, call)(*args)
-        if kernels.counts()["to_affine"] - before != 1:
-            raise AssertionError(f"{call} did not convert through one to_affine launch")
+        made = {k: n - before[k] for k, n in kernels.counts().items() if n != before[k]}
+        if made != {"fold_many": 1, "to_affine": 1}:
+            raise AssertionError(f"{call} launched {made}, not one fold_many and one to_affine")
         return out
 
     for n in MP_LANES:
@@ -1628,7 +1710,7 @@ def engine_interface(dev):
             if one_to_affine("shared_mul", k, even) != host.shared_mul(k, even):
                 raise AssertionError(f"shared_mul at {n} lanes (k = {k}) differs from HostEngine's")
     log(f"fold_bases and shared_mul at {', '.join(map(str, MP_LANES))} lanes (None lanes, zero "
-        "scalars): equal to HostEngine's, one to_affine launch a call")
+        "scalars): equal to HostEngine's, one fold_many and one to_affine launch a call")
 
 
 def multiparty_phase(dev, work, required):
@@ -1863,8 +1945,9 @@ def check_affine(dev):
 
 def affine_phase(dev):
     """Phase 13 (b): counted from 0, the affine path at AFFINE_LANES lanes
-    alone: one TorchEngine.fold_bases and one shared_mul (fold 2,
-    table_flat 4, to_affine 2, endo 1 (shared_mul's phi), nothing else).
+    alone: one TorchEngine.fold_bases and one shared_mul (fold_many 2, the
+    second making shared_mul's phi in its launch, to_affine 2, nothing
+    else).
     Only after the counts are read: both equal to their route before device
     affine conversion (the fold's lanes normalized, copied and inverted on
     the host,
@@ -1902,7 +1985,7 @@ def affine_phase(dev):
     got = {name: routes[name]() for name in ("fold_bases", "shared_mul")}
     torch.cuda.synchronize()
     launches, shapes = kernels.counts(), kernels.shape_counts()
-    want = {"fold": 2, "table_flat": 4, "to_affine": 2, "endo": 1}
+    want = {"fold_many": 2, "to_affine": 2}
     if {name: c for name, c in launches.items() if c} != want:
         raise AssertionError(f"the affine path launched {launches}, want {want} and nothing else")
     for name in ("fold_bases", "shared_mul"):
@@ -2641,11 +2724,12 @@ def main() -> int:
         launches, cli_shapes = kernels.counts(), kernels.shape_counts()
         log(f"launches on the main path: {launches}")
         require_launched("cli test", launches, set(launches) - {
-            "select_reduce_fused", "sr_variant", "grid_copy", "chain", "fold_many", "inv",
+            "select_reduce_fused", "sr_variant", "grid_copy", "chain", "fold", "inv",
             "to_affine", "select_small", "normalize3", *SQUARE_OPS})
         # the MSMs select in their reductions and store canonical; the square
-        # completion makes phi, the negation and both sums in its launch
-        unfused = {k: launches[k] for k in ("select_small", "normalize3", *SQUARE_OPS)}
+        # completion makes phi, the negation and both sums in its launch; the
+        # one-prover folds are fold_many's (no fold, no table_flat for them)
+        unfused = {k: launches[k] for k in ("select_small", "normalize3", "fold", *SQUARE_OPS)}
         if any(unfused.values()):
             raise AssertionError(f"cli test launched {unfused}")
         require_port_only()
@@ -2657,13 +2741,13 @@ def main() -> int:
         require_launched("prove-batch", {k: sum(v.values()) for k, v in prove_batch.items()},
                          {"complete_square", "horner", "tail_horner", "table_flat", "fold_many",
                           *ASSEMBLY_OPS})
-        require_none("prove-batch", prove_batch, SQUARE_OPS)
+        require_none("prove-batch", prove_batch, (*SQUARE_OPS, "fold"))
         require_port_only()
         served = serve_phase(dev, batch_items)
         require_launched("serve", {k: sum(v.values()) for k, v in served.items()},
                          {"complete_square", "table_flat", "fold_many", "decompress",
                           *ASSEMBLY_OPS})
-        require_none("serve", served, SQUARE_OPS)
+        require_none("serve", served, (*SQUARE_OPS, "fold"))
         require_port_only()
         multiparty = multiparty_phase(
             dev, work, {k for k, n in by_example[MP_EXAMPLE].items() if n})
@@ -2695,10 +2779,13 @@ def main() -> int:
         for k, by_shape in run.items():
             shapes[k].update(by_shape)
     launches = {k: sum(v.values()) for k, v in shapes.items()}
-    # inv, select_small and pneg: on no path (select_small's and pneg's
-    # launches, the unfused routes' yardsticks, are phase 2's, 15's and 16's,
-    # made outside the counted runs)
-    require_launched("the main paths", launches, set(launches) - {"inv", "select_small", "pneg"})
+    # kernels.OFF_PATH (inv, select_small, pneg, fold): on no path (their
+    # launches, the yardsticks of the routes that replaced them, are phase
+    # 2's, 13's, 15's and 16's, made outside the counted runs)
+    require_launched("the main paths", launches, set(launches) - set(kernels.OFF_PATH))
+    off = {k: launches[k] for k in kernels.OFF_PATH if launches[k]}
+    if off:
+        raise AssertionError(f"kernels off the main paths launched on them: {off}")
     narrow = [sh for sh in shapes["reduce_lanes"] if not 2 <= parse_shape(sh)["L"] < 128]
     if narrow or launches["select_small"]:  # every MSM selects in its first reduction
         raise AssertionError(f"reduce_lanes outside 2-127 lanes {narrow}, select_small "

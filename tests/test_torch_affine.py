@@ -27,7 +27,7 @@ from bulletproofspp_tpu_torch import bounds
 from bulletproofspp_tpu_torch.core import ec
 from bulletproofspp_tpu_torch.core.engine import HostEngine
 from bulletproofspp_tpu_torch.core.fields import Q, R
-from bulletproofspp_tpu_torch.ops import curve, kernels, limb
+from bulletproofspp_tpu_torch.ops import curve, glv, kernels, limb
 from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
 # 0, 1, Q (strict, = 0 mod p), Q - 1, values in [Q, 2^256) (strict, not
@@ -331,6 +331,27 @@ def test_fold_bases_and_shared_mul_equal_the_jax_and_host_engines(n):
     for k in (rng.randrange(R), 0, R - 1):
         got = ENGINE.shared_mul(k, even)
         assert got == host.shared_mul(k, even) == jeng.shared_mul(k, even), k
+
+
+def test_fold_phi_plain_equals_the_jax_run_fold_after_endo():
+    """``kernels.fold_phi`` on the CPU (its plain version: fold_many_plain of
+    P and endo(P)) at 16 lanes, None lanes among them, then to affine: x, y
+    and inf equal to the JAX package's ``run_fold(P, curve.endo(P), ...)``
+    with the GLV halves' digits."""
+    jcurve, jmsm, jglv = _jax("ops.curve"), _jax("ops.msm"), _jax("ops.glv")
+    jnp = pytest.importorskip("jax.numpy")
+    pts = _points(16, 31)
+    k = random.Random(32).randrange(R)
+    k1, k2 = glv.split(k)
+    digits = np.stack([*glv.recode_signed(k1), *glv.recode_signed(k2)])
+    assert np.array_equal(digits, np.stack([*jglv.recode_signed(k1), *jglv.recode_signed(k2)]))
+    got = kernels.to_affine_plain(*kernels.fold_phi(curve.from_affine_host(pts, "cpu"),
+                                                    digits[None]))
+    jp = jcurve.from_affine_host(pts)
+    want = jmsm.run_fold(*jp, *jcurve.endo(jp), *(jnp.asarray(d) for d in digits))
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    assert curve.affine_lanes_to_host(*got) == HostEngine().shared_mul(k, pts)
 
 
 def test_fold_bases_and_shared_mul_convert_once_on_the_device(monkeypatch):

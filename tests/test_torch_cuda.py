@@ -214,6 +214,29 @@ def test_cuda_chain_matches_plain_version(phase):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("phase", sorted(kernels.ROUND_PHASES))
+def test_cuda_round_phases_match_plain_version(phase):
+    """The point chains' rounds (a product on one thread, and on two) on 16
+    threads a lane at 520 lanes (not a multiple of a block's 8 lanes),
+    saturated and edge limbs among them, equal to their plain versions
+    after normalization; the clocks hold each part's cycles."""
+    dev = _card()
+    rng = np.random.default_rng(67)
+    a, b = ([torch.as_tensor(rng.integers(0, 1 << 16, size=(16, 520)), device=dev)
+             for _ in range(3)] for _ in range(2))
+    for t in (*a, *b):
+        t[:, :4] = 0xFFFF
+    a[0][:, 4:7] = limb.from_ints([0, Q - 1, (1 << 256) - 1], dev)
+    for rep in (1, 8):
+        got = kernels.round_chain(phase, a, b, rep)
+        assert torch.equal(limb.normalize(got),
+                           limb.normalize(kernels.round_chain_plain(phase, a, b, rep))), rep
+    clocks = torch.zeros((len(kernels.ROUND_PARTS), 520), dtype=torch.int64, device=dev)
+    assert torch.equal(kernels.round_chain(phase, a, b, 8, clocks), got)
+    assert bool((clocks.sum(0) > 0).all())
+
+
+@pytest.mark.cuda
 def test_cuda_padd_thread_counts_agree():
     dev = _card()
     p, q = _points(4096, 64, dev), _points(4096, 65, dev)
@@ -289,6 +312,29 @@ def test_cuda_fold_many_matches_plain_version(B, L):
     if B == 1:
         want = kernels.fold(kernels.table_flat(pe), kernels.table_flat(po), digits[0])
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [16, 520, 4096])  # 4,096: the 8-thread group
+def test_cuda_fold_phi_equals_endo_and_the_fold(L):
+    """fold_many with phi(E) made in the launch: one fold_many launch, word
+    for word endo + table_flat x 2 + fold and fold_many(p, endo(p)), and its
+    plain version after normalization."""
+    dev = _card()
+    p = _points(L, 75, dev)
+    digits = _prover_digits(1, 76)
+    kernels.fold_phi(p, digits)  # builds the library
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    got = kernels.fold_phi(p, digits)
+    g = kernels.fold_many_group(L)
+    assert kernels.shape_counts()["fold_many"] == {f"B=1 L={L} G={g} phi": 1}
+    assert sum(kernels.counts().values()) == 1
+    phi = kernels.endo(p)
+    for want in (kernels.fold(kernels.table_flat(p), kernels.table_flat(phi), digits[0]),
+                 kernels.fold_many(p, phi, digits)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _same(got, kernels.fold_phi_plain(p, digits))
 
 
 @pytest.mark.cuda
@@ -528,8 +574,9 @@ def _affine_lanes(n: int, seed: int):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [16, 520])
 def test_cuda_fold_bases_and_shared_mul_equal_host_engine(n):
-    """One fold launch each on the card, equal to HostEngine's affine lists
-    (None lanes, zero scalars)."""
+    """One fold_many launch each on the card (shared_mul's with phi made in
+    it) and no fold, equal to HostEngine's affine lists (None lanes, zero
+    scalars)."""
     from bulletproofspp_tpu_torch.core.engine import HostEngine
     from bulletproofspp_tpu_torch.core.fields import R
     from bulletproofspp_tpu_torch.ops.engine import TorchEngine
@@ -539,11 +586,11 @@ def test_cuda_fold_bases_and_shared_mul_equal_host_engine(n):
     for b, a in ((7**45, -(11**36)), (0, 3**80), (0, 0)):
         kernels.reset_counts()
         assert eng.fold_bases(b, a, even, odd) == host.fold_bases(b, a, even, odd)
-        assert kernels.counts()["fold"] == 1
+        assert kernels.counts()["fold_many"] == 1 and kernels.counts()["fold"] == 0
     for k in (R - 12345, 0):
         kernels.reset_counts()
         assert eng.shared_mul(k, even) == host.shared_mul(k, even)
-        assert kernels.counts()["fold"] == 1
+        assert kernels.counts()["fold_many"] == 1 and kernels.counts()["endo"] == 0
 
 
 @pytest.mark.cuda
@@ -590,7 +637,7 @@ def test_cuda_two_party_rec_test_equals_host_engine():
     eng = TorchEngine(dev)
     kernels.reset_counts()
     got = run(eng)
-    assert kernels.counts()["fold"] > 0
+    assert kernels.counts()["fold_many"] > 0
     assert got == run(HostEngine())
     assert rpm.verify(setup, rpm.decode_proof(setup, *got, engine=eng), eng)
 

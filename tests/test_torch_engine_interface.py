@@ -68,16 +68,17 @@ def test_fold_bases_and_shared_mul_equal_the_jax_engine_device_path():
 
 def test_each_runs_one_fold_on_the_fold_path(monkeypatch):
     """fold_bases is fold_bv and a copy to the host; shared_mul one fold of
-    (P, phi(P)) with the GLV halves of k: one fold (and its two table_flat
-    calls) each, whatever the width (no host shortcut)."""
+    (P, phi(P)) with the GLV halves of k, phi made in the fold's launch: one
+    fold_many call each (shared_mul's through fold_phi) and no table_flat,
+    fold or endo call, whatever the width (no host shortcut)."""
     calls = []
-    for name in ("fold", "table_flat"):
+    for name in ("fold", "table_flat", "fold_many", "fold_phi", "endo"):
         inner = getattr(kernels, name)
         monkeypatch.setattr(kernels, name,
                             lambda *a, _n=name, _f=inner: calls.append(_n) or _f(*a))
     pts = _lanes(3, 7)
     ENGINE.fold_bases(1, 2, pts, pts)
-    assert calls == ["table_flat", "table_flat", "fold"]
+    assert calls == ["fold_many"]
     calls.clear()
     ENGINE.shared_mul(9, pts)
-    assert calls == ["table_flat", "table_flat", "fold"]
+    assert calls == ["fold_phi"]

@@ -338,3 +338,50 @@ def test_fold_many_on_points_equals_the_replaced_route_and_the_vmapped_jax_kerne
     got = kernels.fold_many(pe, po, d)
     assert all(torch.equal(g, r) for g, r in zip(got, replaced))
     assert np.array_equal(_canon_port(got), want)
+
+
+def test_fold_mul_is_fold_many_at_one_prover(replaced_and_jax, monkeypatch):
+    """``msm.fold_mul`` (the one-prover fold of fold_bv, fold_bases and the
+    engine) hands its two bases' points and one prover's digits to
+    ``kernels.fold_many``: word for word the route it replaced (table_flat of
+    each basis, then fold) and the JAX package's ``fold_mul_kernel`` after
+    normalization, identity lanes and digits 0 with sign 1, +8 and -8
+    among them."""
+    pe, po, d, replaced, want = replaced_and_jax[1]
+    seen = []
+    inner = kernels.fold_many
+    monkeypatch.setattr(kernels, "fold_many", lambda *a: seen.append(np.asarray(a[2]).shape)
+                        or inner(*a))
+    got = msm.fold_mul(pe, po, *d[0])
+    assert seen == [(1, 4, glv.ROWS)]
+    assert all(torch.equal(g, r) for g, r in zip(got, replaced))
+    assert np.array_equal(_canon_port(got), want)
+
+
+def test_fold_phi_plain_is_fold_many_of_the_points_and_their_endo(replaced_and_jax):
+    """``kernels.fold_phi`` on the CPU: ``fold_many_plain(p, endo_plain(p))``
+    word for word, one prover and two (the plain version splits by prover
+    as the kernel's launch does); its digit checks are fold_many's."""
+    for count in (1, 2):
+        pe, _, d, _, _ = replaced_and_jax[count]
+        kernels.reset_counts()
+        got = kernels.fold_phi(pe, d)
+        assert not any(kernels.counts().values())
+        want = kernels.fold_many_plain(pe, kernels.endo_plain(pe), d)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="fold_phi: digits must be"):
+        kernels.fold_phi(pe, d[0])
+    assert "fold" in kernels.OFF_PATH and set(kernels.OFF_PATH) <= set(kernels.KERNELS)
+
+
+@pytest.mark.parametrize("group", [8, 16])
+def test_fold_phi_bound_and_chain_add_phis_product(group):
+    """fold_many's multiplies and phi's product a lane; one basis read, the
+    result written; phi's product one round before the tables."""
+    rng = np.random.default_rng(99)
+    d = _digits(rng, split=True, count=1)
+    ops, nbytes = bounds.fold_phi(L, d)
+    assert ops == bounds.fold_many(L, d)[0] + L * bounds.FE_MUL
+    assert nbytes == L * 2 * bounds.PT_BYTES
+    many = bounds.fold_many_chain(33, group)
+    assert bounds.fold_phi_chain(33, group) == (many[0], many[1] + 1)

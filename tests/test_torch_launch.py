@@ -128,6 +128,8 @@ FORMS = {
     "tail_horner tables canonical": ("tail_horner", lambda: kernels.tail_horner(
         _tables(128), 33, canonical=True, absd=_digits(1, 33, 128), sgn=_digits(1, 33, 128))),
     "horner canonical": ("horner", lambda: kernels.horner(*_pt(2, 33), canonical=True)),
+    "fold_many phi": ("fold_many", lambda: kernels.fold_phi(_pt(32), np.stack([_DIGITS] * 2))),
+    "chain round phase": ("chain", lambda: kernels.round_chain("add_split", _pt(64), _pt(64))),
 }
 
 
@@ -178,3 +180,30 @@ def test_batched_folds_launch_no_table_flat(launches, monkeypatch, provers):
     kernels.reset_counts()
     msm.complete_square_many(_pt(provers * 16), _pt(provers * 16), digits)
     assert {k: n for k, n in kernels.counts().items() if n} == {"complete_square": per}
+
+
+def test_one_prover_folds_launch_only_fold_many(monkeypatch):
+    """``msm.fold_mul`` (fold_bv's and fold_bases' fold), ``msm.run_fold``
+    with an O basis and with None (shared_mul's: phi made in the launch):
+    one fold_many launch of one prover, then to_affine for run_fold; no
+    table_flat, fold or endo.  The phi form names the shape and hands the
+    kernel null O pointers (fold_many_kernel<G, true>)."""
+    from bulletproofspp_tpu_torch.ops import msm
+
+    seen = []
+    monkeypatch.setattr(kernels, "_launch", lambda name, shape, dev, *args: seen.append(
+        (name, shape, args)))
+    monkeypatch.setattr(kernels, "_check", lambda *planes, contiguous=True: DEV1)
+    digits = [*glv.recode_signed(3**80), *glv.recode_signed(5**50)]
+    g = kernels.fold_many_group(16)
+    msm.fold_mul(_pt(16), _pt(16), *digits)
+    assert [(n, sh) for n, sh, _ in seen] == [("fold_many", f"B=1 L=16 G={g}")]
+    seen.clear()
+    msm.run_fold(_pt(16), _pt(16), *digits)
+    assert [(n, sh) for n, sh, _ in seen] == [("fold_many", f"B=1 L=16 G={g}"),
+                                            ("to_affine", "L=16")]
+    seen.clear()
+    msm.run_fold(_pt(16), None, *digits)
+    assert [(n, sh) for n, sh, _ in seen] == [("fold_many", f"B=1 L=16 G={g} phi"),
+                                            ("to_affine", "L=16")]
+    assert seen[0][2][3:6] == (0, 0, 0)

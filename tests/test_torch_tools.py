@@ -184,6 +184,26 @@ def test_chain_limb_form_phases_match_their_integer_definition(phase):
         assert limb.unpack_ints(got) == want, rep
 
 
+@pytest.mark.parametrize("phase", sorted(kernels.ROUND_PHASES))
+def test_chain_round_phases_are_the_complete_addition_and_doubling(phase):
+    """chain's round phases on the CPU (their plain versions): x + b (the
+    padd phase's steps) or 2 x (curve.pdbl), at 1 and 8 steps, on
+    saturated lanes and random limbs; no launch."""
+    a, b = _chain_inputs(3, 74)
+    pa, pb = tuple(torch.as_tensor(t) for t in a), tuple(torch.as_tensor(t) for t in b)
+    add = kernels.ROUND_PHASES[phase][1]
+    kernels.reset_counts()
+    for rep in (1, 8):
+        got = kernels.round_chain(phase, pa, pb, rep)
+        want = pa
+        for _ in range(rep):
+            want = kernels.padd_plain(want, pb) if add else curve.pdbl(want)
+        assert torch.equal(got, want[0]), rep
+    if add:
+        assert torch.equal(got, kernels.chain_plain("padd", pa, pb, 8))
+    assert not any(kernels.counts().values())
+
+
 @pytest.mark.parametrize("n_points", [512, 1024])
 def test_msm_tabled_equals_msm_and_the_host_answer(n_points):
     px, py, pz = bench.basis(n_points, "cpu")
@@ -586,6 +606,29 @@ def _ptx_sqr_wide(x, a):
     return t
 
 
+def _ptx_mul_split(x, a, b):
+    """curve_warp.cuh's fe_mul_split: each of two threads runs fe_mul_half
+    (a times b's words 4h..4h + 3, 12 words in fe_mul_words' two
+    accumulators), the odd thread's words are added at word 4 of the even
+    thread's (a 16-word carry chain): the 512-bit product."""
+    halves = []
+    for h in (0, 1):
+        b4, e, o = b[4 * h:4 * h + 4], [0] * 12, [0] * 12
+        for i in range(4):
+            for acc, j0 in ((e, i & 1), (o, 1 - (i & 1))):
+                for n in range(4):
+                    j = j0 + 2 * n
+                    acc[i + j] = x.mad(a[j], b4[i], acc[i + j], carry_in=n > 0)
+                    acc[i + j + 1] = x.mad(a[j], b4[i], acc[i + j + 1], hi=True, carry_in=True)
+                if i + j0 + 8 < 12:
+                    acc[i + j0 + 8] = x.add(acc[i + j0 + 8], 0, True, cc=False)
+        halves.append([e[0], x.add(e[1], o[1])]
+                      + [x.add(e[k], o[k], True, cc=k + 1 < 12) for k in range(2, 12)])
+    t, o = halves
+    w = t[:4] + [x.add(t[4], o[0])] + [x.add(t[k], o[k - 4], True) for k in range(5, 12)]
+    return w + [x.add(o[k - 4], 0, True) for k in range(12, 15)] + [x.add(o[11], 0, True, cc=False)]
+
+
 def _ptx_field(op, a, b):
     """field.cuh's fe_mul, fe_add, fe_sub (and the chain tool's unfolded and
     low products), instruction by instruction."""
@@ -623,8 +666,8 @@ def _ptx_field(op, a, b):
         return _ptx_mul_words(x, a, b, 8)
     if op == "sqr_wide":
         return _ptx_sqr_wide(x, a)
-    r, clo, chi = _ptx_reduce_pass(x, _ptx_sqr_wide(x, a) if op == "sqr" else
-                                   _ptx_mul_words(x, a, b, 16))
+    wide = {"sqr": lambda: _ptx_sqr_wide(x, a), "mul_split": lambda: _ptx_mul_split(x, a, b)}
+    r, clo, chi = _ptx_reduce_pass(x, wide.get(op, lambda: _ptx_mul_words(x, a, b, 16))())
     if op == "mul_w16":
         return r
     w1 = x.add((((clo * 977) >> 32) + chi * 977) & M32, clo)
@@ -680,6 +723,26 @@ def test_field_carry_chains_give_the_models_words(op):
         want = [LIMB_FORM[op](u, v) for u, v in pairs]
     else:
         want = [_value(_u64_field(op, _words(u), _words(v))) for u, v in pairs]
+    assert got == want
+
+
+@pytest.mark.parametrize("form", ["model", "carry_chains"])
+def test_field_split_product_gives_fe_mul_words(form):
+    """fold_rows' split product (curve_warp.cuh: fe_mul_split, each product
+    on two threads, the halves added at word 4, then fe_reduce512): its word
+    model (``kernels.field_words("mul_split")``) and its carry chains
+    transcribed instruction by instruction give fe_mul's words, limb for
+    limb: at the edge values (0, 1, p - 1, p, p + 1, 2^256 - 1, C, the
+    saturated 0xFFFF limb patterns, the round-2 dropped-carry operand),
+    every pair of them, and seeded values."""
+    pairs = _field_pairs(76)
+    want = [_value(_u64_field("mul", _words(u), _words(v))) for u, v in pairs]
+    if form == "model":
+        a = limb.from_ints([u for u, _ in pairs], "cpu")
+        b = limb.from_ints([v for _, v in pairs], "cpu")
+        got = limb.unpack_ints(kernels.field_words("mul_split", a, b))
+    else:
+        got = [_value(_ptx_field("mul_split", _words(u), _words(v))) for u, v in pairs]
     assert got == want
 
 
