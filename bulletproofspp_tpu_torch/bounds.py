@@ -227,10 +227,13 @@ def tail_horner_tables(absd, sgn, canonical: bool = False):
 
 def tail_horner_chain(rows: int):
     """(point operations, product rounds) of tail_horner's chain: the rows'
-    128-lane trees at once (1 + 6 halving levels: 7 additions on one
-    thread), then Horner on one warp (4 doublings and 1 addition a row, 2
-    rounds each)."""
-    return 7 + 5 * rows, 7 * ADD_PRODUCTS + 2 * 5 * rows
+    128-lane trees at once, each addition on a group of threads (the 32
+    groups of ``ops/kernels.py: TAIL_ROWS_THREADS / TAIL_ROWS_GROUP`` a row:
+    the first level's 64 additions two a group in turn, then one in each of
+    the 6 levels after it, 8 additions), then Horner on one warp (4
+    doublings and 1 addition a row); 2 rounds an operation."""
+    ops = 8 + 5 * rows
+    return ops, 2 * ops
 
 
 def horner_chain(rows: int):

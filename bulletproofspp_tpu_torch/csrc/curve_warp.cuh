@@ -19,8 +19,8 @@
 // a round: __shfl_sync's width keeps each group's broadcasts inside it.
 // Every thread of the warp must make the call (the shuffles name all 32).
 // No shared memory and no local memory.  fold_rows' chain (kernels.cu),
-// on groups of 16 or 32 threads where a product a thread leaves threads
-// idle, spreads each product over two threads (S = 2, fe_mul_split: half
+// on groups of 16 or 32 threads, and Horner's on the whole warp, where a
+// product a thread leaves threads idle, spread each product over two threads (S = 2, fe_mul_split: half
 // the word products each, the halves added on one of them), broadcast by
 // the same shuffles.  The products are the ones pt_add and pt_dbl compute,
 // of the same operands, so the results equal theirs word for word,
@@ -224,13 +224,16 @@ __device__ __forceinline__ void fe_store_group(int64_t* const (&dst)[NF], const 
 }
 
 // Horner over row sums, MSB row first (acc = 16 acc + row r), the order of
-// horner_plain (ops/kernels.py); every lane ends with the sum.
+// horner_plain (ops/kernels.py), on the whole warp, each product of a round
+// on S threads: 8 S threads in a doubling's round, 12 S in an addition's
+// (kernels.cu: kHornerSplit); every lane ends with the sum.
+template <int S>
 __device__ __forceinline__ Pt horner_rows_warp(const Pt* rowsum, int64_t rows) {
   Pt acc = pt_identity();
   for (int64_t r = 0; r < rows; r++) {
 #pragma unroll 1
-    for (int k = 0; k < 4; k++) acc = pt_dbl_warp(acc);
-    acc = pt_add_warp(acc, rowsum[r]);
+    for (int k = 0; k < 4; k++) acc = pt_dbl_warp<32, S>(acc);
+    acc = pt_add_warp<32, S>(acc, rowsum[r]);
   }
   return acc;
 }

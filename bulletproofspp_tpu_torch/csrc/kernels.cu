@@ -338,36 +338,77 @@ __global__ void __launch_bounds__(L >= 8 ? 4 * L : 32)
 // roll levels), then Horner runs over the row sums, 4 doublings and 1
 // addition a row.  It is bound by the latency of that chain, not by bytes
 // or multiplies, so the design shortens the chain:
-//  * tail_rows_kernel: one block of 64 threads per (MSM, row), all rows at
-//    once; 7 dependent additions, the row sum to a (16, batch, rows)
-//    scratch.  With FromTables its input lanes are the points the digits
-//    select from the tables (Operands): the MSM route of 128 lanes selects
-//    here, and the words equal select_small + the plane route;
+//  * tail_rows_kernel: one block of kTailThreads threads per (MSM, row),
+//    all rows at once, the row sum to a (16, batch, rows) scratch.  With
+//    FromTables its input lanes are the points the digits select from the
+//    tables (Operands): the MSM route of 128 lanes selects here, and the
+//    words equal select_small + the plane route.  The tree runs by levels,
+//    each addition on a group of kTailGroup threads (pt_add_warp: 2 rounds
+//    of 6 products, where one thread runs 12 products one after another).
+//    The block is kTailGroups groups, not one group for each of the first
+//    level's 64 additions: group g runs the first level's additions g and
+//    g + 32 in turn; from the second level (h = 32, 16, ... 1 additions)
+//    addition g reads slots g and g + h of shared memory, where each
+//    addition leaves its sum, and warps without an addition of the level
+//    skip it.  No point lives in registers across the levels, so a thread
+//    fits 128 registers and an SM two blocks (__launch_bounds__; at one
+//    block an SM, 153 registers, 4,290 row trees took 1.4x as long).  One
+//    loop of 8 additions, so the addition's code is one copy (an unrolled
+//    copy a level was fetched cold, reduce_lanes_kernel's note);
 //  * horner_warp_kernel, tail_horner's second launch and horner's only one:
 //    one warp per MSM runs Horner over the row sums with the
 //    warp-cooperative addition and doubling of curve_warp.cuh (10 rounds of
-//    one field product each a row, where one thread would run 44 products).
+//    one field product each a row, where one thread would run 44 products),
+//    each product of a round on kHornerSplit threads (fe_mul_split: 12 of
+//    the 32 threads in an addition's round, 8 in a doubling's).
 //    With Canon, lanes 0-2 store fe_canon of X, Y and Z (ox, oy and oz the
 //    three planes of a stacked (3, 16, batch) tensor): every MSM's result
 //    leaves the route canonical, ready for one device-to-host copy, with no
 //    normalize3 launch after it (the JAX package compiles _normalize3 into
 //    the MSM's program).  The words equal normalize3 of the plain stores.
+constexpr int kTailGroup = 8;
+constexpr int kTailThreads = 256;
+constexpr int kTailGroups = kTailThreads / kTailGroup;
+// threads a product of horner's rounds (tools/phase_bench.py on one warp,
+// H100: a Horner round 0.49 us at 1, 0.40 at 2)
+constexpr int kHornerSplit = 2;
+
 template <bool FromTables>
-__global__ void __launch_bounds__(64) tail_rows_kernel(const Operands<FromTables> in,
-                                                       int64_t* __restrict__ rx,
-                                                       int64_t* __restrict__ ry,
-                                                       int64_t* __restrict__ rz, int64_t n_rows) {
-  __shared__ Pt lanes[64];
-  const int t = threadIdx.x;
+__global__ void __launch_bounds__(kTailThreads, 2) tail_rows_kernel(const Operands<FromTables> in,
+                                                                    int64_t* __restrict__ rx,
+                                                                    int64_t* __restrict__ ry,
+                                                                    int64_t* __restrict__ rz,
+                                                                    int64_t n_rows) {
+  static_assert(2 * kTailGroups == 64, "two of the first level's additions a group");
+  __shared__ Pt sums[64];
+  const int g = threadIdx.x / kTailGroup;
+  const int wfirst = threadIdx.x / 32 * (32 / kTailGroup);  // the warp's first group
   const int64_t br = blockIdx.x;  // b * rows + r
   const int64_t base = br * 128;
-  lanes[t] = pt_add(in(base + t), in(base + t + 64));
-  __syncthreads();
-  for (int h = 32; h >= 1; h /= 2) {
-    if (t < h) lanes[t] = pt_add(lanes[t], lanes[t + h]);
-    __syncthreads();
+#pragma unroll 1
+  for (int i = 0; i < 8; i++) {
+    const int h = 128 >> i;  // from i = 2: this level's additions, 32 .. 1
+    Pt a, b;
+    if (i < 2) {  // the first level's addition g + 32 i
+      a = in(base + g + 32 * i);
+      b = in(base + g + 32 * i + 64);
+    } else {
+      __syncthreads();  // every sum of the level before written
+      if (wfirst < h) {  // g + h < 64 in every warp that has an addition
+        a = sums[g];
+        b = sums[g + h];
+      }
+      __syncthreads();  // every read of this level before its writes
+      if (wfirst >= h) continue;  // whole warps: a uniform branch
+    }
+    const Pt s = pt_add_warp<kTailGroup>(a, b);
+    sums[g + 32 * (i == 1)] = s;  // the 8 threads of a group write the same words
+    if (i == 7 && g == 0) {
+      int64_t* const dst[3] = {rx, ry, rz};
+      const Fe v[3] = {s.x, s.y, s.z};
+      fe_store_group<kTailGroup>(dst, v, n_rows, br);
+    }
   }
-  if (t == 0) pt_store(rx, ry, rz, n_rows, br, lanes[0]);
 }
 
 template <bool Canon>
@@ -380,7 +421,7 @@ __global__ void __launch_bounds__(32) horner_warp_kernel(
   const int64_t b = blockIdx.x;
   for (int64_t r = lane; r < rows; r += 32) rowsum[r] = pt_load(rx, ry, rz, batch * rows, b * rows + r);
   __syncwarp();
-  const Pt acc = horner_rows_warp(rowsum, rows);
+  const Pt acc = horner_rows_warp<kHornerSplit>(rowsum, rows);
   if constexpr (Canon) {
     if (lane < 3) {  // coordinate `lane`, picked by selects (no local memory)
       const Fe v[3] = {acc.x, acc.y, acc.z};
@@ -989,10 +1030,10 @@ int bppp_tail_horner(const int64_t* x, const int64_t* y, const int64_t* z, const
     const unsigned blocks = (unsigned)(batch * rows);
     const int64_t w = batch * rows * 128;
     if (absd) {
-      tail_rows_kernel<true><<<blocks, 64, 0, s>>>(operands<true>(x, y, z, absd, sgn, w, rows, 128),
-                                                   rx, ry, rz, batch * rows);
+      tail_rows_kernel<true><<<blocks, kTailThreads, 0, s>>>(
+          operands<true>(x, y, z, absd, sgn, w, rows, 128), rx, ry, rz, batch * rows);
     } else {
-      tail_rows_kernel<false><<<blocks, 64, 0, s>>>(
+      tail_rows_kernel<false><<<blocks, kTailThreads, 0, s>>>(
           operands<false>(x, y, z, absd, sgn, w, rows, 128), rx, ry, rz, batch * rows);
     }
     horner_launch(rx, ry, rz, ox, oy, oz, batch, rows, canon, s);

@@ -34,8 +34,11 @@
 //    a template argument, the state in registers across the steps; at
 //    65,536 lanes its throughput, at one warp (32 lanes) the latency of a
 //    dependent step (tools/phase_bench.py).  Its round phases run the point
-//    chains' additions and doublings on 16 threads a lane (curve_warp.cuh,
-//    a product on one thread or two) and can clock each part of a round.
+//    chains' additions and doublings on a group of G threads a lane
+//    (curve_warp.cuh, a product on S = 1 or 2 threads), at the (G, S) of
+//    each chain: fold_rows' 16 and 2 (and the former 16 and 1), horner's 32
+//    and 2 (and the former 32 and 1), tail_rows' 8 and 1; they can clock
+//    each part of a round.
 
 #include <cuda_runtime.h>
 
@@ -128,14 +131,20 @@ enum Phase {
   kSubRaw2,    // x - 2 b mod p (_sub_f16 of the raw 2 b)
   kCarryFull,  // the canonical value of 2 x + b mod p
   kProdForm,   // the 8 x 8-word schoolbook, its low 256 bits
-  // a complete addition or doubling on a group of kRoundGroup threads a
-  // lane, 3 state planes, in curve_warp.cuh's rounds: a product a thread
-  // (every chain's but fold_rows'), and each product on two threads
-  // (fold_rows' at 16 and 32 threads a lane)
+  // a complete addition or doubling on a group of G threads a lane, 3
+  // state planes, in curve_warp.cuh's rounds, each product on S threads:
+  // G = 16 (kAddWarp, kDblWarp: S = 1; kAddSplit, kDblSplit: S = 2,
+  // fold_rows'), G = 32 (horner's: S = 1, 2) and G = 8, S = 1 (the
+  // narrow kernels' and tail_rows' additions)
   kAddWarp,
   kDblWarp,
   kAddSplit,
   kDblSplit,
+  kAdd32S1,
+  kDbl32S1,
+  kAdd32S2,
+  kDbl32S2,
+  kAdd8S1,
 };
 
 // The product reduced by one pass T = L + 977 H + 2^32 H, with the carry out
@@ -196,16 +205,13 @@ void launch_chain(const int64_t* a0, const int64_t* a1, const int64_t* a2, const
   chain_kernel<P><<<blocks_for(n), kThreads, 0, s>>>(a0, a1, a2, b0, b1, b2, out, n, rep);
 }
 
-// --- the rounds' phases: x <- pt_add(x, b) or pt_dbl(x) on a group of
-// kRoundGroup threads a lane, its rounds' products on one thread or two.
-// At one warp (2 lanes) the latency of a dependent addition or doubling,
-// two product rounds.  With clocks, group
-// thread 0 of each lane also sums the SM cycles (clock64) each part of its
-// rounds took, RoundPart by RoundPart, into clocks[part * n + lane]: a part
-// ends when its results are ready (PartClock folds their words into a sink
-// before reading the clock).
-constexpr int kRoundGroup = 16;
-
+// --- the rounds' phases: x <- pt_add(x, b) or pt_dbl(x) on a group of G
+// threads a lane, its rounds' products on S threads.  At one warp (32 / G
+// lanes) the latency of a dependent addition or doubling, two product
+// rounds.  With clocks, group thread 0 of each lane also sums the SM cycles
+// (clock64) each part of its rounds took, RoundPart by RoundPart, into
+// clocks[part * n + lane]: a part ends when its results are ready
+// (PartClock folds their words into a sink before reading the clock).
 struct PartClock {
   long long last;
   long long cyc[kRoundParts];
@@ -236,49 +242,49 @@ struct PartClock {
   }
 };
 
-template <int P, class Parts>
+template <bool Add, int G, int S, class Parts>
 __device__ __forceinline__ Pt round_step(const Pt& x, const Pt& b, Parts& parts) {
-  constexpr int G = kRoundGroup;
-  if constexpr (P == kAddWarp) return pt_add_warp<G, 1>(x, b, parts);
-  if constexpr (P == kDblWarp) return pt_dbl_warp<G, 1>(x, parts);
-  if constexpr (P == kAddSplit) return pt_add_warp<G, 2>(x, b, parts);
-  return pt_dbl_warp<G, 2>(x, parts);
+  if constexpr (Add) {
+    return pt_add_warp<G, S>(x, b, parts);
+  } else {
+    return pt_dbl_warp<G, S>(x, parts);
+  }
 }
 
 // One launch covers every lane; a group past the last lane runs lane n - 1
 // again and stores nothing (every thread takes part in the shuffles).
-template <int P>
+template <bool Add, int G, int S>
 __global__ void round_kernel(const int64_t* __restrict__ a0, const int64_t* __restrict__ a1,
                              const int64_t* __restrict__ a2, const int64_t* __restrict__ b0,
                              const int64_t* __restrict__ b1, const int64_t* __restrict__ b2,
                              int64_t* __restrict__ out, int64_t n, int rep,
                              int64_t* __restrict__ clocks) {
-  const int64_t w = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / kRoundGroup;
+  const int64_t w = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / G;
   const int64_t j = w < n ? w : n - 1;
-  const bool lead = w < n && (threadIdx.x & (kRoundGroup - 1)) == 0;
+  const bool lead = w < n && (threadIdx.x & (G - 1)) == 0;
   Pt x = pt_load(a0, a1, a2, n, j);
   const Pt b = pt_load(b0, b1, b2, n, j);
   if (clocks) {
     PartClock pc;
     pc.start();
-    for (int i = 0; i < rep; i++) x = round_step<P>(x, b, pc);
+    for (int i = 0; i < rep; i++) x = round_step<Add, G, S>(x, b, pc);
     if (lead) {
 #pragma unroll
       for (int k = 0; k < kRoundParts; k++) clocks[k * n + w] = pc.cyc[k] + (pc.sink == 1u);
     }
   } else {
     NoParts none;
-    for (int i = 0; i < rep; i++) x = round_step<P>(x, b, none);
+    for (int i = 0; i < rep; i++) x = round_step<Add, G, S>(x, b, none);
   }
   if (lead) fe_store(out, n, w, x.x);
 }
 
-template <int P>
+template <bool Add, int G, int S>
 void launch_round(const int64_t* a0, const int64_t* a1, const int64_t* a2, const int64_t* b0,
                   const int64_t* b1, const int64_t* b2, int64_t* out, int64_t n, int rep,
                   int64_t* clocks, cudaStream_t s) {
-  round_kernel<P><<<blocks_for(n * kRoundGroup), kThreads, 0, s>>>(a0, a1, a2, b0, b1, b2, out, n,
-                                                                   rep, clocks);
+  round_kernel<Add, G, S><<<blocks_for(n * G), kThreads, 0, s>>>(a0, a1, a2, b0, b1, b2, out, n,
+                                                                 rep, clocks);
 }
 
 }  // namespace
@@ -317,7 +323,7 @@ int bppp_grid_copy(const int64_t* x, int64_t* o, int64_t L, int64_t rows, int64_
   return (int)cudaGetLastError();
 }
 
-// clocks: null, or for the rounds' phases (kAddWarp..kDblSplit) the
+// clocks: null, or for the rounds' phases (kAddWarp..kAdd8S1) the
 // (kRoundParts, n) int64 SM cycles of each part (round_kernel).
 int bppp_chain(int phase, const int64_t* a0, const int64_t* a1, const int64_t* a2,
                const int64_t* b0, const int64_t* b1, const int64_t* b2, int64_t* out, int64_t n,
@@ -335,12 +341,17 @@ int bppp_chain(int phase, const int64_t* a0, const int64_t* a1, const int64_t* a
     case kSubRaw2: launch_chain<kSubRaw2>(a0, a1, a2, b0, b1, b2, out, n, rep, s); break;
     case kCarryFull: launch_chain<kCarryFull>(a0, a1, a2, b0, b1, b2, out, n, rep, s); break;
     case kProdForm: launch_chain<kProdForm>(a0, a1, a2, b0, b1, b2, out, n, rep, s); break;
-#define BPPP_ROUND(P) \
-  case P: launch_round<P>(a0, a1, a2, b0, b1, b2, out, n, rep, clocks, s); break;
-    BPPP_ROUND(kAddWarp)
-    BPPP_ROUND(kDblWarp)
-    BPPP_ROUND(kAddSplit)
-    BPPP_ROUND(kDblSplit)
+#define BPPP_ROUND(P, ADD, G, S) \
+  case P: launch_round<ADD, G, S>(a0, a1, a2, b0, b1, b2, out, n, rep, clocks, s); break;
+    BPPP_ROUND(kAddWarp, true, 16, 1)
+    BPPP_ROUND(kDblWarp, false, 16, 1)
+    BPPP_ROUND(kAddSplit, true, 16, 2)
+    BPPP_ROUND(kDblSplit, false, 16, 2)
+    BPPP_ROUND(kAdd32S1, true, 32, 1)
+    BPPP_ROUND(kDbl32S1, false, 32, 1)
+    BPPP_ROUND(kAdd32S2, true, 32, 2)
+    BPPP_ROUND(kDbl32S2, false, 32, 2)
+    BPPP_ROUND(kAdd8S1, true, 8, 1)
 #undef BPPP_ROUND
     default: return (int)cudaErrorInvalidValue;
   }

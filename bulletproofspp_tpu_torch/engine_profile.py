@@ -4,6 +4,7 @@
     python -m bulletproofspp_tpu_torch.engine_profile --batch 1024 [--repeat 2]
     python -m bulletproofspp_tpu_torch.engine_profile --lockstep 16
     python -m bulletproofspp_tpu_torch.engine_profile --mp 4
+    python -m bulletproofspp_tpu_torch.engine_profile --settle 40
 
 For examples/64bit and examples/128by64: one warm-up prove and verify,
 then ``--repeat`` timed runs of each.  Every ``TorchEngine`` call is
@@ -47,6 +48,11 @@ idle share, device ms and launches by wrapper, and the fold, fold_many,
 table_flat and select_reduce launches, for the multiparty route split at the moment
 the dealer holds every party's final share (before it: the parties'
 phase commitments; after it: the dealer's argument rounds).
+
+``--settle N`` profiles N examples/64bit proves started right at the
+profiler's start and N started ``PROFILE_SETTLE_S`` after it, in turns,
+and prints for each wait how many profiles miss some of the port's
+launches and which (``settle_check``).
 
 ``--plain NAME`` swaps kernel NAME's wrapper (``ops.kernels``) for its
 plain PyTorch version for the whole run (``plain_versions``), to see what
@@ -324,24 +330,34 @@ def profile_multiparty(parties: int, eng, case: str = MP_CASE):
     return out
 
 
-def profiled(fn) -> dict:
-    """One call of fn under torch.profiler: its wall seconds, device
-    seconds, device milliseconds (and launches) by kernel, the launches of
-    the port's wrappers it made, and whether the profile holds every one
-    of them (``profile_complete``)."""
+# seconds between the profiler's start and fn's first launch: a launch
+# made within microseconds of the start has been missing from the profile
+# (PERF.md, PR 23; ``--settle N`` counts how often, with and without it)
+PROFILE_SETTLE_S = 0.02
+
+
+def profiled(fn, settle: float = PROFILE_SETTLE_S) -> dict:
+    """One call of fn under torch.profiler, started ``settle`` seconds
+    after the profiler: its wall seconds, device seconds, device
+    milliseconds (and launches) by kernel, the launches of the port's
+    wrappers it made, whether the profile holds every one of them
+    (``profile_complete``) and, where not, by how many
+    (``profile_shortfall``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     before = kernels.counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(settle)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launched = {k: n - before[k] for k, n in kernels.counts().items() if n > before[k]}
     device_s, by_kernel = device_time(prof, top=None)
+    shortfall = profile_shortfall(launched, by_kernel)
     return {"wall_s": wall, "device_s": device_s, "by_kernel": by_kernel, "launched": launched,
-            "complete": profile_complete(launched, by_kernel)}
+            "complete": not shortfall, "shortfall": shortfall}
 
 
 def _profile_call(label, fn):
@@ -363,7 +379,8 @@ def _profile_call(label, fn):
             "device_idle_share": 1 - p["device_s"] / wall,
             "top_kernels_ms_launches": dict(list(every.items())[:8]),
             "by_wrapper": by_wrapper(every), "library_top": {k[:72]: v for k, v in library[:4]},
-            "copies": copies(every), "launched": p["launched"], "complete": p["complete"]}
+            "copies": copies(every), "launched": p["launched"], "complete": p["complete"],
+            "shortfall": p["shortfall"]}
 
 
 def profile_prove(name, eng):
@@ -454,14 +471,14 @@ def by_wrapper(by_kernel: dict) -> dict:
     return out
 
 
-def profile_complete(launched: dict, by_kernel: dict) -> bool:
-    """Whether a profile's kernels ({name: [ms, launches]}, keyed as
-    ``device_time`` keys them) hold every launch in ``launched`` ({wrapper:
-    launches}): each ``__global__`` function of the wrappers'
-    ``device_kernels`` (or each set of alternatives, ``"a|b"``) ran as many
-    times as the wrappers' launches that run it.  Matched by function name
-    (``wrappers_of``), so a kernel shared by two wrappers
-    (``horner_warp_kernel``) counts for both."""
+def profile_shortfall(launched: dict, by_kernel: dict) -> dict:
+    """{``__global__`` function of the wrappers' ``device_kernels`` (or set
+    of alternatives, ``"a|b"``): the launches of it that the wrappers made
+    (``launched``: {wrapper: launches}) less those a profile's kernels
+    ({name: [ms, launches]}, keyed as ``device_time`` keys them) hold},
+    for every function where the two differ (a launch too many is
+    negative).  Matched by function name (``wrappers_of``), so a kernel
+    shared by two wrappers (``horner_warp_kernel``) counts for both."""
     want = collections.Counter()
     for k, n in launched.items():
         for group in kernels.KERNELS[k].device_kernels:
@@ -470,7 +487,34 @@ def profile_complete(launched: dict, by_kernel: dict) -> bool:
     for key, (_, n) in by_kernel.items():
         for group in set(wrappers_of(key).values()) & want.keys():
             seen[group] += n
-    return seen == want
+    return {g: want[g] - seen[g] for g in sorted(want) if want[g] != seen[g]}
+
+
+def profile_complete(launched: dict, by_kernel: dict) -> bool:
+    """Whether a profile's kernels hold every launch in ``launched``, no
+    more and no fewer (``profile_shortfall`` is empty)."""
+    return not profile_shortfall(launched, by_kernel)
+
+
+def settle_check(n: int, eng) -> dict:
+    """``n`` profiled examples/64bit proves started right at the profiler's
+    start and ``n`` started ``PROFILE_SETTLE_S`` after it, in turns: for
+    each wait the profiles that miss some of the port's launches, and the
+    launches they miss by function (summed ``profile_shortfall``)."""
+    case = _load("64bit")
+    fn = lambda: _prove(case, eng)  # noqa: E731
+    fn()
+    out = {w: {"incomplete": 0, "shortfall": collections.Counter()}
+           for w in (0.0, PROFILE_SETTLE_S)}
+    for _ in range(n):
+        for w, acc in out.items():
+            p = profiled(fn, settle=w)
+            acc["incomplete"] += not p["complete"]
+            acc["shortfall"].update(p["shortfall"])
+    return {"profiles": n, "example": "64bit",
+            "by_settle_s": {str(w): {"incomplete": acc["incomplete"],
+                                     "shortfall": dict(acc["shortfall"])}
+                            for w, acc in out.items()}}
 
 
 # the profiler's own buffer requests: an event on the device's timeline
@@ -511,6 +555,9 @@ def main(argv=None) -> int:
                     help="profile a lockstep bucket of N 64bit proofs against one at a time")
     ap.add_argument("--mp", type=int, default=0,
                     help=f"profile {MP_CASE} by P parties in threads against one prover")
+    ap.add_argument("--settle", type=int, default=0,
+                    help="count the incomplete profiles of N 64bit proves with and without "
+                         "PROFILE_SETTLE_S")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("engine_profile needs a CUDA card")
@@ -522,6 +569,10 @@ def main(argv=None) -> int:
 
 
 def _run(args, tag):
+    if args.settle:
+        print(json.dumps({"run": tag, **settle_check(args.settle, TorchEngine("cuda"))}),
+              flush=True)
+        return
     if args.lockstep:
         print(json.dumps({"run": tag, **profile_lockstep(args.lockstep, TorchEngine("cuda"))}),
               flush=True)

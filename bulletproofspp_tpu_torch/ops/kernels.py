@@ -571,6 +571,15 @@ def tail_horner_plain(p, rows: int, canonical: bool = False, absd=None, sgn=None
     return horner_plain(rx, ry, rz, canonical)
 
 
+# tail_horner's first launch (csrc/kernels.cu: tail_rows_kernel, kTailGroup
+# and kTailThreads): a block of TAIL_ROWS_THREADS threads a (MSM, row), each
+# addition of the row's 128-lane tree on a group of TAIL_ROWS_GROUP threads
+# (2 rounds of products); with 32 groups a group runs the first level's
+# additions g and g + 32 in turn, then one addition a level
+TAIL_ROWS_GROUP = 8
+TAIL_ROWS_THREADS = 256
+
+
 def tail_horner(p, rows: int, canonical: bool = False, absd=None, sgn=None):
     """``tail_horner_plain`` on the card in two launches.  ``canonical``:
     ``horner``'s.  With (B, rows, 128) uint8 digits ``absd`` and ``sgn``,
@@ -1620,16 +1629,23 @@ def chain(phase: str, a, b, rep: int = 8):
 
 
 # The rounds of the point chains as phases of the chain kernel
-# (``csrc/tools.cu: round_kernel``): name -> (phase index, addition).  The
-# state is a point, b a point: x <- x + b (addition) or 2 x each step, a
-# lane on 16 threads (``tools.cu: kRoundGroup``), in ``csrc/curve_warp.cuh``'s
-# rounds: "warp", a product a thread (every point chain's but fold_rows'),
-# or "split", each product on two threads (``fe_mul_split``: fold_rows' at
-# 16 and 32 threads a lane).
+# (``csrc/tools.cu: round_kernel``): name -> (phase index, addition, G, S).
+# The state is a point, b a point: x <- x + b (addition) or 2 x each step, a
+# lane on a group of G threads, in ``csrc/curve_warp.cuh``'s rounds, each
+# product on S threads (S = 2: ``fe_mul_split``).  G = 16: "warp" (S = 1)
+# and "split" (S = 2, fold_rows'); G = 32: horner's, S = 1 (before its
+# split) and 2 (HORNER_SPLIT); G = 8, S = 1: the narrow kernels' and
+# tail_rows' additions (TAIL_ROWS_GROUP).
 ROUND_PHASES = {
-    "add_warp": (10, True), "dbl_warp": (11, False),
-    "add_split": (12, True), "dbl_split": (13, False),
+    "add_warp": (10, True, 16, 1), "dbl_warp": (11, False, 16, 1),
+    "add_split": (12, True, 16, 2), "dbl_split": (13, False, 16, 2),
+    "add_g32_s1": (14, True, 32, 1), "dbl_g32_s1": (15, False, 32, 1),
+    "add_g32_s2": (16, True, 32, 2), "dbl_g32_s2": (17, False, 32, 2),
+    "add_g8_s1": (18, True, 8, 1),
 }
+# the threads each product of horner's rounds runs on (csrc/kernels.cu:
+# kHornerSplit)
+HORNER_SPLIT = 2
 # curve_warp.cuh: RoundPart, the parts round_chain's clocks sum
 ROUND_PARTS = ("form", "product", "combine", "broadcast", "steps")
 
@@ -1646,7 +1662,7 @@ def round_chain_plain(phase: str, a, b, rep: int = 8):
 
 def round_chain(phase: str, a, b, rep: int = 8, clocks=None):
     """``round_chain_plain`` on the card through the chain kernel, a lane on
-    ROUND_GROUP threads (ROUND_PHASES: which rounds).  a, b: three (16, L)
+    a group of G threads (ROUND_PHASES: which rounds, G and S).  a, b: three (16, L)
     planes each.  ``clocks``: None, or a (len(ROUND_PARTS), L) int64 tensor
     on the card that receives, a lane, the SM cycles each part of its
     rounds took over the ``rep`` steps (``clock64`` in the kernel; the card

@@ -6,7 +6,8 @@ Builds the kernels of the checkout it runs from (``ops.kernels.lib``) and
 times each case below back to back (``bench.sampled``: the median of
 CUDA-event samples, repetitions doubling until the IQR is under 10%), on
 numpy-seeded inputs at the shapes of ``chip_smoke.py``'s kernel rows: the
-wide and narrow padd, table_flat, reduce_block, tail_horner, horner, fold,
+wide and narrow padd, table_flat, reduce_block, tail_horner (K = 1, 8, 16
+and 130, and K = 2 from the tables, canonical), horner (K = 1 and 130), fold,
 fold_many (B = 1 at 16, 512 and 4,096 lanes beside table_flat x 2 + fold,
 the one-prover route it replaced, and endo + that route, shared_mul's,
 against its phi form where the checkout has it; B = 2 and 16 at 16 lanes,
@@ -98,10 +99,19 @@ def cases(rng) -> dict:
     w2 = points(33792, rng)
     out["reduce_block W=16896 f=4"] = lambda: kernels.reduce_block(w1, 4)
     out["reduce_block W=33792 f=8"] = lambda: kernels.reduce_block(w2, 8)
-    tl = tuple(t.reshape(limb.NLIMB, 1, ROWS * 128) for t in points(ROWS * 128, rng))
-    out["tail_horner K=1"] = lambda: kernels.tail_horner(tl, ROWS)
-    hr = tuple(t.reshape(limb.NLIMB, 1, ROWS) for t in points(ROWS, rng))
-    out["horner K=1"] = lambda: kernels.horner(*hr)
+    # one MSM, stacks of 264 and 528 row trees (one and two waves of two
+    # 256-thread blocks an SM), and msm_many's widest (4,290 row trees)
+    for K in (1, 8, 16, 130):
+        tl = tuple(t.reshape(limb.NLIMB, K, ROWS * 128) for t in points(K * ROWS * 128, rng))
+        out[f"tail_horner K={K}"] = lambda tl=tl: kernels.tail_horner(tl, ROWS)
+    # msm's route at 128 lanes: cli test's commonest, selected from the tables
+    tt = kernels.table_flat(points(2 * 128, rng))
+    ta, ts = digits((2, ROWS, 128), rng)
+    out["tail_horner K=2 tables canonical"] = lambda: kernels.tail_horner(
+        tt, ROWS, canonical=True, absd=ta, sgn=ts)
+    for K in (1, 130):
+        hr = tuple(t.reshape(limb.NLIMB, K, ROWS) for t in points(K * ROWS, rng))
+        out[f"horner K={K}"] = lambda hr=hr: kernels.horner(*hr)
     fd = fold_digits(1, rng)
     fe, fo = kernels.table_flat(points(512, rng)), kernels.table_flat(points(512, rng))
     out["fold L=512"] = lambda: kernels.fold(fe, fo, fd[0])

@@ -21,16 +21,18 @@ Two rows a phase:
               (under 5%).
 
 Then the sum of the phases weighted by their count in one complete add
-against the padd phase.  Then the rounds of the fold chain
+against the padd phase.  Then the rounds of the point chains
 (``kernels.ROUND_PHASES``, where the checkout has them): for each, on one
-warp (ROUND_LANES = 2 lanes of 16 threads), ns and SM cycles
-a product round (half a dependent addition or doubling, by the latency
-method above over ROUND_REP steps) and, from a run with the kernel's
-clocks on, the SM cycles a round of each part (``kernels.ROUND_PARTS``:
-forming the operands, the product, the split product's combination, the
-broadcast, the cheap steps); and a fold_rows round of each design (4
-doublings and 2 additions a row).  Prints the card's ``nvidia-smi`` line
-first; exits 2 without CUDA.  Imports no JAX.
+warp (32 / G lanes of a group of G threads; 2 lanes where a checkout's
+phases give no G), ns and SM cycles a product round (half a dependent
+addition or doubling, by the latency method above over ROUND_REP steps)
+and, from a run with the kernel's clocks on, the SM cycles a round of each
+part (``kernels.ROUND_PARTS``: forming the operands, the product, the split
+product's combination, the broadcast, the cheap steps); then a fold_rows
+round of each of its designs (G = 16: 4 doublings and 2 additions a row)
+and a horner round at each S (G = 32: 4 doublings and 1 addition a row).
+Prints the card's ``nvidia-smi`` line first; exits 2 without CUDA.
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -50,8 +52,15 @@ LAT_L = 32  # one warp: each step waits on the one before it
 LAT_REP = 4096
 # count of each phase in one complete add of the JAX body (phase_bench.PHASES)
 MULTIPLICITY = {"mul_w16": 12, "mul_small": 3, "add": 3, "add_s17": 6, "sub": 5}
-ROUND_LANES = 2  # one warp of two 16-thread groups
+ROUND_LANES = 2  # one warp of two 16-thread groups: phases without a G
 ROUND_REP = 1024
+# a row of a chain in its rounds' phases: {row: (doubling, addition, counts)}
+ROWS = {
+    "fold_rows warp": ("dbl_warp", "add_warp", (4, 2)),
+    "fold_rows split": ("dbl_split", "add_split", (4, 2)),
+    "horner s1": ("dbl_g32_s1", "add_g32_s1", (4, 1)),
+    "horner s2": ("dbl_g32_s2", "add_g32_s2", (4, 1)),
+}
 
 
 def latency(name: str, a, b, mhz: float) -> dict:
@@ -70,22 +79,22 @@ def latency(name: str, a, b, mhz: float) -> dict:
 def rounds(mhz: float) -> dict:
     """Each round phase on one warp: ns and SM cycles a product round (two
     a step) by the latency method, and the parts' SM cycles a round of lane
-    0 from the clocked run; then each design's fold_rows round."""
+    0 from the clocked run; then each chain's row (ROWS) a product round."""
     phases = getattr(kernels, "ROUND_PHASES", {})
     rng = np.random.default_rng(7)
-
-    def mk():
-        return torch.as_tensor(rng.integers(0, 1 << 16, size=(limb.NLIMB, ROUND_LANES)),
-                               device=DEVICE)
-
     out = {}
-    for name in phases:
+    for name, spec in phases.items():
+        lanes = 32 // spec[2] if len(spec) > 2 else ROUND_LANES
+
+        def mk():
+            return torch.as_tensor(rng.integers(0, 1 << 16, size=(limb.NLIMB, lanes)),
+                                   device=DEVICE)
+
         a, b = tuple(mk() for _ in range(3)), tuple(mk() for _ in range(3))
         t1, t2 = (sampled(lambda k, r=r: kernels.round_chain(name, a, b, r))
                   for r in (ROUND_REP, 2 * ROUND_REP))
         ns = (t2["ms"] - t1["ms"]) * 1e6 / ROUND_REP / 2
-        clocks = torch.zeros((len(kernels.ROUND_PARTS), ROUND_LANES), dtype=torch.int64,
-                             device=DEVICE)
+        clocks = torch.zeros((len(kernels.ROUND_PARTS), lanes), dtype=torch.int64, device=DEVICE)
         kernels.round_chain(name, a, b, ROUND_REP, clocks)
         parts = {p: int(c) / ROUND_REP / 2 for p, c in zip(kernels.ROUND_PARTS, clocks[:, 0])}
         out[name] = {"round_ns": ns, "round_cycles": ns * mhz / 1e3, "parts_cycles": parts,
@@ -94,12 +103,13 @@ def rounds(mhz: float) -> dict:
               "product round; clocked, SM cycles a round: "
               + ", ".join(f"{p} {c:.1f}" for p, c in parts.items())
               + f" (sum {sum(parts.values()):.1f})", flush=True)
-    for design in ("warp", "split"):
-        if f"add_{design}" in out:  # a row: 4 doublings and 2 additions, 2 rounds each
-            ns = (4 * out[f"dbl_{design}"]["round_ns"] + 2 * out[f"add_{design}"]["round_ns"]) / 6
-            out[f"fold_rows_{design}"] = {"round_ns": ns}
-            print(f"fold_rows {design:5s} one warp: {ns:8.2f} ns a product round "
-                  f"(4 doublings + 2 additions a row)", flush=True)
+    for row, (dbl, add, (n_dbl, n_add)) in ROWS.items():
+        if dbl in out and add in out:  # 2 rounds an operation
+            ns = ((n_dbl * out[dbl]["round_ns"] + n_add * out[add]["round_ns"])
+                  / (n_dbl + n_add))
+            out[row.replace(" ", "_")] = {"round_ns": ns}
+            print(f"{row:15s} one warp: {ns:8.2f} ns a product round ({n_dbl} doublings + "
+                  f"{n_add} addition{'s' if n_add > 1 else ''} a row)", flush=True)
     return out
 
 

@@ -52,8 +52,10 @@ def _demangle(names):
     return dict(zip(names, res.stdout.splitlines()))
 
 
-def main(argv=None) -> int:
-    sources = list(argv if argv is not None else sys.argv[1:]) or list(kernels.SOURCES)
+def usage(sources) -> dict:
+    """{source: (nvcc's return code, its log, {demangled name: parse's
+    entry})} for the named sources of ``csrc/``, one nvcc process each, all
+    at once (``chip_smoke.py`` runs it beside the build)."""
     nvcc = kernels._nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         procs = {
@@ -64,16 +66,24 @@ def main(argv=None) -> int:
             for i, src in enumerate(sources)
         }
         logs = {src: p.communicate()[0] for src, p in procs.items()}
-    rc = 0
+    out = {}
     for src, log in logs.items():
-        if procs[src].returncode != 0:
-            print(f"{src}: nvcc failed ({procs[src].returncode}):\n{log}", file=sys.stderr)
+        parsed = parse(log) if procs[src].returncode == 0 else {}
+        names = _demangle(list(parsed))
+        out[src] = (procs[src].returncode, log, {names[n]: u for n, u in parsed.items()})
+    return out
+
+
+def main(argv=None) -> int:
+    sources = list(argv if argv is not None else sys.argv[1:]) or list(kernels.SOURCES)
+    rc = 0
+    for src, (code, log, by_name) in usage(sources).items():
+        if code != 0:
+            print(f"{src}: nvcc failed ({code}):\n{log}", file=sys.stderr)
             rc = 1
             continue
-        usage = parse(log)
-        names = _demangle(list(usage))
-        for name, u in usage.items():
-            print(f"{src} {names[name][:90]:90s} registers {u.get('registers', '-')}  smem "
+        for name, u in by_name.items():
+            print(f"{src} {name[:90]:90s} registers {u.get('registers', '-')}  smem "
                   f"{u.get('smem', '-')} B  stack {u.get('stack', '-')} B  spill stores "
                   f"{u.get('spill_stores', '-')} B  loads {u.get('spill_loads', '-')} B", flush=True)
     return rc

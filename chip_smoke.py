@@ -5,7 +5,10 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. print the card (``nvidia-smi`` name and power limit) and build the
      CUDA kernels from ``bulletproofspp_tpu_torch/csrc`` with nvcc (one
-     process per source file, all at once);
+     process per source file, all at once); beside the build, ptxas's
+     report of kernels.cu (``tools/ptxas_usage.py``): registers, stack and
+     spills of each kernel logged, and no spills in horner_warp_kernel or
+     tail_rows_kernel (the MSMs' last launches);
   2. hold each kernel (padd, horner, reduce_block, tail_horner,
      table_flat, select_reduce, fold, select_reduce_fused, decompress,
      sr_variant, grid_copy, chain) against its plain PyTorch version on
@@ -59,10 +62,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      with edge values (``edge_planes``), mul_f16, add and sub also equal
      raw, at 1 and 8 steps, to field.cuh's representative
      (``kernels.field_words``), and its round phases
-     (``kernels.ROUND_PHASES``: the point chains' rounds, fold_rows' split
-     product among them) at 4,096 lanes against their plain versions, 1 and
-     8 steps (phase_bench, in phase 8, times them on one warp and prints
-     each round's parts and the old and new fold_rows round).
+     (``kernels.ROUND_PHASES``: the point chains' rounds, fold_rows' and
+     horner's split products and tail_rows' groups among them) at 4,096
+     lanes against their plain versions, 1 and 8 steps (phase_bench, in
+     phase 8, times them on one warp and prints each round's parts and
+     the old and new rounds of fold_rows and horner).
      select_reduce_fused, with a
      row of zero digits and sign 1, equals the two kernels table_flat +
      select_reduce limb for limb (raw) at 4,096 lanes and at 2^21 lanes,
@@ -286,6 +290,7 @@ from __future__ import annotations
 
 import ast
 import collections
+import concurrent.futures
 import contextlib
 import hashlib
 import io
@@ -793,13 +798,12 @@ def check_kernels(dev):
     for K, p in lanes.items():
         err = compare(f"tail_horner K={K}", kernels.tail_horner(p, ROWS),
                       kernels.tail_horner_plain(p, ROWS))
-    log(f"tail_horner K=130 rows={ROWS}: max_abs_err {err}, cuda "
-        f"{time_ms(lambda: kernels.tail_horner(p, ROWS), 5):.4f} ms")
-    p1 = lanes[1]
-    rows.append(("tail_horner", err, time_ms(lambda: kernels.tail_horner(p1, ROWS), 5),
-                 time_ms(lambda: kernels.tail_horner_plain(p1, ROWS), 1, paced=True),
-                 f"K=1 rows={ROWS}",
-                 bounds.tail_horner(1, ROWS)))
+    # rows at K = 1 and msm_many's 130 (4,290 row trees)
+    for K in (1, 130):
+        p = lanes[K]
+        rows.append(("tail_horner", err, time_ms(lambda: kernels.tail_horner(p, ROWS), 5),
+                     time_ms(lambda: kernels.tail_horner_plain(p, ROWS), 1, paced=True),
+                     f"K={K} rows={ROWS}", bounds.tail_horner(K, ROWS)))
     rows += check_table_flat(dev, rng)
 
     # select_reduce: a 4,096-lane MSM (128by64's widest), 33 rows
@@ -1181,7 +1185,8 @@ def check_measurement_kernels(dev, rng):
     # ten launches: the bound is the sum of each phase's own
     rows.append(("chain", 0, ms, plain_ms, f"L={L} rep=8, 10 phases summed", works))
     # chain's round phases (kernels.ROUND_PHASES: the point chains' rounds,
-    # fold_rows' among them, a lane on 16 threads) at ROUND_LANES lanes with
+    # fold_rows', horner's and tail_rows' among them, a lane on a group of
+    # G threads) at ROUND_LANES lanes with
     # edge lanes, 1 and 8 steps, against their plain versions; phase_bench
     # (phase 8) times them on one warp
     for phase in kernels.ROUND_PHASES:
@@ -2535,7 +2540,7 @@ def library_remainder(dev, route: str):
     for step, p in out.items():
         if not p["complete"]:
             raise AssertionError(f"the profile of the {route} route's {step} misses some of its "
-                                 f"launches {p['launched']}")
+                                 f"launches {p['launched']}: {p['shortfall']}")
     if route == "kernels":
         if not ({"complete_square", *ASSEMBLY_OPS, "horner"} <= set(out["prove"]["launched"])
                 and "tail_horner" in out["verify"]["launched"]
@@ -2701,6 +2706,31 @@ def require_port_only():
         raise AssertionError(f"modules of JAX or the JAX package were imported: {foreign[:8]}")
 
 
+def ptxas_report(report):
+    """Phase 1's ptxas report of kernels.cu (``ptxas_usage.usage``): each
+    kernel's registers, stack and spills logged; horner_warp_kernel and
+    tail_rows_kernel (both instantiations of each) must be there, spilling
+    nothing."""
+    code, out, by_name = report["kernels.cu"]
+    if code != 0:
+        raise AssertionError(f"nvcc -Xptxas -v kernels.cu failed ({code}):\n{out[-4000:]}")
+    for name, u in by_name.items():
+        if "registers" in u:
+            log(f"ptxas kernels.cu {name[:100]}: registers {u['registers']}, smem {u['smem']} B, "
+                f"stack {u.get('stack', 0)} B, spill stores {u.get('spill_stores', 0)} B, "
+                f"loads {u.get('spill_loads', 0)} B")
+    for kernel in ("horner_warp_kernel", "tail_rows_kernel"):
+        found = {n: u for n, u in by_name.items() if kernel in n and "registers" in u}
+        if len(found) != 2:
+            raise AssertionError(f"ptxas: {kernel}'s two instantiations not in the report: "
+                                 f"{sorted(found)}")
+        spilled = {n: u for n, u in found.items() if u.get("spill_stores") or u.get("spill_loads")}
+        if spilled:
+            raise AssertionError(f"ptxas: {kernel} spills: {spilled}")
+        log(f"ptxas: {kernel} spills nothing; registers "
+            f"{sorted(u['registers'] for u in found.values())}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2708,11 +2738,16 @@ def main() -> int:
     from bulletproofspp_tpu_torch import native
     from bulletproofspp_tpu_torch.ops import kernels
 
+    from bulletproofspp_tpu_torch.tools import ptxas_usage
+
     dev = torch.device("cuda")
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    kernels.lib()
-    log(f"kernel build + load: {kernels.build_seconds():.3f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # nvcc -Xptxas -v beside the build
+        ptxas = pool.submit(ptxas_usage.usage, ["kernels.cu"])
+        kernels.lib()
+        log(f"kernel build + load: {kernels.build_seconds():.3f} s")
+        ptxas_report(ptxas.result())
     log(f"scalar pipeline: {native.pipeline()}")
 
     checked = check_kernels(dev)

@@ -216,8 +216,8 @@ def test_cuda_chain_matches_plain_version(phase):
 @pytest.mark.cuda
 @pytest.mark.parametrize("phase", sorted(kernels.ROUND_PHASES))
 def test_cuda_round_phases_match_plain_version(phase):
-    """The point chains' rounds (a product on one thread, and on two) on 16
-    threads a lane at 520 lanes (not a multiple of a block's 8 lanes),
+    """The point chains' rounds (a product on one thread, and on two) on a
+    group of G threads a lane at 520 lanes (not a multiple of a block's lanes),
     saturated and edge limbs among them, equal to their plain versions
     after normalization; the clocks hold each part's cycles."""
     dev = _card()

@@ -88,6 +88,46 @@ def test_profile_complete_matches_launches_by_device_kernel(case):
     assert engine_profile.profile_complete(launched, by_kernel) is want
 
 
+SHORTFALLS = {
+    "tail_horner and horner": {},
+    "a missing horner_warp_kernel": {"horner_warp_kernel": 1},
+    "one launch too many": {"horner_warp_kernel": -1},
+    "a missing narrow table_flat": {"table_flat_kernel|table_flat_narrow_kernel": 1},
+    "no port kernel in the profile": {"reduce_block_kernel|reduce_block_narrow_kernel": 1},
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHORTFALLS))
+def test_profile_shortfall_names_the_missing_launches(case):
+    launched, events, _ = CASES[case]
+    _, by_kernel = device_time(_prof(*events), top=None)
+    assert engine_profile.profile_shortfall(launched, by_kernel) == SHORTFALLS[case]
+
+
+def test_profiled_call_starts_after_the_profiler_settles(monkeypatch):
+    """engine_profile.profiled waits PROFILE_SETTLE_S between the profiler's
+    start and fn's first launch (a launch right at the start has been lost
+    from the profile), and the wait is not in the wall seconds."""
+    import contextlib
+    import time
+
+    import torch
+
+    marks = {}
+
+    @contextlib.contextmanager
+    def stub_profile(**_):
+        marks["start"] = time.perf_counter()
+        yield _prof()
+
+    monkeypatch.setattr(torch.profiler, "profile", stub_profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    p = engine_profile.profiled(lambda: marks.setdefault("fn", time.perf_counter()))
+    assert marks["fn"] - marks["start"] >= engine_profile.PROFILE_SETTLE_S > 0
+    assert p["wall_s"] < engine_profile.PROFILE_SETTLE_S
+    assert p["launched"] == {} and p["complete"]
+
+
 def test_device_time_by_wrapper_sums_both_designs():
     """engine_profile's by_wrapper: a wrapper's time and launches summed over
     its device kernels (both designs); a kernel two wrappers run counts for

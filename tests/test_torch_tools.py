@@ -298,9 +298,10 @@ def test_bound_of_launches_in_sequence_sums_their_bounds():
 
 
 @pytest.mark.parametrize("kernel,chain", [
-    # all rows' trees at once (7 additions), then 33 rows of 4 doublings + 1
-    # addition on one warp, 2 rounds an operation
-    ("tail_horner", (7 + 33 * 5, 7 * 12 + 33 * 5 * 2)),
+    # all rows' trees at once, each addition on a group of 8 threads (2
+    # rounds; the first level's two a group in turn, then 6 levels: 8), then
+    # 33 rows of 4 doublings + 1 addition on one warp, 2 rounds an operation
+    ("tail_horner", (8 + 33 * 5, 2 * (8 + 33 * 5))),
     # 33 rows of 4 doublings + 1 addition on one warp, 2 rounds an operation
     # (on one thread: 33 * (4 * 8 + 12) = 1,452 products)
     ("horner", (165, 330)),
