@@ -250,17 +250,21 @@ def select_reduce_fused_chain(rows: int):
 
 
 def fold_chain(rows: int):
-    """fold's chain, one warp per lane: 4 doublings and 2 additions a row,
-    2 rounds each."""
+    """fold's chain, one warp per lane: a row's sum of its two entries, then
+    4 doublings and + that sum, in turn (6 operations a row), 2 rounds
+    each."""
     return 6 * rows, 2 * 6 * rows
 
 
 def fold_many_chain(rows: int, group: int):
     """fold_many's chain, a lane on a group of ``group`` threads: the tables'
     7 additions (at group 16 or 32 the two tables at once, each on half the
-    group; at 8 one after the other: 14), then fold's 4 doublings and 2
-    additions a row, 2 rounds each."""
-    ops = (7 if group >= 16 else 14) + 6 * rows
+    group; at 8 one after the other: 14), then the rows.  At 16 and 32 the
+    first row's sum of its two entries, then 4 doublings and 1 addition a
+    row (``csrc/kernels.cu: fold_rows``: the next row's sum is made by the
+    other half of the group beside it); at 8 each row's sum, 4 doublings
+    and + the sum in turn (6 a row).  2 rounds each."""
+    ops = 7 + 1 + 5 * rows if group >= 16 else 14 + 6 * rows
     return ops, 2 * ops
 
 

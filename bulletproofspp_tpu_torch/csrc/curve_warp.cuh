@@ -194,6 +194,52 @@ __device__ __forceinline__ Pt pt_dbl_warp(const Pt& p, Parts&& parts = Parts()) 
   return r;
 }
 
+// a where c, else b, word by word: a ternary on the structs takes their
+// addresses and keeps them in local memory (a 384-byte stack frame in
+// complete_square_kernel<16>, and its chain 7% slower a round).
+__device__ __forceinline__ Pt pt_select(bool c, const Pt& a, const Pt& b) {
+  Pt r;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    r.x.w[k] = c ? a.x.w[k] : b.x.w[k];
+    r.y.w[k] = c ? a.y.w[k] : b.y.w[k];
+    r.z.w[k] = c ? a.z.w[k] : b.z.w[k];
+  }
+  return r;
+}
+
+// The threads each product of pt_add_pair's additions runs on: G / 2 = 8
+// threads hold an addition's 6 products one a thread, 16 two a product.
+template <int G>
+constexpr int kPairSplit = G >= 32 ? 2 : 1;
+
+// Two independent additions at once on a group of G >= 16 threads (the
+// paired addition of kernels.cu: fold_rows): the group's first half (threads
+// 0 .. G / 2 - 1 of it) makes a0 + b0 and its second half a1 + b1, each on
+// G / 2 threads (pt_add_warp<G / 2>: the shuffles stay inside the half),
+// then each half hands its sum to the other by shuffles, so every thread
+// of the group ends with both: r0 = a0 + b0, r1 = a1 + b1.  Both halves
+// issue the same instructions; each passes the operands of its own sum and
+// may pass anything for the other's.
+template <int G, class Parts = NoParts>
+__device__ __forceinline__ void pt_add_pair(const Pt& a0, const Pt& b0, const Pt& a1,
+                                            const Pt& b1, Pt& r0, Pt& r1,
+                                            Parts&& parts = Parts()) {
+  static_assert(G >= 16 && G <= 32, "two halves of at least 8 threads");
+  const bool h = (threadIdx.x / (G / 2)) & 1;
+  const Pt v = pt_add_warp<G / 2, kPairSplit<G>>(pt_select(h, a1, a0), pt_select(h, b1, b0), parts);
+  Pt o;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    o.x.w[k] = __shfl_xor_sync(0xffffffffu, v.x.w[k], G / 2, G);
+    o.y.w[k] = __shfl_xor_sync(0xffffffffu, v.y.w[k], G / 2, G);
+    o.z.w[k] = __shfl_xor_sync(0xffffffffu, v.z.w[k], G / 2, G);
+  }
+  parts.mark(kPartBroadcast, o);
+  r0 = pt_select(h, o, v);
+  r1 = pt_select(h, v, o);
+}
+
 // Thread r of a group of G stores its share of the NF elements v at lane
 // j: words i = r, r + G, ... of the 8 NF (word i % 8 of element i / 8), as
 // limbs 2 (i % 8) and 2 (i % 8) + 1 of plane dst[i / 8] (fe_store's

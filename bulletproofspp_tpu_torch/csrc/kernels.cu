@@ -555,7 +555,9 @@ __global__ void select_reduce_rows_kernel(const int64_t* __restrict__ tx,
 // Per lane b E_j + a O_j with digit streams shared by all lanes (basis
 // folding and square completion): 33 rows of 4 doublings and 2 additions,
 // MSB row first, the entries read from the lanes' flat tables (table_flat's
-// layout).
+// layout).  A row r makes s_r = E entry + O entry, then acc = 16 acc + s_r
+// (the JAX scan adds the two entries to acc one after the other, the same
+// group element: the projective words differ, the affine point does not).
 //
 // What bounds it: the latency of its chain, 198 dependent point operations
 // a lane, at the 16-512 lanes the prover folds (far below both the
@@ -591,8 +593,7 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
       const Pt o = table_entry(ox, oy2, oz, n, j, dig.d[2][r], dig.d[3][r]);
 #pragma unroll 1
       for (int k = 0; k < 4; k++) acc = pt_dbl_warp(acc);
-      acc = pt_add_warp(acc, e);
-      acc = pt_add_warp(acc, o);
+      acc = pt_add_warp(acc, pt_add_warp(e, o));
     }
     if ((threadIdx.x & 31) == 0) pt_store(rx, ry, rz, n, j, acc);
   }
@@ -607,10 +608,11 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
 //
 // What bounds it on the H100, by the launch's width (its lanes: 32 at B = 2,
 // L = 16 to 8,192 at B = 16, L = 512):
-//  * narrow launches: the latency of a lane's chain, 4 doublings and 2
-//    additions a row over 33 rows (396 product rounds on a group of
-//    threads), after the tables' 7 additions each.  The tables are built
-//    here, not by two table_flat launches before (two launches, and 4,608 B
+//  * narrow launches: the latency of a lane's chain, 4 doublings and 1
+//    addition a row over 33 rows (330 product rounds on a group of
+//    threads: each row's sum of its two entries is made beside the row
+//    before, fold_rows), after the tables' 7 additions each.  The tables
+//    are built here, not by two table_flat launches before (two launches, and 4,608 B
 //    a lane written to device memory and read back row by row as int64
 //    limbs): the lane's group loads E_j and O_j once, makes the 9 multiples
 //    of each with table_flat_narrow_kernel's formulas in its order (so each
@@ -631,8 +633,8 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
 // (ops/kernels.py: fold_many) takes G = 8 from FOLD_MANY_WIDE_LANES (2,048)
 // lanes a launch and G = 16 below, where it matched G = 32 within 0.6% and
 // was the fastest at 1,024 lanes (chip_smoke.py phase 2 times all three in
-// turns at five shapes).  The order of each lane's chain is the JAX scan's
-// and fold's: per row 4 doublings, + the E entry, + the O entry; the
+// turns at five shapes).  The order of each lane's chain is fold's: per
+// row the sum of the E and O entries, then 4 doublings and + that sum; the
 // output equals table_flat + fold on the same lanes word for word, whatever
 // G.  Up to kFoldMaxProvers provers' digits travel by value in the launch
 // (no upload, no synchronization); the wrapper splits a call of more
@@ -655,8 +657,9 @@ struct __align__(16) FoldEntry {
   Fe x, y, ny, z;  // ny = -y (fe_neg), as table_flat's entries 9..17
 };
 
-// Lanes a block of fold_many at group width G: 36,864 B of tables at G = 8,
-// within the 48 KB of static shared memory.
+// Lanes a block of fold_many at group width G: 36,864 B of tables at G = 8
+// (and 1,536 B of fold_rows' stash), within the 48 KB of static shared
+// memory.
 template <int G>
 constexpr int kFoldManyLanes = 32 * kFoldWarps / G;
 
@@ -686,47 +689,67 @@ __device__ __forceinline__ Pt fold_entry(const FoldEntry* t, int d, int s) {
   return p;
 }
 
-// The lane's fold on its group of G threads, after its two tables are in
-// t (t[0] E's, t[1] O's): per row 4 doublings, + the E entry, + the O entry
-// (the JAX scan's order and fold's).  Every thread of the group ends with
-// the sum.  At G >= 16 each product of a round on two threads
-// (curve_warp.cuh: fe_mul_split); at G = 8 (wide launches, bound by
-// instruction issue; an addition's 12 threads would not fit) one a thread.
-// The same words.
-template <int G>
-__device__ __forceinline__ Pt fold_rows(const FoldEntry (&t)[2][9], const FoldDigits& dg) {
-  constexpr int S = G >= 16 ? 2 : 1;
-  Pt acc = pt_identity();
-#pragma unroll 1
-  for (int r = 0; r < kFoldRows; r++) {
-#pragma unroll 1
-    for (int k = 0; k < 4; k++) acc = pt_dbl_warp<G, S>(acc);
-    acc = pt_add_warp<G, S>(acc, fold_entry(t[0], dg.d[0][r], dg.d[1][r]));
-    acc = pt_add_warp<G, S>(acc, fold_entry(t[1], dg.d[2][r], dg.d[3][r]));
-  }
-  return acc;
-}
-
 // The half of its group a thread is in: at G >= 16 each half builds one of
-// the lane's two tables (and complete_square's halves make one of its two
-// sums each); at G = 8 the whole group does both in turn.
+// the lane's two tables, makes one of fold_rows' two additions a row (and
+// complete_square's halves make one of its two sums each); at G = 8 the
+// whole group does both in turn.
 template <int G>
 __device__ __forceinline__ int fold_half() {
   return G >= 16 ? (threadIdx.x / (G / 2)) & 1 : 0;
 }
 
-// a where c, else b, word by word: a ternary on the structs takes their
-// addresses and keeps them in local memory (a 384-byte stack frame in
-// complete_square_kernel<16>, and its chain 7% slower a round).
-__device__ __forceinline__ Pt pt_select(bool c, const Pt& a, const Pt& b) {
-  Pt r;
-#pragma unroll
-  for (int k = 0; k < 8; k++) {
-    r.x.w[k] = c ? a.x.w[k] : b.x.w[k];
-    r.y.w[k] = c ? a.y.w[k] : b.y.w[k];
-    r.z.w[k] = c ? a.z.w[k] : b.z.w[k];
+// The lane's fold on its group of G threads, after its two tables are in
+// t (t[0] E's, t[1] O's): per row r the sum s_r = E entry + O entry, then
+// 4 doublings and acc + s_r (fold's order).  s_r does not depend on acc, so
+// at G >= 16 it leaves the chain: the group's two halves run one addition
+// each, on G / 2 threads (curve_warp.cuh: pt_add_pair), half 0 acc + s_r
+// while half 1 makes s_(r+1) from the next row's entries (the last row's
+// half 1 makes s_32 again, unread), and the two sums cross halves by
+// shuffles.  A row's chain is 4 doublings on the whole group, each product
+// on two threads (curve_warp.cuh: fe_mul_split), and one addition, not
+// two.  Both halves issue the same instructions, so nothing diverges.  s_0
+// is made by a pass of the loop before row 0 (no doublings, half 0's sum
+// dropped) rather than by a copy of the addition before the loop: on the
+// H100 that copy made fold_many 1.3% slower at B = 1, L = 16 and
+// complete_square 15% (its round ~10% slower than fold_many's, as before
+// the paired addition; with the pass the two are within 1%).  At G = 8
+// (wide launches, bound by instruction issue; an addition's 12 threads
+// would not fit) the group makes the doublings, s_r and acc + s_r in turn,
+// one product a thread; acc waits in shared memory (stash, the lane's)
+// while the group makes s_r, so that it holds no more registers than an
+// addition to acc does (136 registers a thread with acc in them, and three
+// blocks an SM instead of four: 6% slower at 8,192 lanes).  Every thread
+// of the group ends with the sum; the words are the same whatever G.
+template <int G>
+__device__ __forceinline__ Pt fold_rows(const FoldEntry (&t)[2][9], const FoldDigits& dg,
+                                        Pt& stash) {
+  Pt acc = pt_identity();
+  if constexpr (G >= 16) {
+    Pt s = acc;
+#pragma unroll 1
+    for (int r = -1; r < kFoldRows; r++) {  // r = -1: s_0 only, half 0's sum dropped
+#pragma unroll 1
+      for (int k = r < 0 ? 4 : 0; k < 4; k++) acc = pt_dbl_warp<G, 2>(acc);
+      const int q = r + 1 < kFoldRows ? r + 1 : r;
+      Pt v;
+      pt_add_pair<G>(acc, s, fold_entry(t[0], dg.d[0][q], dg.d[1][q]),
+                     fold_entry(t[1], dg.d[2][q], dg.d[3][q]), v, s);
+      if (r >= 0) acc = v;
+    }
+  } else {
+#pragma unroll 1
+    for (int r = 0; r < kFoldRows; r++) {
+#pragma unroll 1
+      for (int k = 0; k < 4; k++) acc = pt_dbl_warp<G>(acc);
+      stash = acc;   // the group's threads store the same words
+      __syncwarp();  // the stores before the loads
+      const Pt s = pt_add_warp<G>(fold_entry(t[0], dg.d[0][r], dg.d[1][r]),
+                                  fold_entry(t[1], dg.d[2][r], dg.d[3][r]));
+      acc = pt_add_warp<G>(stash, s);
+      __syncwarp();  // the loads before the next row's stores
+    }
   }
-  return r;
+  return acc;
 }
 
 // Lane w of the launch (of prover w / lanes) on a group of G threads.  The
@@ -746,6 +769,7 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
                      int64_t lanes, int64_t first, int64_t count) {
   constexpr int per = kFoldManyLanes<G>;
   __shared__ FoldEntry tabs[per][2][9];
+  __shared__ __align__(16) Pt stashes[per];  // fold_rows' acc at G = 8
   const int slot = threadIdx.x / G;
   FoldEntry(&tab)[2][9] = tabs[slot];
   for (int64_t w0 = blockIdx.x * (int64_t)per; w0 < count; w0 += (int64_t)gridDim.x * per) {
@@ -769,7 +793,7 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
       fold_table<G>(tab[1], pt_load(ox, oy, oz, n, j));
     }
     __syncwarp();  // the group's table stores before its reads
-    const Pt acc = fold_rows<G>(tab, dig.p[wl / lanes]);
+    const Pt acc = fold_rows<G>(tab, dig.p[wl / lanes], stashes[slot]);
     if (w < count) {
       int64_t* const dst[3] = {rx, ry, rz};
       const Fe v[3] = {acc.x, acc.y, acc.z};
@@ -805,7 +829,7 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
 //    turn), and each is stored by the threads that made it.
 // So gx and hy equal the unfused route (endo, fold_many, padd(g1, rp) and
 // padd(g1, pneg(rp))) word for word.  The group width is fold_many's
-// (ops/kernels.py: fold_many_group); shared memory is its 2,304 B a lane,
+// (ops/kernels.py: fold_many_group); shared memory is its 2,400 B a lane,
 // the epilogue takes none.
 template <int G>
 __global__ void __launch_bounds__(32 * kFoldWarps)
@@ -819,6 +843,7 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
                            int64_t lanes, int64_t first, int64_t count) {
   constexpr int per = kFoldManyLanes<G>;
   __shared__ FoldEntry tabs[per][2][9];
+  __shared__ __align__(16) Pt stashes[per];  // fold_rows' acc at G = 8
   const int slot = threadIdx.x / G;
   FoldEntry(&tab)[2][9] = tabs[slot];
   for (int64_t w0 = blockIdx.x * (int64_t)per; w0 < count; w0 += (int64_t)gridDim.x * per) {
@@ -834,7 +859,7 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
       fold_table<G>(tab[1], phi);
     }
     __syncwarp();  // the group's table stores before its reads
-    const Pt acc = fold_rows<G>(tab, dig.p[wl / lanes]);
+    const Pt acc = fold_rows<G>(tab, dig.p[wl / lanes], stashes[slot]);
     const Pt g1 = pt_load(bx, by, bz, n, j);
     Pt neg = acc;
     neg.y = fe_neg(acc.y);

@@ -37,8 +37,9 @@
 //    chains' additions and doublings on a group of G threads a lane
 //    (curve_warp.cuh, a product on S = 1 or 2 threads), at the (G, S) of
 //    each chain: fold_rows' 16 and 2 (and the former 16 and 1), horner's 32
-//    and 2 (and the former 32 and 1), tail_rows' 8 and 1; they can clock
-//    each part of a round.
+//    and 2 (and the former 32 and 1), tail_rows' 8 and 1, and fold_rows'
+//    paired addition (two halves of 8, S = 1, and their hand-over); they
+//    can clock each part of a round.
 
 #include <cuda_runtime.h>
 
@@ -134,8 +135,10 @@ enum Phase {
   // a complete addition or doubling on a group of G threads a lane, 3
   // state planes, in curve_warp.cuh's rounds, each product on S threads:
   // G = 16 (kAddWarp, kDblWarp: S = 1; kAddSplit, kDblSplit: S = 2,
-  // fold_rows'), G = 32 (horner's: S = 1, 2) and G = 8, S = 1 (the
-  // narrow kernels' and tail_rows' additions)
+  // fold_rows' doublings), G = 32 (horner's: S = 1, 2), G = 8, S = 1 (the
+  // narrow kernels' and tail_rows' additions) and kAddPair: fold_rows'
+  // paired addition, a group of 16 whose halves of 8 each add (S = 1),
+  // then trade their sums by shuffles (curve_warp.cuh: pt_add_pair)
   kAddWarp,
   kDblWarp,
   kAddSplit,
@@ -145,6 +148,7 @@ enum Phase {
   kAdd32S2,
   kDbl32S2,
   kAdd8S1,
+  kAddPair,
 };
 
 // The product reduced by one pass T = L + 977 H + 2^32 H, with the carry out
@@ -242,9 +246,15 @@ struct PartClock {
   }
 };
 
-template <bool Add, int G, int S, class Parts>
+// With Pair: the paired addition, half 0 x + b beside half 1 b + x; the
+// step keeps half 0's sum (the addition's words).
+template <bool Add, int G, int S, bool Pair, class Parts>
 __device__ __forceinline__ Pt round_step(const Pt& x, const Pt& b, Parts& parts) {
-  if constexpr (Add) {
+  if constexpr (Pair) {
+    Pt r0, r1;
+    pt_add_pair<G>(x, b, b, x, r0, r1, parts);
+    return r0;
+  } else if constexpr (Add) {
     return pt_add_warp<G, S>(x, b, parts);
   } else {
     return pt_dbl_warp<G, S>(x, parts);
@@ -253,7 +263,7 @@ __device__ __forceinline__ Pt round_step(const Pt& x, const Pt& b, Parts& parts)
 
 // One launch covers every lane; a group past the last lane runs lane n - 1
 // again and stores nothing (every thread takes part in the shuffles).
-template <bool Add, int G, int S>
+template <bool Add, int G, int S, bool Pair>
 __global__ void round_kernel(const int64_t* __restrict__ a0, const int64_t* __restrict__ a1,
                              const int64_t* __restrict__ a2, const int64_t* __restrict__ b0,
                              const int64_t* __restrict__ b1, const int64_t* __restrict__ b2,
@@ -267,24 +277,24 @@ __global__ void round_kernel(const int64_t* __restrict__ a0, const int64_t* __re
   if (clocks) {
     PartClock pc;
     pc.start();
-    for (int i = 0; i < rep; i++) x = round_step<Add, G, S>(x, b, pc);
+    for (int i = 0; i < rep; i++) x = round_step<Add, G, S, Pair>(x, b, pc);
     if (lead) {
 #pragma unroll
       for (int k = 0; k < kRoundParts; k++) clocks[k * n + w] = pc.cyc[k] + (pc.sink == 1u);
     }
   } else {
     NoParts none;
-    for (int i = 0; i < rep; i++) x = round_step<Add, G, S>(x, b, none);
+    for (int i = 0; i < rep; i++) x = round_step<Add, G, S, Pair>(x, b, none);
   }
   if (lead) fe_store(out, n, w, x.x);
 }
 
-template <bool Add, int G, int S>
+template <bool Add, int G, int S, bool Pair>
 void launch_round(const int64_t* a0, const int64_t* a1, const int64_t* a2, const int64_t* b0,
                   const int64_t* b1, const int64_t* b2, int64_t* out, int64_t n, int rep,
                   int64_t* clocks, cudaStream_t s) {
-  round_kernel<Add, G, S><<<blocks_for(n * G), kThreads, 0, s>>>(a0, a1, a2, b0, b1, b2, out, n,
-                                                                 rep, clocks);
+  round_kernel<Add, G, S, Pair><<<blocks_for(n * G), kThreads, 0, s>>>(a0, a1, a2, b0, b1, b2,
+                                                                       out, n, rep, clocks);
 }
 
 }  // namespace
@@ -323,7 +333,7 @@ int bppp_grid_copy(const int64_t* x, int64_t* o, int64_t L, int64_t rows, int64_
   return (int)cudaGetLastError();
 }
 
-// clocks: null, or for the rounds' phases (kAddWarp..kAdd8S1) the
+// clocks: null, or for the rounds' phases (kAddWarp..kAddPair) the
 // (kRoundParts, n) int64 SM cycles of each part (round_kernel).
 int bppp_chain(int phase, const int64_t* a0, const int64_t* a1, const int64_t* a2,
                const int64_t* b0, const int64_t* b1, const int64_t* b2, int64_t* out, int64_t n,
@@ -341,8 +351,10 @@ int bppp_chain(int phase, const int64_t* a0, const int64_t* a1, const int64_t* a
     case kSubRaw2: launch_chain<kSubRaw2>(a0, a1, a2, b0, b1, b2, out, n, rep, s); break;
     case kCarryFull: launch_chain<kCarryFull>(a0, a1, a2, b0, b1, b2, out, n, rep, s); break;
     case kProdForm: launch_chain<kProdForm>(a0, a1, a2, b0, b1, b2, out, n, rep, s); break;
-#define BPPP_ROUND(P, ADD, G, S) \
-  case P: launch_round<ADD, G, S>(a0, a1, a2, b0, b1, b2, out, n, rep, clocks, s); break;
+#define BPPP_ROUND(P, ADD, G, S)                                                            \
+  case P:                                                                                   \
+    launch_round<ADD, G, S, P == kAddPair>(a0, a1, a2, b0, b1, b2, out, n, rep, clocks, s); \
+    break;
     BPPP_ROUND(kAddWarp, true, 16, 1)
     BPPP_ROUND(kDblWarp, false, 16, 1)
     BPPP_ROUND(kAddSplit, true, 16, 2)
@@ -352,6 +364,7 @@ int bppp_chain(int phase, const int64_t* a0, const int64_t* a1, const int64_t* a
     BPPP_ROUND(kAdd32S2, true, 32, 2)
     BPPP_ROUND(kDbl32S2, false, 32, 2)
     BPPP_ROUND(kAdd8S1, true, 8, 1)
+    BPPP_ROUND(kAddPair, true, 16, 1)
 #undef BPPP_ROUND
     default: return (int)cudaErrorInvalidValue;
   }

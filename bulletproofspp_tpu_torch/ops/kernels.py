@@ -735,21 +735,31 @@ def select_reduce_design(tables, absd, sgn, staged: bool):
 
 def fold_plain(te, to, digits):
     """te, to: the lanes' flat tables (``table_flat``); digits: host (4,
-    rows) ints de, se, do, so.  Returns (16, L): per row 4 doublings, + the
-    E entry, + the O entry."""
+    rows) ints de, se, do, so.  Returns (16, L): per row the sum of the E
+    and O entries (E first), then 4 doublings and + that sum (acc first).
+    The JAX scan adds the two entries to acc one after the other: the same
+    points, other projective words."""
+    n = te[0].shape[1]
+    d = torch.as_tensor(np.asarray(digits, np.int64)).to(te[0].device)
+    return _fold_lanes(te, to, d.unsqueeze(-1).expand(-1, -1, n))
+
+
+def _fold_lanes(te, to, d):
+    """fold's chain over the lanes of the flat tables te, to, lane j's
+    entries picked by its own digits d[:, r, j] (d: (4, rows, L) int64)."""
     n = te[0].shape[1]
     acc = curve.identity((n,), te[0].device)
 
-    def entry(t, d, s):
+    def entry(t, de, se):
         tx, ty2, tz = (c.view(-1, limb.NLIMB, n) for c in t)
-        return tx[d], ty2[d + TABLE * s], tz[d]
+        return tuple(c.gather(0, i.view(1, 1, n).expand(1, limb.NLIMB, n))[0]
+                     for c, i in ((tx, de), (ty2, de + TABLE * se), (tz, de)))
 
-    de, se, do, so = ([int(v) for v in row] for row in digits)
-    for r in range(len(de)):
+    for r in range(d.shape[1]):
+        s = curve.padd_loose(entry(te, d[0, r], d[1, r]), entry(to, d[2, r], d[3, r]))
         for _ in range(4):
             acc = curve.pdbl_loose(acc)
-        acc = curve.padd_loose(acc, entry(te, de[r], se[r]))
-        acc = curve.padd_loose(acc, entry(to, do[r], so[r]))
+        acc = curve.padd_loose(acc, s)
     return curve.tighten3(acc)
 
 
@@ -843,12 +853,13 @@ def _fold_launches(name: str, pts, packed, lanes: int, group, *out, phi: bool = 
 def fold_many_plain(pe, po, digits):
     """pe, po: the two bases' (16, B L) strict lanes, B provers' L lanes end
     to end; digits: (B, 4, ROWS) host ints.  ``table_flat_plain`` of each
-    basis, then ``fold_plain`` per prover on its lanes; returns (16, B L)."""
+    basis, then one ``fold_plain`` chain over all B L lanes, each lane's
+    entries picked by its prover's digits: the words of ``fold_plain`` per
+    prover on its lanes.  Returns (16, B L)."""
     B, L = _prover_lanes(pe, digits)
     te, to = table_flat_plain(pe), table_flat_plain(po)
-    outs = [fold_plain(tuple(t[:, b * L:(b + 1) * L] for t in te),
-                       tuple(t[:, b * L:(b + 1) * L] for t in to), digits[b]) for b in range(B)]
-    return tuple(torch.cat(c, 1) for c in zip(*outs))
+    d = torch.as_tensor(np.asarray(digits, np.int64)).to(pe[0].device)
+    return _fold_lanes(te, to, d.permute(1, 2, 0).repeat_interleave(L, 2))
 
 
 def fold_many(pe, po, digits):
@@ -1635,13 +1646,16 @@ def chain(phase: str, a, b, rep: int = 8):
 # product on S threads (S = 2: ``fe_mul_split``).  G = 16: "warp" (S = 1)
 # and "split" (S = 2, fold_rows'); G = 32: horner's, S = 1 (before its
 # split) and 2 (HORNER_SPLIT); G = 8, S = 1: the narrow kernels' and
-# tail_rows' additions (TAIL_ROWS_GROUP).
+# tail_rows' additions (TAIL_ROWS_GROUP); "add_pair": fold_rows' paired
+# addition, G = 16 whose halves of 8 each add at S = 1 (half 0 x + b, half 1
+# b + x) and trade their sums by shuffles (``curve_warp.cuh: pt_add_pair``),
+# the state half 0's sum.
 ROUND_PHASES = {
     "add_warp": (10, True, 16, 1), "dbl_warp": (11, False, 16, 1),
     "add_split": (12, True, 16, 2), "dbl_split": (13, False, 16, 2),
     "add_g32_s1": (14, True, 32, 1), "dbl_g32_s1": (15, False, 32, 1),
     "add_g32_s2": (16, True, 32, 2), "dbl_g32_s2": (17, False, 32, 2),
-    "add_g8_s1": (18, True, 8, 1),
+    "add_g8_s1": (18, True, 8, 1), "add_pair": (19, True, 16, 1),
 }
 # the threads each product of horner's rounds runs on (csrc/kernels.cu:
 # kHornerSplit)

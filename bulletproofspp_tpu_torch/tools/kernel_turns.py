@@ -11,7 +11,7 @@ and 130, and K = 2 from the tables, canonical), horner (K = 1 and 130), fold,
 fold_many (B = 1 at 16, 512 and 4,096 lanes beside table_flat x 2 + fold,
 the one-prover route it replaced, and endo + that route, shared_mul's,
 against its phi form where the checkout has it; B = 2 and 16 at 16 lanes,
-16 at 512), complete_square (B = 1 at 16 and 256 lanes, 16 at 16),
+4 and 16 at 512), complete_square (B = 1 at 16 and 256 lanes, 16 at 16),
 select_reduce (both designs), sr_variant
 (blk 1,024 / out 128, with and without its selection), select_reduce_fused
 at 4,096 and 2^21 lanes, decompress, to_affine, inv, endo, pneg,
@@ -115,7 +115,7 @@ def cases(rng) -> dict:
     fd = fold_digits(1, rng)
     fe, fo = kernels.table_flat(points(512, rng)), kernels.table_flat(points(512, rng))
     out["fold L=512"] = lambda: kernels.fold(fe, fo, fd[0])
-    for B, L in ((1, 16), (1, 512), (1, 4096), (2, 16), (16, 16), (16, 512)):
+    for B, L in ((1, 16), (1, 512), (1, 4096), (2, 16), (16, 16), (4, 512), (16, 512)):
         pe, po, d = points(B * L, rng), points(B * L, rng), fold_digits(B, rng)
         out[f"fold_many B={B} L={L}"] = lambda pe=pe, po=po, d=d: kernels.fold_many(pe, po, d)
         if B > 1:

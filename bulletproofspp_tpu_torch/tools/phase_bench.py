@@ -29,8 +29,10 @@ addition or doubling, by the latency method above over ROUND_REP steps)
 and, from a run with the kernel's clocks on, the SM cycles a round of each
 part (``kernels.ROUND_PARTS``: forming the operands, the product, the split
 product's combination, the broadcast, the cheap steps); then a fold_rows
-round of each of its designs (G = 16: 4 doublings and 2 additions a row)
-and a horner round at each S (G = 32: 4 doublings and 1 addition a row).
+row of each of its designs, ns a product round and ns a row (G = 16: 4
+doublings and 2 additions a row, S = 1 and 2; the paired addition's row,
+4 doublings at S = 2 and one ``add_pair``) and a horner row at each S (G =
+32: 4 doublings and 1 addition a row).
 Prints the card's ``nvidia-smi`` line first; exits 2 without CUDA.
 Imports no JAX.
 """
@@ -58,6 +60,7 @@ ROUND_REP = 1024
 ROWS = {
     "fold_rows warp": ("dbl_warp", "add_warp", (4, 2)),
     "fold_rows split": ("dbl_split", "add_split", (4, 2)),
+    "fold_rows paired": ("dbl_split", "add_pair", (4, 1)),
     "horner s1": ("dbl_g32_s1", "add_g32_s1", (4, 1)),
     "horner s2": ("dbl_g32_s2", "add_g32_s2", (4, 1)),
 }
@@ -107,9 +110,10 @@ def rounds(mhz: float) -> dict:
         if dbl in out and add in out:  # 2 rounds an operation
             ns = ((n_dbl * out[dbl]["round_ns"] + n_add * out[add]["round_ns"])
                   / (n_dbl + n_add))
-            out[row.replace(" ", "_")] = {"round_ns": ns}
-            print(f"{row:15s} one warp: {ns:8.2f} ns a product round ({n_dbl} doublings + "
-                  f"{n_add} addition{'s' if n_add > 1 else ''} a row)", flush=True)
+            row_ns = 2 * (n_dbl + n_add) * ns
+            out[row.replace(" ", "_")] = {"round_ns": ns, "row_ns": row_ns}
+            print(f"{row:16s} one warp: {ns:8.2f} ns a product round, {row_ns:8.1f} ns a row "
+                  f"({n_dbl} doublings + {n_add} addition{'s' if n_add > 1 else ''})", flush=True)
     return out
 
 

@@ -63,10 +63,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      raw, at 1 and 8 steps, to field.cuh's representative
      (``kernels.field_words``), and its round phases
      (``kernels.ROUND_PHASES``: the point chains' rounds, fold_rows' and
-     horner's split products and tail_rows' groups among them) at 4,096
-     lanes against their plain versions, 1 and 8 steps (phase_bench, in
-     phase 8, times them on one warp and prints each round's parts and
-     the old and new rounds of fold_rows and horner).
+     horner's split products, fold_rows' paired addition and tail_rows'
+     groups among them) at 4,096 lanes against their plain versions, 1
+     and 8 steps (phase_bench, in phase 8, times them on one warp and
+     prints each round's parts and the old and new rows of fold_rows and
+     horner).  The fold kernels' rows carry their chains (``bounds``: since
+     the paired addition 4 doublings and 1 addition a row at G >= 16) and
+     the us a product round of each.
      select_reduce_fused, with a
      row of zero digits and sign 1, equals the two kernels table_flat +
      select_reduce limb for limb (raw) at 4,096 lanes and at 2^21 lanes,

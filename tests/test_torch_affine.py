@@ -30,6 +30,8 @@ from bulletproofspp_tpu_torch.core.fields import Q, R
 from bulletproofspp_tpu_torch.ops import curve, glv, kernels, limb
 from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
+from torch_threads import one_thread  # noqa: F401
+
 # 0, 1, Q (strict, = 0 mod p), Q - 1, values in [Q, 2^256) (strict, not
 # canonical) and saturated 0xFFFF runs (tests/test_pallas_forms.py:35-45)
 EDGE = [

@@ -15,6 +15,8 @@ from bulletproofspp_tpu_torch.core.fields import R
 from bulletproofspp_tpu_torch.ops import kernels
 from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
+from torch_threads import one_thread  # noqa: F401
+
 ENGINE = TorchEngine("cpu")
 
 

@@ -29,6 +29,8 @@ from bulletproofspp_tpu_torch.core.transcript import take_points
 from bulletproofspp_tpu_torch.io_ import schema as schema_mod
 from bulletproofspp_tpu_torch.ops.engine import TorchEngine
 
+from torch_threads import one_thread  # noqa: F401
+
 EXAMPLES = pathlib.Path(__file__).resolve().parent.parent / "examples"
 ENGINE = HostEngine()
 

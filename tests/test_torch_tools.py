@@ -360,6 +360,33 @@ ptxas info    : Used 27 registers, 384 bytes cmem[0]
     }
 
 
+def test_ptxas_usage_counts_sass_opcodes_and_loops():
+    """``cuobjdump -sass`` text: each function's instructions (predicates
+    and modifiers dropped, a branch's target read), and its loops by
+    backward branch, the outer one first."""
+    from bulletproofspp_tpu_torch.tools import ptxas_usage
+
+    sass = """
+\tFunction : _Z3fooILi16EEvv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+        /*0010*/              @!P0 IMAD.WIDE.U32 R2, R3, R4, R5 ;  /* 0x0000000403027825 */
+        /*0020*/               @P1 BRA 0x10 ;                      /* 0x0000000000e01947 */
+        /*0030*/                   SHFL.BFLY PT, R1, R2, 0x8, 0x1f ;
+        /*0040*/                   BRA 0x0 ;
+        /*0050*/                   BRA 0x60 ;
+\tFunction : _Z3barv
+        /*0000*/                   EXIT ;
+"""
+    fns = ptxas_usage.sass_functions(sass)
+    assert fns == {"_Z3fooILi16EEvv": [(0, "LDC", None), (16, "IMAD", None), (32, "BRA", 16),
+                                       (48, "SHFL", None), (64, "BRA", 0), (80, "BRA", 96)],
+                   "_Z3barv": [(0, "EXIT", None)]}
+    loops = ptxas_usage.sass_loops(fns["_Z3fooILi16EEvv"])
+    assert [(a, b, dict(c)) for a, b, c in loops] == [
+        (0, 64, {"LDC": 1, "IMAD": 1, "BRA": 2, "SHFL": 1}), (16, 32, {"IMAD": 1, "BRA": 1})]
+    assert ptxas_usage.sass_loops(fns["_Z3barv"]) == []
+
+
 @pytest.mark.parametrize("module", ["bench", "tools.r5_experiments", "tools.phase_bench",
                                     "tools.padd_timing", "tools.assemble_host",
                                     "tools.kernel_turns"])
